@@ -1,0 +1,350 @@
+// skim_fused: one-pass predicate evaluation + stable stream compaction.
+//
+// Replaces the Pallas kernel `skim_fused` of src/repro/kernels/skim_fused.py
+// (body `_fused_kernel`, tiles stitched by `stitch_tiles`).
+//
+// What it computes, per window: the compiled predicate program over the
+// padded inputs terms (T,E,K), valid/weights (G,E,K), then the payload
+// rows (E,D) of the surviving events packed to the front in event order,
+// the tail zeroed, and the survivor count.
+//
+// What bounds it on an H100: bytes.  Each input element is read once and
+// used in a handful of float32 compares; the work per byte is far below
+// the card's compute/bandwidth ratio, so the least time is the bytes over
+// 3.35 TB/s.  At the main path's shapes (E = 4096, D = 1) the inputs are
+// tens of KiB and the launch dominates; making it fast is later work.
+//
+// Design:
+//  * The program is data, not code: the host flattens the frozen Program
+//    into small int32/float32 descriptor arrays (see
+//    repro_torch/kernels/skim_fused.py), so this one build serves every
+//    cascade stage and every padded E.  The reference instead specializes
+//    its kernel per program.
+//  * One thread per event, one 512-thread block per tile.  Each thread
+//    walks the groups and the K slots in order: HT and sum() accumulate
+//    slot by slot, left to right, as the reference's float32 reduction
+//    does.  Built without FMA contraction (--fmad=false) and without fast
+//    math, so every product and sum rounds as it does in the reference.
+//  * Compaction without the TPU's one-hot matmul: pass 1 writes each
+//    warp's ballot word and each tile's survivor count; pass 2 gives each
+//    survivor its row from the popcounts of the words before it and the
+//    counts of the tiles before it, and copies the row as 32-bit words,
+//    so the f32 event index in payload column 0 comes through exact.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 512;
+constexpr int kWarps = kTile / 32;
+constexpr int kMaxStack = 16;  // RPN stack depth (checked on the host)
+constexpr int kGroupFields = 8;
+
+enum { OP_GT, OP_GE, OP_LT, OP_LE, OP_EQ, OP_NE, OP_ABSLT, OP_ABSGT };
+enum { G_COUNT, G_HT, G_ANY, G_MASS, G_DR, G_EXPR };
+enum {
+  RPN_BRANCH, RPN_SUM, RPN_CONST, RPN_ADD, RPN_SUB, RPN_MUL, RPN_DIV,
+  RPN_NEG, RPN_ABS, RPN_MIN, RPN_MAX
+};
+// group descriptor row (int32)
+enum { GD_KIND, GD_TERM_OFF, GD_N_TERMS, GD_MIN_COUNT, GD_CMP_OP, GD_SAME,
+       GD_RPN_OFF, GD_RPN_LEN };
+
+// float32(pi), the reference's jnp.float32(np.pi)
+constexpr float kPi = 3.14159274101257324f;
+
+struct Program {
+  const int* groups;      // (G, kGroupFields)
+  const int* term_ids;    // flat, per group at GD_TERM_OFF
+  const int* ops;         // aligned with term_ids
+  const float* thrs;      // aligned with term_ids
+  const float* cmp_thrs;  // (G, 2): cmp_thr, cmp_thr2
+  const int* rpn_op;      // flat, per group at GD_RPN_OFF
+  const int* rpn_term;    // term slot of RPN_BRANCH / RPN_SUM
+  const float* rpn_const; // value of RPN_CONST
+  int G;
+};
+
+struct Inputs {
+  const float* terms;    // (T, E, K)
+  const float* valid;    // (G, E, K)
+  const float* weights;  // (G, E, K)
+  long long E;
+  int K;
+};
+
+__device__ __forceinline__ bool apply_op(float x, int op, float thr) {
+  switch (op) {
+    case OP_GT: return x > thr;
+    case OP_GE: return x >= thr;
+    case OP_LT: return x < thr;
+    case OP_LE: return x <= thr;
+    case OP_EQ: return x == thr;
+    case OP_NE: return x != thr;
+    case OP_ABSLT: return fabsf(x) < thr;
+    case OP_ABSGT: return fabsf(x) > thr;
+  }
+  return false;
+}
+
+// floor modulo, as jnp.mod / torch.remainder: fmodf, then moved to the
+// divisor's sign
+__device__ __forceinline__ float floor_mod(float x, float y) {
+  float r = fmodf(x, y);
+  if (r != 0.0f && ((r < 0.0f) != (y < 0.0f))) r += y;
+  return r;
+}
+
+// NaN-propagating min/max, as jnp.minimum / torch.minimum
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fminf(a, b);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
+}
+
+__device__ __forceinline__ const float* row(const float* base, int plane,
+                                            long long e, const Inputs& in) {
+  return base + ((long long)plane * in.E + e) * in.K;
+}
+
+// first maximal slot of pt among the valid ones (argmax semantics: NaN is
+// maximal, ties and an all-invalid row go to the lowest slot)
+__device__ int lead_slot(const float* pt, const float* vg, int K, bool second,
+                         int exclude) {
+  float best = -INFINITY;
+  int idx = 0;
+  for (int k = 0; k < K; ++k) {
+    bool v = second ? (vg[k] >= 2.0f) : (floor_mod(vg[k], 2.0f) >= 1.0f);
+    float x = (v && k != exclude) ? pt[k] : -INFINITY;
+    if (!isnan(best) && (isnan(x) || x > best)) {
+      best = x;
+      idx = k;
+    }
+  }
+  return idx;
+}
+
+__device__ int count_valid(const float* vg, int K, bool second) {
+  int n = 0;
+  for (int k = 0; k < K; ++k)
+    n += second ? (vg[k] >= 2.0f) : (floor_mod(vg[k], 2.0f) >= 1.0f);
+  return n;
+}
+
+__device__ void p4(float pt, float eta, float phi, float mass, float* px,
+                   float* py, float* pz, float* e) {
+  *px = pt * cosf(phi);
+  *py = pt * sinf(phi);
+  *pz = pt * sinhf(eta);
+  float ch = coshf(eta);
+  *e = sqrtf(mass * mass + pt * pt * ch * ch);
+}
+
+__device__ bool eval_pair(const Program& p, int g, long long e,
+                          const Inputs& in) {
+  const int* gd = p.groups + g * kGroupFields;
+  const int* ids = p.term_ids + gd[GD_TERM_OFF];
+  const int kind = gd[GD_KIND];
+  const bool same = gd[GD_SAME] != 0;
+  const int half = gd[GD_N_TERMS] / 2;
+  const float* vg = row(in.valid, g, e, in);
+  const int K = in.K;
+  const float* pt_a = row(in.terms, ids[0], e, in);
+  const float* pt_b = row(in.terms, ids[half], e, in);
+  int i1 = lead_slot(pt_a, vg, K, false, -1);
+  int i2;
+  bool ok;
+  if (same) {
+    i2 = lead_slot(pt_a, vg, K, false, i1);
+    ok = count_valid(vg, K, false) >= 2;
+  } else {
+    i2 = lead_slot(pt_b, vg, K, true, -1);
+    ok = count_valid(vg, K, false) >= 1 && count_valid(vg, K, true) >= 1;
+  }
+  if (!ok) return false;
+  auto sel = [&](int t, int slot) { return row(in.terms, ids[t], e, in)[slot]; };
+  if (kind == G_MASS) {
+    float px1, py1, pz1, e1, px2, py2, pz2, e2;
+    p4(sel(0, i1), sel(1, i1), sel(2, i1), sel(3, i1), &px1, &py1, &pz1, &e1);
+    p4(sel(4, i2), sel(5, i2), sel(6, i2), sel(7, i2), &px2, &py2, &pz2, &e2);
+    float se = e1 + e2, sx = px1 + px2, sy = py1 + py2, sz = pz1 + pz2;
+    float m2 = se * se - sx * sx - sy * sy - sz * sz;
+    float m = sqrtf(isnan(m2) ? m2 : fmaxf(m2, 0.0f));
+    const float* thr = p.cmp_thrs + 2 * g;
+    return m >= thr[0] && m <= thr[1];
+  }
+  float deta = sel(1, i1) - sel(4, i2);
+  float dphi = floor_mod(sel(2, i1) - sel(5, i2) + kPi, 2.0f * kPi) - kPi;
+  float dr = sqrtf(deta * deta + dphi * dphi);
+  return apply_op(dr, gd[GD_CMP_OP], p.cmp_thrs[2 * g]);
+}
+
+__device__ bool eval_expr(const Program& p, int g, long long e,
+                          const Inputs& in) {
+  const int* gd = p.groups + g * kGroupFields;
+  float stack[kMaxStack];
+  int sp = 0;
+  const int off = gd[GD_RPN_OFF];
+  for (int i = 0; i < gd[GD_RPN_LEN]; ++i) {
+    const int op = p.rpn_op[off + i];
+    if (op == RPN_BRANCH) {
+      stack[sp++] = row(in.terms, p.rpn_term[off + i], e, in)[0];
+    } else if (op == RPN_SUM) {
+      const float* x = row(in.terms, p.rpn_term[off + i], e, in);
+      float acc = 0.0f;
+      for (int k = 0; k < in.K; ++k) acc = acc + x[k];
+      stack[sp++] = acc;
+    } else if (op == RPN_CONST) {
+      stack[sp++] = p.rpn_const[off + i];
+    } else if (op == RPN_NEG) {
+      stack[sp - 1] = -stack[sp - 1];
+    } else if (op == RPN_ABS) {
+      stack[sp - 1] = fabsf(stack[sp - 1]);
+    } else {
+      const float b = stack[--sp];
+      const float a = stack[sp - 1];
+      float r;
+      switch (op) {
+        case RPN_ADD: r = a + b; break;
+        case RPN_SUB: r = a - b; break;
+        case RPN_MUL: r = a * b; break;
+        case RPN_DIV: r = a / b; break;
+        case RPN_MIN: r = nan_min(a, b); break;
+        default: r = nan_max(a, b); break;
+      }
+      stack[sp - 1] = r;
+    }
+  }
+  return apply_op(stack[sp - 1], gd[GD_CMP_OP], p.cmp_thrs[2 * g]);
+}
+
+__device__ bool eval_event(const Program& p, long long e, const Inputs& in) {
+  for (int g = 0; g < p.G; ++g) {
+    const int* gd = p.groups + g * kGroupFields;
+    const int kind = gd[GD_KIND];
+    const int off = gd[GD_TERM_OFF];
+    const int nt = gd[GD_N_TERMS];
+    bool pass;
+    if (kind == G_ANY) {
+      pass = false;
+      for (int i = 0; i < nt; ++i)
+        pass |= apply_op(row(in.terms, p.term_ids[off + i], e, in)[0],
+                         p.ops[off + i], p.thrs[off + i]);
+    } else if (kind == G_MASS || kind == G_DR) {
+      pass = eval_pair(p, g, e, in);
+    } else if (kind == G_EXPR) {
+      pass = eval_expr(p, g, e, in);
+    } else {  // G_COUNT / G_HT: per-object AND of the terms, then reduce
+      const float* vg = row(in.valid, g, e, in);
+      const float* w = row(in.weights, g, e, in);
+      int count = 0;
+      float ht = 0.0f;
+      for (int k = 0; k < in.K; ++k) {
+        bool obj = true;
+        for (int i = 0; i < nt; ++i)
+          obj = obj && apply_op(row(in.terms, p.term_ids[off + i], e, in)[k],
+                                p.ops[off + i], p.thrs[off + i]);
+        obj = obj && (vg[k] > 0.0f);
+        count += obj;
+        ht = ht + w[k] * (obj ? 1.0f : 0.0f);
+      }
+      pass = kind == G_COUNT ? count >= gd[GD_MIN_COUNT]
+                             : apply_op(ht, gd[GD_CMP_OP], p.cmp_thrs[2 * g]);
+    }
+    if (!pass) return false;
+  }
+  return true;
+}
+
+// pass 1: the predicate -> ballot words (bit j of word w = event w*32+j)
+// and one survivor count per tile
+__global__ void skim_eval_kernel(Program p, Inputs in, uint32_t* words,
+                                 int* tile_counts) {
+  __shared__ int warp_counts[kWarps];
+  const long long e = (long long)blockIdx.x * kTile + threadIdx.x;
+  const bool pass = e < in.E && eval_event(p, e, in);
+  const uint32_t ballot = __ballot_sync(0xffffffffu, pass);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    warp_counts[warp] = __popc(ballot);
+    if (e < in.E) words[e >> 5] = ballot;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < kWarps; ++w) total += warp_counts[w];
+    tile_counts[blockIdx.x] = total;
+  }
+}
+
+// sum of v over the block (every thread gets it)
+__device__ int block_sum(int v, int* scratch) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  int total = 0;
+  for (int w = 0; w < kWarps; ++w) total += scratch[w];
+  return total;
+}
+
+// pass 2: place each survivor's row at (tiles before) + (rank in tile);
+// zero every row at or past the total
+__global__ void skim_compact_kernel(const uint32_t* __restrict__ payload,
+                                    const uint32_t* __restrict__ words,
+                                    const int* __restrict__ tile_counts,
+                                    int n_tiles, long long E, int D,
+                                    uint32_t* __restrict__ out, int* total_out) {
+  __shared__ int scratch[kWarps];
+  __shared__ int warp_rank[kWarps];
+  const int tile = blockIdx.x;
+  int before = 0, all = 0;
+  for (int t = threadIdx.x; t < n_tiles; t += kTile) {
+    const int c = tile_counts[t];
+    all += c;
+    if (t < tile) before += c;
+  }
+  before = block_sum(before, scratch);
+  all = block_sum(all, scratch);
+  const long long e = (long long)tile * kTile + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t word = e < E ? words[e >> 5] : 0u;
+  if (lane == 0) warp_rank[warp] = __popc(word);
+  __syncthreads();
+  int rank = __popc(word & ((1u << lane) - 1u));
+  for (int w = 0; w < warp; ++w) rank += warp_rank[w];
+  if (e < E && ((word >> lane) & 1u)) {
+    const long long dst = (long long)(before + rank) * D;
+    for (int d = 0; d < D; ++d) out[dst + d] = payload[e * D + d];
+  }
+  if (e < E && e >= all) {
+    for (int d = 0; d < D; ++d) out[e * D + d] = 0u;
+  }
+  if (tile == 0 && threadIdx.x == 0) *total_out = all;
+}
+
+}  // namespace
+
+extern "C" int skim_fused_launch(
+    const float* terms, const float* valid, const float* weights,
+    const float* payload, int T, int G, long long E, int K, int D,
+    const int* groups, const int* term_ids, const int* ops, const float* thrs,
+    const float* cmp_thrs, const int* rpn_op, const int* rpn_term,
+    const float* rpn_const, uint32_t* words, int* tile_counts, float* out,
+    int* total, void* stream) {
+  (void)T;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (int)((E + kTile - 1) / kTile);
+  Program p{groups, term_ids, ops, thrs, cmp_thrs, rpn_op, rpn_term, rpn_const, G};
+  Inputs in{terms, valid, weights, E, K};
+  skim_eval_kernel<<<n_tiles, kTile, 0, s>>>(p, in, words, tile_counts);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  skim_compact_kernel<<<n_tiles, kTile, 0, s>>>(
+      reinterpret_cast<const uint32_t*>(payload), words, tile_counts, n_tiles,
+      E, D, reinterpret_cast<uint32_t*>(out), total);
+  return (int)cudaGetLastError();
+}
