@@ -8,13 +8,18 @@ Phases, in order; the first failure stops the run with a non-zero exit:
 1. Device: the card's name and power limit (``nvidia-smi``), the torch
    and CUDA versions, then the build of every kernel from ``src/``.
 2. Kernels against their plain PyTorch versions, on the card:
-   ``basket_decode`` bit for bit, ``skim_fused`` over every op and group
-   kind.  Then each kernel's median time beside its plain version's and
-   its bound, at the shapes the main path gives it.
-3. The main path: ``run_skim`` with every default on a 1,000,000-event
-   NanoAOD-like store (98 branches), for the quickstart query and the
-   Z->ee mass/ΔR/expression query, each held against the port's own
-   host runs of the same store.
+   ``basket_decode`` bit for bit, ``skim_fused``, ``cascade_stage`` and
+   ``predicate_eval`` over every op and group kind.  Then each kernel's
+   median time beside its plain version's and its bound, at the shapes
+   the main path gives it (window 0; the batch of the first 16 windows).
+3. The main path: ``run_skim`` with every default on two 1,000,000-event
+   stores — NanoAOD-like (98 branches) for the quickstart query and the
+   Z->ee mass/ΔR/expression query, and the conditions-era store of
+   ``benchmarks/bench_cascade.py`` for its HT query — each held against
+   the port's own host runs of the same store.  Then the batched cascade,
+   ``run_skim(..., device_batch=16)``, on the same three, held against
+   the staged reference, the per-window card run and the host batched
+   run; and the device busy share of each (``torch.profiler``).
 4. One JSON line listing each kernel, then the device line last.
 
 It imports ``repro_torch`` only (never JAX or the JAX package), needs one
@@ -80,6 +85,87 @@ def zee_query(n_events: int) -> dict:
             ],
         },
     }
+
+
+ERA_QUERY = {  # benchmarks/bench_cascade.py
+    "input": "bench.skim",
+    "output": "bench_cascade_out.skim",
+    "branches": ["Electron_*", "MET_*", "event", "luminosityBlock"],
+    "selection": {
+        "preselection": [{"branch": "nElectron", "op": ">=", "value": 1}],
+        "object": [
+            {
+                "collection": "Electron",
+                "cuts": [
+                    {"var": "pt", "op": ">", "value": 20.0},
+                    {"var": "eta", "op": "abs<", "value": 2.4},
+                    {"var": "mvaId", "op": ">=", "value": 0.5},
+                ],
+                "min_count": 1,
+            }
+        ],
+        "event": [
+            {
+                # the heavy stage: ~25 tracks/event feed the HT sum
+                "type": "ht", "collection": "Track", "var": "pt",
+                "object_cuts": [{"var": "pt", "op": ">", "value": 1.0}],
+                "op": ">", "value": 20.0,
+            },
+            {"type": "any", "branches": [
+                "HLT_IsoMu24", "HLT_Ele32_WPTight_Gsf",
+            ]},
+            {"type": "cut", "branch": "MET_pt", "op": ">", "value": 10.0},
+        ],
+    },
+}
+
+
+def make_era_store(n_events: int, seed: int = 7, basket_events: int = 4096,
+                   device=None):
+    """benchmarks/bench_cascade.py's conditions-era store: window w is a
+    good era iff w % 4 == 0; bad-era electrons have ``mvaId == (pt <= 20)``,
+    so no object passes the ID+pt selection there while every basket's
+    statistics stay undecidable.  ~25 tracks per event feed the HT stage."""
+    import numpy as np
+
+    from repro_torch.data.store import EventStore
+
+    rng = np.random.default_rng(seed)
+    era_good = (np.arange(n_events) // basket_events) % 4 == 0
+
+    cols: dict = {}
+    jagged: dict = {}
+
+    n_el = rng.poisson(1.2, n_events).astype(np.int32)
+    tot = int(n_el.sum())
+    el_pt = (rng.exponential(25.0, tot) + 3.0).astype(np.float32)
+    el_eta = rng.uniform(-2.5, 2.5, tot).astype(np.float32)
+    obj_good = np.repeat(era_good, n_el)
+    el_mva = np.where(obj_good, rng.random(tot) > 0.3, el_pt <= 20.0)
+    cols["nElectron"] = n_el
+    for name, arr in [("Electron_pt", el_pt), ("Electron_eta", el_eta),
+                      ("Electron_mvaId", el_mva)]:
+        cols[name] = arr
+        jagged[name] = "nElectron"
+
+    n_trk = rng.poisson(25.0, n_events).astype(np.int32)
+    cols["nTrack"] = n_trk
+    cols["Track_pt"] = (
+        rng.exponential(5.0, int(n_trk.sum())) + 0.5
+    ).astype(np.float32)
+    jagged["Track_pt"] = "nTrack"
+
+    cols["MET_pt"] = (rng.exponential(30.0, n_events) + 1.0).astype(np.float32)
+    cols["MET_phi"] = rng.uniform(-np.pi, np.pi, n_events).astype(np.float32)
+    cols["HLT_IsoMu24"] = rng.random(n_events) < 0.3
+    cols["HLT_Ele32_WPTight_Gsf"] = rng.random(n_events) < 0.2
+    cols["event"] = np.arange(n_events, dtype=np.int32)
+    cols["luminosityBlock"] = (np.arange(n_events) // 1000).astype(np.int32)
+
+    return EventStore.from_arrays(
+        cols, jagged=jagged, basket_events=basket_events, codec="bitpack",
+        device=device,
+    )
 
 
 class SmokeFailure(RuntimeError):
@@ -455,6 +541,147 @@ def check_skim_fused(rng, device) -> tuple[float, int]:
 
 
 # ---------------------------------------------------------------------------
+# phase 2a: the batched predicate and the cascade stage
+# ---------------------------------------------------------------------------
+
+
+def batch_inputs(rng, program, B: int, E: int, K: int, basket_events: int):
+    """A window-batch staged as ``run_window_batch`` stages it: sweep inputs
+    per window, a random carried mask (window 1 all dead), and ``seg_ids``
+    from window starts that are not aligned to a basket.  Returns numpy
+    (terms, valid, weights, packed (B, E/32) int32, seg_ids (B, E) int32,
+    nb)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    per = [sweep_inputs(rng, program, E, K, 1)[:3] for _ in range(B)]
+    terms, valid, weights = (np.stack([w[i] for w in per]) for i in range(3))
+    alive = rng.random((B, E)) < 0.7
+    alive[min(1, B - 1)] = False
+    nb = E // basket_events + 2
+    seg = np.zeros((B, E), np.int32)
+    for b in range(B):
+        start = int(rng.integers(0, 8 * basket_events))
+        grid0 = start - start % basket_events
+        ids = (start + np.arange(E, dtype=np.int64) - grid0) // basket_events
+        seg[b] = np.clip(ids, 0, nb - 1)
+    packed = ops.pack_mask(alive).view(np.int32)
+    return terms, valid, weights, packed, seg, nb
+
+
+def _mask_edges(program, t, v, got, want) -> int:
+    """Events where two (B, E) masks differ; every one must lie within
+    2 ulp of a mass/ΔR cut (checked), else the run fails."""
+    import numpy as np
+
+    diff = (got != want).cpu().numpy()
+    n = 0
+    for b in np.nonzero(diff.any(axis=1))[0]:
+        events = np.nonzero(diff[b])[0]
+        check(edge_events(program, t[b], v[b], events),
+              f"{program.term_branches}: window {b} differs at events "
+              f"{events[:8].tolist()}, away from any mass/ΔR cut")
+        n += len(events)
+    return n
+
+
+def check_cascade_stage(rng, device, names=None) -> tuple[float, int]:
+    """``cascade_stage`` against its plain version: the new mask (in place),
+    the basket bits and the counts, over the sweep programs, B in 1/3/16,
+    E in 512/4096.  Where the masks differ (only at a mass/ΔR cut's edge),
+    the kernel's basket bits and counts must be those of its own mask.
+    Returns (max |kernel - plain| over mask bits, basket bits and counts;
+    events that differ at a mass/ΔR cut's edge)."""
+    import torch
+
+    from repro_torch.kernels import predicate_eval as pe
+    from repro_torch.kernels import ref
+
+    cases = edge = 0
+    max_err = 0.0
+    for name, program in sweep_programs():
+        if names and name not in names:
+            continue
+        for B in (1, 3, 16):
+            for E, be in ((512, 128), (4096, 1024)):
+                for K in (1, 8):
+                    host = batch_inputs(rng, program, B, E, K, be)
+                    t, v, w, packed, seg = (torch.from_numpy(x).to(device)
+                                            for x in host[:5])
+                    nb = host[5]
+                    w_packed, *w_out = ref.cascade_stage_ref(
+                        t, v, w, packed, seg, program, nb)
+                    want = torch.cat([w_out[0], w_out[1][:, None]], dim=1)
+                    got_packed, got = pe.cascade_stage(t, v, w, packed, seg, program, nb)
+                    torch.cuda.synchronize()
+                    check(got_packed.data_ptr() == packed.data_ptr(),
+                          "cascade_stage did not update the carried mask in place")
+                    m_got, m_want = ref.unpack_bits(got_packed, E), ref.unpack_bits(w_packed, E)
+                    err = max(float((m_got.int() - m_want.int()).abs().max()),
+                              float((got - want).abs().max()))
+                    max_err = max(max_err, err)
+                    cases += 1
+                    if err == 0.0:
+                        continue
+                    n = _mask_edges(program, t, v, m_got, m_want)
+                    check(n > 0, f"cascade_stage {name} B={B} E={E} K={K}: basket "
+                          "bits or counts differ where the masks agree")
+                    edge += n
+                    # the kernel's basket bits and counts follow its own mask
+                    own = torch.zeros((B, nb), dtype=torch.int32, device=device)
+                    own.scatter_reduce_(1, seg.long(), m_got.int(), "amax")
+                    check(torch.equal(got[:, :nb], own),
+                          f"cascade_stage {name}: basket bits do not follow the mask")
+                    check(torch.equal(got[:, nb], m_got.sum(dim=1, dtype=torch.int32)),
+                          f"cascade_stage {name}: counts do not follow the mask")
+                    log(f"  cascade_stage {name} B={B} E={E} K={K}: events "
+                        "differ within 2 ulp of a mass/ΔR cut")
+    log(f"  cascade_stage: {cases} cases (all 8 ops, COUNT/HT/ANY/MASS/ΔR/EXPR, "
+        "B in 1/3/16, E in 512/4096, K in 1/8, random carried masks with an "
+        "all-dead window, unaligned window starts); mask, basket bits and "
+        f"counts equal to the plain version except {edge} events at a "
+        f"mass/ΔR cut's edge; max |err| {max_err}")
+    return max_err, edge
+
+
+def check_predicate_eval(rng, device, names=None) -> tuple[float, int]:
+    """``predicate_eval`` (one window) at ragged E and
+    ``predicate_eval_batch`` at B in 3/16, against the plain versions."""
+    import torch
+
+    from repro_torch.kernels import predicate_eval as pe
+    from repro_torch.kernels import ref
+
+    cases = edge = 0
+    max_err = 0.0
+    for name, program in sweep_programs():
+        if names and name not in names:
+            continue
+        for B, E in ((1, 1), (1, 300), (1, 4097), (3, 300), (16, 4097)):
+            host = batch_inputs(rng, program, B, E, 4, 128)
+            t, v, w = (torch.from_numpy(x).to(device) for x in host[:3])
+            if B == 1:
+                got = pe.predicate_eval(t[0], v[0], w[0], program)[None]
+            else:
+                got = pe.predicate_eval_batch(t, v, w, program)
+            want = ref.predicate_eval_batch_ref(t, v, w, program)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.int32 and got.shape == want.shape,
+                  f"predicate_eval {name}: {got.dtype} {tuple(got.shape)}")
+            err = float((got - want).abs().max())
+            max_err = max(max_err, err)
+            cases += 1
+            if err:
+                edge += _mask_edges(program, t, v, got, want)
+    log(f"  predicate_eval: {cases} cases (every sweep program, one window at "
+        "E = 1/300/4097, batches of 3 and 16 at E = 300/4097); equal to the "
+        f"plain version except {edge} events at a mass/ΔR cut's edge; "
+        f"max |err| {max_err}")
+    return max_err, edge
+
+
+# ---------------------------------------------------------------------------
 # phase 2b: the main path's shapes, timed
 # ---------------------------------------------------------------------------
 
@@ -483,6 +710,46 @@ def path_skim_cases(store, queries, device):
                                      include_index=True, to_device=False)
             cases.append((stage.program,
                           [torch.from_numpy(a).to(device) for a in pad_window(pb)]))
+    return cases
+
+
+def path_stage_cases(store, queries, device, batch: int = 16):
+    """Every cascade stage's inputs for the batch of the first ``batch``
+    windows of each query, as ``run_window_batch`` hands them to
+    ``ops.cascade_stage_step`` (recorded on the way through, the carried
+    mask as it was before the stage)."""
+    import torch
+
+    from repro_torch.core.engine import Breakdown
+    from repro_torch.core.plan import CascadeExecutor, mark_fetched
+    from repro_torch.core.planner import plan_skim
+    from repro_torch.core.query import parse_query
+    from repro_torch.data.store import FetchStats
+    from repro_torch.kernels import ops
+
+    cases = []
+    step = ops.cascade_stage_step
+
+    def record(terms, valid, weights, packed, seg_ids, program, nb, **kw):
+        cases.append((program, nb, [torch.from_numpy(x).to(device)
+                                    for x in (terms, valid, weights)],
+                      packed.clone(), seg_ids.clone()))
+        return step(terms, valid, weights, packed, seg_ids, program, nb, **kw)
+
+    be = store.basket_events
+    ops.cascade_stage_step = record
+    for q in queries:
+        plan = plan_skim(parse_query(q), store, window_events=be, prune=False,
+                         cascade=True)
+        ex = CascadeExecutor(plan, store, device=device)
+        entries = []
+        for start in range(0, min(batch * be, store.n_events), be):
+            stop = min(start + be, store.n_events)
+            ledger: dict = {}
+            mark_fetched(store, ex.head_branches, start, stop, ledger)
+            entries.append((start, stop, None, Breakdown(), FetchStats(), ledger))
+        ex.run_window_batch(entries, pad_B=batch)
+    ops.cascade_stage_step = step
     return cases
 
 
@@ -528,12 +795,13 @@ def bounds(summary: dict) -> dict:
     return {k: summary[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
 
 
-def time_kernels(skim_cases, decode_cases) -> dict:
+def time_kernels(skim_cases, decode_cases, stage_cases) -> dict:
     """Each kernel at the main path's shapes: its device time (CUDA graph
     replay), its time per call as the stream sees it from the host, the
     plain version's time per call, and the bound (decoded values counted
     at each branch's own width)."""
     from repro_torch.kernels import basket_decode as bd
+    from repro_torch.kernels import predicate_eval as pe
     from repro_torch.kernels import ref
     from repro_torch.kernels import skim_fused as sf
 
@@ -583,6 +851,43 @@ def time_kernels(skim_cases, decode_cases) -> dict:
             f"from the host; plain {row['plain_ms']:.5f} ms; bound "
             f"{max(t_bytes, t_ops):.7f} ms")
     out["basket_decode"] = _summary(rows)
+    rows, single = [], []
+    for program, nb, (t, v, w), packed, seg in stage_cases:
+        B, T, E, K = t.shape
+        G = v.shape[1]
+        # read terms, valid, weights, the carried mask and seg_ids once;
+        # write the mask and the (B, nb + 1) basket bits and counts once
+        nbytes = 4 * B * ((T + 2 * G) * E * K + E + 2 * E // 32 + nb + 1)
+        ops = B * E * K * (T + 4 * G)
+        t_bytes, t_ops = bound_times(nbytes, ops)
+        row = {
+            "ms": device_ms(lambda: pe.cascade_stage(t, v, w, packed, seg, program, nb)),
+            "stream_ms": stream_ms(
+                lambda: pe.cascade_stage(t, v, w, packed, seg, program, nb)),
+            "plain_ms": stream_ms(
+                lambda: ref.cascade_stage_ref(t, v, w, packed, seg, program, nb)),
+            "t_bytes": t_bytes, "t_ops": t_ops,
+        }
+        rows.append(row)
+        log(f"  cascade_stage B={B} T={T} G={G} E={E} K={K} nb={nb}: kernel "
+            f"{row['ms']:.5f} ms on the device, {row['stream_ms']:.5f} ms per "
+            f"call from the host; plain {row['plain_ms']:.5f} ms; bound "
+            f"{max(t_bytes, t_ops):.7f} ms")
+        # predicate_eval: window 0 of the same batch, the mask alone
+        t0, v0, w0 = t[0], v[0], w[0]
+        t_bytes, t_ops = bound_times(4 * ((T + 2 * G) * E * K + E), E * K * (T + 4 * G))
+        single.append({
+            "ms": device_ms(lambda: pe.predicate_eval(t0, v0, w0, program)),
+            "stream_ms": stream_ms(lambda: pe.predicate_eval(t0, v0, w0, program)),
+            "plain_ms": stream_ms(lambda: ref.predicate_mask(program, t0, v0, w0)),
+            "t_bytes": t_bytes, "t_ops": t_ops,
+        })
+        log(f"  predicate_eval T={T} G={G} E={E} K={K}: kernel "
+            f"{single[-1]['ms']:.5f} ms on the device, {single[-1]['stream_ms']:.5f} "
+            f"ms per call from the host; plain {single[-1]['plain_ms']:.5f} ms; "
+            f"bound {max(t_bytes, t_ops):.7f} ms")
+    out["predicate_eval_batch"] = _summary(rows)
+    out["predicate_eval"] = _summary(single)
     return out
 
 
@@ -601,6 +906,10 @@ def fetch_row(stats) -> dict:
 
 
 def run_main_path(label, query, store, host_store) -> dict:
+    """``run_skim`` with every default on the card: survivors and output
+    columns held against the staged reference and the host cascade, the
+    fetch ledger against the host cascade of the same plan (the staged
+    reference fetches per query stage, not per cascade stage)."""
     import torch
 
     from repro_torch.core import run_skim
@@ -650,26 +959,86 @@ def run_main_path(label, query, store, host_store) -> dict:
         check(res.output.manifest_hash() == ref.output.manifest_hash()
               and res.output._blobs == ref.output._blobs,
               f"{label}: output columns differ from the {ref_name}")
-        check(res.stats.bytes_fetched == ref.stats.bytes_fetched,
-              f"{label}: bytes_fetched {res.stats.bytes_fetched} vs "
-              f"{ref.stats.bytes_fetched} ({ref_name})")
-        check(res.stats.cascade_bytes_skipped == ref.stats.cascade_bytes_skipped,
-              f"{label}: cascade_bytes_skipped differs from the {ref_name}")
     check(fetch_row(res.stats) == fetch_row(host.stats),
           f"{label}: FetchStats differ from the host cascade of the same plan")
     check(res.extras["cascade_stages"] == host.extras["cascade_stages"]
           and res.extras["cascade_order"] == host.extras["cascade_order"],
           f"{label}: cascade ledgers differ from the host cascade")
     log(f"  [{label}] stage times (s): " + json.dumps(res.breakdown.as_dict()))
-    log(f"  [{label}] survivors, output columns (every basket byte), "
-        "bytes_fetched and cascade_bytes_skipped equal the staged reference "
-        "and the host cascade; requests and the stage ledgers equal the "
-        "host cascade")
+    log(f"  [{label}] survivors and output columns (every basket byte) equal "
+        "the staged reference and the host cascade; FetchStats and the "
+        "stage ledgers equal the host cascade")
     return {"wall_s": wall, "events_per_s": res.n_input / wall,
-            "n_passed": res.n_passed, "launches": launches}
+            "n_passed": res.n_passed, "launches": launches, "res": res,
+            "staged": staged}
 
 
-def device_busy(label, query, store) -> None:
+def run_batched_path(label, query, store, host_store, per_window, batch=16) -> dict:
+    """The batched cascade: ``run_skim(..., device_batch=batch)`` on the
+    card, held against the staged reference and the per-window card run
+    (survivors, every output byte), the port's own host run of the
+    batched path (FetchStats, cascade ledgers), and the preload run's
+    bytes (fetched + cascade-skipped == preload fetched).  Dispatches are
+    logged, not compared: the card's count also holds the device decode
+    tier's, which the host store does not run."""
+    import torch
+
+    from repro_torch.core import run_skim
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_skim(store, query, device_batch=batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+
+    host = run_skim(host_store, query, device="cpu", device_batch=batch)
+    preload = run_skim(host_store, query, device="cpu", cascade=False)
+    pw = per_window["res"]
+    log(f"  [{label}, device_batch={batch}] {res.n_passed}/{res.n_input} events "
+        f"passed in {wall:.3f} s wall ({res.n_input / wall:,.0f} events/s; "
+        f"per-window run {per_window['wall_s']:.3f} s, "
+        f"{per_window['events_per_s']:,.0f} events/s); device_dispatches "
+        f"{res.extras['device_dispatches']} (per-window run "
+        f"{pw.extras['device_dispatches']}); launches {launches}")
+    log(f"  [{label}, device_batch={batch}] fetch {res.stats.bytes_fetched} B in "
+        f"{res.stats.requests} requests, cascade-skipped "
+        f"{res.stats.cascade_bytes_skipped} B; preload run fetched "
+        f"{preload.stats.bytes_fetched} B")
+
+    check(launches["cascade_stage"] > 0, f"{label}: cascade_stage never launched")
+    check(launches["basket_decode"] > 0, f"{label}: basket_decode never launched")
+    check(res.extras["device_batch"] == batch, f"{label}: device_batch not reported")
+    for ref_name, ref in (("staged reference", per_window["staged"]),
+                          ("per-window card run", pw)):
+        check(res.n_passed == ref.n_passed,
+              f"{label}: {res.n_passed} survivors vs {ref.n_passed} ({ref_name})")
+        check(res.output.manifest_hash() == ref.output.manifest_hash()
+              and res.output._blobs == ref.output._blobs,
+              f"{label}: batched output columns differ from the {ref_name}")
+    check(fetch_row(res.stats) == fetch_row(host.stats),
+          f"{label}: batched FetchStats differ from the host batched run")
+    for key in ("cascade_order", "cascade_stages"):
+        check(res.extras[key] == host.extras[key],
+              f"{label}: batched {key} differs from the host batched run")
+    check(res.stats.bytes_fetched + res.stats.cascade_bytes_skipped
+          == preload.stats.bytes_fetched,
+          f"{label}: fetched + cascade-skipped != the preload run's fetched")
+    log(f"  [{label}, device_batch={batch}] survivors and output columns equal "
+        "the staged reference and the per-window card run; FetchStats and the "
+        "cascade ledgers equal the host batched run; fetched + cascade-skipped "
+        "equals the preload run's fetched bytes")
+    log(f"  [{label}, device_batch={batch}] stage times (s): "
+        + json.dumps(res.breakdown.as_dict()))
+    return {"wall_s": wall, "events_per_s": res.n_input / wall,
+            "n_passed": res.n_passed, "launches": launches,
+            "device_dispatches": res.extras["device_dispatches"],
+            "per_window_dispatches": pw.extras["device_dispatches"]}
+
+
+def device_busy(label, query, store, **kw) -> None:
     """One more run of the main path under ``torch.profiler``: the device
     time of every kernel over the run's wall time, and the kernels that
     took the most.  The profiler's own cost lengthens the wall time, so
@@ -682,7 +1051,7 @@ def device_busy(label, query, store) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_skim(store, query)
+        run_skim(store, query, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}  # device-side events only (kernels and copies): the
@@ -739,38 +1108,60 @@ def main() -> int:
     log("== 2. kernels against their plain versions ==")
     rng = np.random.default_rng(0)
     decode_err = check_basket_decode(rng, device)
-    skim_err, edge = check_skim_fused(rng, device)
+    skim_err, _ = check_skim_fused(rng, device)
+    stage_err, _ = check_cascade_stage(rng, device)
+    pred_err, _ = check_predicate_eval(rng, device)
 
-    log(f"== building the {N_EVENTS:,}-event store ==")
+    log(f"== building the {N_EVENTS:,}-event stores ==")
     from repro_torch.data.synth import make_nanoaod_like
 
     t0 = time.perf_counter()
     store = make_nanoaod_like(N_EVENTS, n_hlt=64, n_filler=8, seed=0)
     host_store = make_nanoaod_like(N_EVENTS, n_hlt=64, n_filler=8, seed=0,
                                    device="cpu")
-    log(f"  {len(store.branch_names())} branches, "
+    log(f"  NanoAOD-like: {len(store.branch_names())} branches, "
         f"{store.compressed_bytes() / 1e6:.1f} MB compressed, built twice "
         f"(card store, host store) in {time.perf_counter() - t0:.1f} s")
-    queries = [("quickstart", QUICKSTART_QUERY), ("zee", zee_query(N_EVENTS))]
+    t0 = time.perf_counter()
+    era_store = make_era_store(N_EVENTS)
+    era_host = make_era_store(N_EVENTS, device="cpu")
+    log(f"  conditions-era: {len(era_store.branch_names())} branches, "
+        f"{era_store.compressed_bytes() / 1e6:.1f} MB compressed, built twice "
+        f"in {time.perf_counter() - t0:.1f} s")
+    cells = [("quickstart", QUICKSTART_QUERY, store, host_store),
+             ("zee", zee_query(N_EVENTS), store, host_store),
+             ("era", ERA_QUERY, era_store, era_host)]
 
-    log("== 2b. timing at the main path's shapes (window 0) ==")
+    log("== 2b. timing at the main path's shapes (window 0; the batch of the "
+        "first 16 windows) ==")
     timing = time_kernels(
-        path_skim_cases(store, [q for _, q in queries], device),
+        path_skim_cases(store, [q for _, q, *_ in cells[:2]], device),
         path_decode_cases(store, ["nElectron", "Electron_charge", "HLT_IsoMu24",
                                   "Electron_mvaId", "luminosityBlock"], device),
+        [c for _, q, st, _ in cells for c in path_stage_cases(st, [q], device)],
     )
 
     log("== 3. main path: run_skim with every default, on the card ==")
-    totals = {"skim_fused": 0, "basket_decode": 0}
+    totals = dict.fromkeys(("skim_fused", "basket_decode", "cascade_stage",
+                            "predicate_eval_batch", "predicate_eval"), 0)
     results = {}
-    for label, query in queries:
-        results[label] = run_main_path(label, query, store, host_store)
+    for label, query, st, host in cells:
+        results[label] = run_main_path(label, query, st, host)
         for k, v in results[label]["launches"].items():
             totals[k] += v
 
+    log("== 3a. the batched cascade: run_skim(..., device_batch=16) ==")
+    batched = {}
+    for label, query, st, host in cells:
+        batched[label] = run_batched_path(label, query, st, host, results[label])
+        for k, v in batched[label]["launches"].items():
+            totals[k] += v
+
     log("== 3b. where the device time goes (torch.profiler) ==")
-    for label, query in queries:
-        device_busy(label, query, store)
+    for label, query, st, _ in cells[:2]:
+        device_busy(label, query, st)
+    for label, query, st, _ in cells:
+        device_busy(f"{label}, device_batch=16", query, st, device_batch=16)
 
     kernels = [
         {"name": "skim_fused", "route": "cuda",
@@ -783,11 +1174,29 @@ def main() -> int:
          "replaces": "src/repro/kernels/basket_decode.py:135",
          "launches": totals["basket_decode"], "max_abs_err": decode_err,
          **bounds(timing["basket_decode"]), "library_ms": None},
+        {"name": "predicate_eval_batch", "route": "cuda",
+         "source": "src/repro_torch/csrc/predicate_eval.cu",
+         "replaces": "src/repro/kernels/predicate_eval.py:270",
+         "launches": totals["cascade_stage"] + totals["predicate_eval_batch"],
+         "max_abs_err": max(stage_err, pred_err),
+         **bounds(timing["predicate_eval_batch"]), "library_ms": None},
+        {"name": "predicate_eval", "route": "cuda",
+         "source": "src/repro_torch/csrc/predicate_eval.cu",
+         "replaces": "src/repro/kernels/predicate_eval.py:304",
+         "launches": totals["predicate_eval"], "max_abs_err": pred_err,
+         **bounds(timing["predicate_eval"]), "library_ms": None},
     ]
+    log("kernel means over the path's shapes (ms; stream_ms is per call from "
+        "the host): " + json.dumps(timing))
     log(f"== done in {time.perf_counter() - t_start:.1f} s ==")
     log("main path: " + json.dumps(
         {k: {"wall_s": r["wall_s"], "events_per_s": r["events_per_s"],
              "n_passed": r["n_passed"]} for k, r in results.items()}))
+    log("batched path (device_batch=16): " + json.dumps(
+        {k: {"wall_s": r["wall_s"], "events_per_s": r["events_per_s"],
+             "n_passed": r["n_passed"], "device_dispatches": r["device_dispatches"],
+             "per_window_dispatches": r["per_window_dispatches"]}
+         for k, r in batched.items()}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

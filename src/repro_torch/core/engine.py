@@ -493,13 +493,13 @@ class SkimEngine:
         # default span sink (repro_torch.obs.trace); the no-op tracer unless a
         # caller opts in — per-call ``tracer=`` overrides take precedence
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        # the device-resident batched cascade (DESIGN.md §16) is the next
-        # slice of the port; this one runs the per-window cascade
-        if device_batch is not None:
-            raise NotImplementedError(
-                "device_batch (the batched cascade, run_window_batch) is not "
-                "ported yet; it is the next slice of the PyTorch port"
-            )
+        # device-resident batched cascade (DESIGN.md §16): group this many
+        # cascaded SCAN windows per device dispatch — O(windows/B) stage
+        # dispatches instead of O(windows), with survivor masks living on
+        # the device between stages.  ``None``/1 keeps the per-window path.
+        if device_batch is not None and int(device_batch) < 1:
+            raise ValueError(f"device_batch must be >= 1, got {device_batch}")
+        self.device_batch = int(device_batch) if device_batch else None
         # fused-evaluator backend: the CUDA kernel on the card, the host
         # interpreter on the CPU, unless the caller forces one
         if fused_backend not in (None, "cuda", "torch", "host"):
@@ -776,6 +776,59 @@ class SkimEngine:
                 for start in range(0, n, chunk):
                     yield start, min(start + chunk, n), None
 
+        # device-batched cascade grouping (DESIGN.md §16): consume SCAN
+        # windows in groups of ``device_batch``, run the cascade ONCE per
+        # group (one device dispatch per stage per group, survivor masks
+        # device-resident between stages), then replay the precomputed
+        # outcomes through the unchanged per-window ledger loop below.
+        # Zone-map decided windows pass through unbatched — they never
+        # evaluate the cascade at all.
+        batch_n = self.device_batch if cascade_exec is not None else None
+        pending: dict[int, tuple] = {}
+
+        def window_items():
+            src = enumerate(windows())
+            if not batch_n or batch_n <= 1:
+                yield from src
+                return
+            buf: list = []
+
+            def flush():
+                if not buf:
+                    return
+                entries, metas = [], []
+                for _wi, (start_, stop_, preloaded_) in buf:
+                    wb_, w1s_, ledger_ = Breakdown(), FetchStats(), {}
+                    mark_fetched(
+                        store, cascade_exec.head_branches, start_, stop_,
+                        ledger_,
+                    )
+                    entries.append(
+                        (start_, stop_, preloaded_, wb_, w1s_, ledger_)
+                    )
+                    metas.append((wb_, w1s_, ledger_))
+                outs = cascade_exec.run_window_batch(entries, pad_B=batch_n)
+                for (_wi, _win), out, meta in zip(buf, outs, metas):
+                    pending[_wi] = (out, *meta)
+                items = list(buf)
+                buf.clear()
+                yield from items
+
+            for item in src:
+                kind_ = (
+                    decisions[item[0]].decision
+                    if decisions is not None
+                    else SCAN
+                )
+                if kind_ == SCAN:
+                    buf.append(item)
+                    if len(buf) == batch_n:
+                        yield from flush()
+                else:
+                    yield from flush()
+                    yield item
+            yield from flush()
+
         # per-window survivor ledger: (start, stop, n_passed) for EVERY
         # window, survivors or not — the mergeable-result contract the
         # cluster coordinator splits shard outputs with (DESIGN.md §5)
@@ -784,7 +837,7 @@ class SkimEngine:
         pad_K = 0  # grows monotonically so padded shapes (and compiled
         # kernels) stay stable across windows once the max multiplicity
         # has been seen
-        for wi, (start, stop, preloaded) in enumerate(windows()):
+        for wi, (start, stop, preloaded) in window_items():
             m = stop - start
             dec = decisions[wi] if decisions is not None else None
             kind = dec.decision if dec is not None else SCAN
@@ -825,12 +878,20 @@ class SkimEngine:
                 # cheapest-and-most-selective-first; stage k fetches its
                 # branches only for baskets still alive after stage k-1 ----
                 loaded = {}
-                mark_fetched(
-                    store, cascade_exec.head_branches, start, stop, ledger
-                )
-                outcome = cascade_exec.run_window(
-                    start, stop, preloaded, wb, w1s, ledger=ledger
-                )
+                if wi in pending:
+                    # batched path: the cascade already ran for this
+                    # window's group — adopt its outcome and per-window
+                    # ledgers (byte/time accounting is window-local in
+                    # the batch too, so totals match the per-window path)
+                    outcome, cwb, w1s, ledger = pending.pop(wi)
+                    wb.merge(cwb)
+                else:
+                    mark_fetched(
+                        store, cascade_exec.head_branches, start, stop, ledger
+                    )
+                    outcome = cascade_exec.run_window(
+                        start, stop, preloaded, wb, w1s, ledger=ledger
+                    )
                 mask = outcome.mask
                 stats.merge(w1s)
             elif fused:
@@ -935,6 +996,8 @@ class SkimEngine:
             b.merge(wb)
             phase2_stats.merge(w2s)
             if win_records:
+                # indexed by window (not [-1]): batched grouping consumes
+                # load records ahead of the processing loop
                 win_records[wi].update(
                     {
                         "proc_compute": wb.decompress + wb.deserialize + wb.filter,
@@ -1019,6 +1082,8 @@ class SkimEngine:
                 dispatch_stats()["dispatches"] - dispatches0
             )
             report.decode_backend = store.resolved_decode_backend()
+            if batch_n:
+                report.device_batch = batch_n
         if win_records:
             # exact double-buffered schedule from the per-window records
             # (what the threaded prefetcher realizes on capable hosts)

@@ -650,6 +650,10 @@ class CascadeExecutor:
         self.state = CascadeState(self.cplan, adaptive=adaptive and order is None)
         self._backend: str | None = backend  # resolved on first evaluation
         self.device = device  # where "cuda"/"torch" stages evaluate
+        # batched-dispatch shape buckets (DESIGN.md §16): grow-only so a
+        # late large window re-buckets once instead of re-warming per batch
+        self._pad_E: int = 0
+        self._stage_K: dict[int, int] = {}
 
     # -- plan queries --------------------------------------------------------
 
@@ -669,6 +673,17 @@ class CascadeExecutor:
 
     # -- stage evaluation ----------------------------------------------------
 
+    def _resolve_backend(self) -> str:
+        """The stage backend: as given, else the kernel on the card and the
+        host interpreter on the CPU (resolved once per run)."""
+        if self._backend is None:
+            from repro_torch.device import resolve_device
+
+            self._backend = (
+                "cuda" if resolve_device(self.device).type == "cuda" else "host"
+            )
+        return self._backend
+
     def _eval_stage(self, stage: CascadeStage, data: dict, n: int) -> np.ndarray:
         """Evaluate one sub-program over a decoded span (fused path):
         the CUDA kernel on the card, the compiled-program interpreter on
@@ -679,13 +694,7 @@ class CascadeExecutor:
         if not stage.branches:
             # constant sub-program (trigger OR over absent-era branches)
             return program_eval_np({}, stage.program, n)
-        if self._backend is None:
-            from repro_torch.device import resolve_device
-
-            self._backend = (
-                "cuda" if resolve_device(self.device).type == "cuda" else "host"
-            )
-        if self._backend == "host":
+        if self._resolve_backend() == "host":
             return program_eval_np(data, stage.program, n)
         mask, _ = fused_window_skim(
             data, stage.program, self.store, backend=self._backend,
@@ -775,6 +784,243 @@ class CascadeExecutor:
             stage_bytes=stage_bytes_total,
             stages_run=stages_run,
         )
+
+    # -- the batched cascade (one device dispatch per stage per batch) -------
+
+    @staticmethod
+    def _bits_to_spans(
+        bits, start: int, stop: int, basket_events: int
+    ) -> list[tuple[int, int]]:
+        """Alive-basket bits (window-local ordinals on the global basket
+        grid) -> merged contiguous event spans, clipped to the window.
+        The batched mirror of :func:`_alive_spans`, driven by the (B, nb)
+        basket-alive planes the device step returns instead of the full
+        event mask (which stays device-resident)."""
+        grid0 = start - start % basket_events
+        spans: list[list[int]] = []
+        for j, bit in enumerate(bits):
+            if not bit:
+                continue
+            a = max(grid0 + j * basket_events, start)
+            b = min(grid0 + (j + 1) * basket_events, stop)
+            if a >= b:
+                continue
+            if spans and spans[-1][1] == a:
+                spans[-1][1] = b
+            else:
+                spans.append([a, b])
+        return [(a, b) for a, b in spans]
+
+    def run_window_batch(
+        self,
+        entries: list[tuple],
+        pad_B: int | None = None,
+    ) -> list[WindowOutcome]:
+        """Run the cascade over a batch of windows with ONE device
+        dispatch per stage (DESIGN.md §16).
+
+        ``entries`` is a list of ``(start, stop, head_data, breakdown,
+        stats, ledger)`` tuples — the same per-window arguments as
+        :meth:`run_window`; returns one :class:`WindowOutcome` per entry,
+        in order, bit-identical to running each window through
+        :meth:`run_window` with the batch's (frozen) stage order.
+
+        Mechanics: windows are staged into stable-shaped batch tensors
+        (event axis padded to a grow-only ``pad_E`` bucket, batch axis to
+        ``pad_B`` with dead windows, per-stage object capacity ``K`` in
+        grow-only pow2 buckets).  The survivor masks live on the stage's
+        device as bit-packed int32 words between stages, and each stage
+        updates them in place (the JAX package donates the buffer
+        instead).  Per stage the staged ``terms``/``valid``/``weights`` go
+        up in one copy each, and one (B, nb + 1) buffer of basket-alive
+        bits and counts comes back — it drives the *next* stage's
+        alive-span fetch, so dead baskets are never re-staged.  The full
+        event masks cross back exactly once, at the window-ledger
+        boundary (batch end).  Fetch accounting is per window through
+        each entry's own stats + ledger, identical to the per-window
+        path.
+
+        Backends: ``"cuda"`` runs the CUDA kernel on the executor's
+        device, ``"torch"`` its plain version there, ``"host"`` the plain
+        version on the CPU.
+        """
+        import time as _time
+
+        import torch
+
+        from repro_torch.analysis.verify import maybe_verify_device_batch
+        from repro_torch.core import neardata as nd
+        from repro_torch.core.engine import _decode_branches
+        from repro_torch.device import resolve_device
+        from repro_torch.kernels import ops
+
+        if not entries:
+            return []
+
+        store = self.store
+        be = store.basket_events
+        B_real = len(entries)
+        Bn = max(int(pad_B or 0), B_real)
+        sizes = [stop - start for (start, stop, *_r) in entries]
+        quantum = nd._WINDOW_QUANTUM
+        self._pad_E = max(
+            self._pad_E, -(-max(sizes) // quantum) * quantum
+        )
+        pad_E = self._pad_E
+        nb = pad_E // be + 2
+        backend = self._resolve_backend()
+        device = (
+            torch.device("cpu") if backend == "host"
+            else resolve_device(self.device)
+        )
+
+        # initial masks: real events alive, batch/event padding dead —
+        # phantom events can never surface in a survivor set
+        init = np.zeros((Bn, pad_E), dtype=bool)
+        seg = np.zeros((Bn, pad_E), dtype=np.int32)
+        for b, (start, stop, *_r) in enumerate(entries):
+            init[b, : stop - start] = True
+            grid0 = start - start % be
+            ids = (start + np.arange(pad_E, dtype=np.int64) - grid0) // be
+            seg[b] = np.clip(ids, 0, nb - 1).astype(np.int32)
+        packed = torch.from_numpy(ops.pack_mask(init).view(np.int32)).to(device)
+        seg_ids = torch.from_numpy(seg).to(device)
+        maybe_verify_device_batch(
+            [(s, t) for (s, t, *_r) in entries],
+            pad_E, Bn, nb, be, int(packed.shape[1]),
+        )
+
+        order = self.order()  # frozen for the batch (any order is
+        # bit-identical on survivors; the adaptive re-rank applies
+        # between batches, exactly as it applies between windows)
+        bsid = self.tracer.begin(
+            "device_batch", kind="device_batch",
+            windows=B_real, pad_windows=Bn, pad_events=pad_E,
+        )
+
+        counts_host = np.array(sizes + [0] * (Bn - B_real), dtype=np.int64)
+        basket_bits: np.ndarray | None = None  # (Bn, nb) after a stage
+        full_loaded: list[dict] = [{} for _ in entries]
+        stage_bytes_total = [0] * B_real
+        stages_run = [0] * B_real
+
+        for pos, si in enumerate(order):
+            stage = self.cplan.stages[si]
+            alive = [b for b in range(B_real) if counts_host[b] > 0]
+            for b in range(B_real):
+                if counts_host[b] == 0:
+                    self.state.skip(si)
+            if not alive:
+                continue  # whole batch dead: no staging, no dispatch
+            for b in alive:
+                stages_run[b] += 1
+            ssid = self.tracer.begin(
+                f"stage[{si}]", kind="cascade_stage", stage=si,
+                node=stage_kind(stage), tier=stage.tier, batch=len(alive),
+            )
+
+            # -- fetch + decode alive spans (host side, per window) ------
+            staged: list[list[tuple[int, int, dict]]] = [
+                [] for _ in range(B_real)
+            ]
+            stage_bytes = [0] * B_real
+            K_req = 1
+            for b in alive:
+                start, stop, head_data, breakdown, stats, ledger = entries[b]
+                if not stage.branches:
+                    continue  # constant sub-program: zero staging pages
+                    # evaluate it exactly (absent-trigger ANY is
+                    # constant-False on zeros, as on the host)
+                if pos == 0 and head_data is not None:
+                    spans = [(start, stop)]
+                elif basket_bits is None:
+                    spans = [(start, stop)]
+                else:
+                    spans = self._bits_to_spans(
+                        basket_bits[b], start, stop, be
+                    )
+                for a, z in spans:
+                    if pos == 0 and head_data is not None:
+                        sdata = head_data
+                    else:
+                        stage_bytes[b] += account_fetch(
+                            store, stage.branches, a, z, ledger, stats,
+                            self.coalesce,
+                        )
+                        sdata = _decode_branches(
+                            store, list(stage.branches), a, z, breakdown,
+                            FetchStats(), self.coalesce, tracer=self.tracer,
+                        )
+                    staged[b].append((a - start, z - a, sdata))
+                    if z - a == stop - start:
+                        full_loaded[b].update(sdata)
+                    K_req = max(
+                        K_req, nd.window_pad_K(sdata, stage.program, store)
+                    )
+            K_b = max(self._stage_K.get(si, 1), K_req)
+            self._stage_K[si] = K_b
+
+            # -- stage the batch tensors (zeros outside alive spans) -----
+            T, G = stage.program.n_terms, stage.program.n_groups
+            terms = np.zeros((Bn, T, pad_E, K_b), np.float32)
+            valid = np.zeros((Bn, G, pad_E, K_b), np.float32)
+            weights = np.zeros((Bn, G, pad_E, K_b), np.float32)
+            for b in alive:
+                for off, n, sdata in staged[b]:
+                    pb = nd.build_padded_inputs(
+                        sdata, stage.program, store, K=K_b, to_device=False
+                    )
+                    terms[b, :, off : off + n, :] = pb.terms
+                    valid[b, :, off : off + n, :] = pb.valid
+                    weights[b, :, off : off + n, :] = pb.weights
+
+            # warm the step per shape bucket OUTSIDE the stage timers:
+            # measured filter time is steady-state dispatch
+            ops.warm_cascade_stage(
+                stage.program, (Bn, T, pad_E, K_b), nb,
+                backend=backend, device=device,
+            )
+
+            t0 = _time.perf_counter()
+            packed, summary = ops.cascade_stage_step(
+                terms, valid, weights, packed, seg_ids,
+                stage.program, nb, backend=backend, device=device,
+            )
+            basket_bits, counts_new = ops.stage_summary_host(summary)
+            elapsed = _time.perf_counter() - t0
+            share = elapsed / len(alive)
+
+            batch_in = batch_out = 0
+            for b in alive:
+                _s, _t, _h, breakdown, _st, _l = entries[b]
+                breakdown.filter += share
+                alive_in = int(counts_host[b])
+                alive_out = int(counts_new[b])
+                self.state.observe(si, alive_in, alive_out, stage_bytes[b])
+                stage_bytes_total[b] += stage_bytes[b]
+                batch_in += alive_in
+                batch_out += alive_out
+            counts_host = counts_new
+            self.tracer.end(
+                ssid, alive_in=batch_in, alive_out=batch_out,
+                bytes=sum(stage_bytes),
+            )
+
+        # the one host round trip for event-level masks: batch boundary
+        words = packed.cpu().numpy()
+        outcomes = []
+        for b, (start, stop, *_r) in enumerate(entries):
+            mask = ops.unpack_mask(words[b], pad_E)[: stop - start].copy()
+            outcomes.append(
+                WindowOutcome(
+                    mask=mask,
+                    full_loaded=full_loaded[b],
+                    stage_bytes=stage_bytes_total[b],
+                    stages_run=stages_run[b],
+                )
+            )
+        self.tracer.end(bsid, stages=len(order))
+        return outcomes
 
     # -- phase 2 through the same ledger -------------------------------------
 

@@ -177,7 +177,7 @@ def plan_skim(
 
         cascade_plan = build_cascade(query, store)
 
-    return SkimPlan(
+    plan = SkimPlan(
         query=query,
         filter_branches=filter_branches,
         output_branches=output_branches,
@@ -187,3 +187,10 @@ def plan_skim(
         window_decisions=decisions,
         cascade=cascade_plan,
     )
+    # static verification gate (REPRO_VERIFY=1): prove the plan's
+    # invariants (branch partition, stage fetch coverage, pinned head,
+    # cache-key coverage) before any byte moves
+    from repro_torch.analysis.verify import maybe_verify_plan
+
+    maybe_verify_plan(plan, store)
+    return plan

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` into its own shared
 library with a plain C interface and loaded with ``ctypes``: no PyTorch
 headers, so a build takes seconds.  Libraries go to ``build/`` at the repo
-root, named by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads from disk.  All missing libraries build at once, one ``nvcc`` per
+root, named by a hash of the source, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source or header rebuilds
+and an unchanged one loads from disk.  All missing libraries build at once, one ``nvcc`` per
 source, started together.
 
 Nothing here runs at import time: the CPU tests import every module, and
@@ -23,7 +24,11 @@ import time
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"skim_fused": "skim_fused.cu", "basket_decode": "basket_decode.cu"}
+SOURCES = {
+    "skim_fused": "skim_fused.cu",
+    "basket_decode": "basket_decode.cu",
+    "predicate_eval": "predicate_eval.cu",
+}
 
 # sm_90a: the H100's own target.  No fast math (cosf/sinf/sinhf/coshf and
 # sqrtf stay the full-precision functions) and no FMA contraction, so
@@ -56,9 +61,14 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (_CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"{name}-{digest}.so"
+    """The library of kernel ``name``, named by the digest of its source,
+    of every header in ``csrc/`` (a source may include any of them) and
+    of the flags."""
+    h = hashlib.sha256((_CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> float:
@@ -75,7 +85,8 @@ def build_all() -> float:
         for name in todo:
             final = lib_path(name)
             tmp = final.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / SOURCES[name])]
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+                   str(_CSRC / SOURCES[name])]
             procs.append((name, final, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )))

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import basket_decode as _bd
+from repro_torch.kernels import predicate_eval as _pe
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import skim_fused as _sf
 from repro_torch.kernels.program import Program, compile_query  # re-export
@@ -52,12 +53,15 @@ def _note_dispatch(sig, warm: bool = False) -> None:
 
 def launch_counts() -> dict:
     """Launches of each hand-written kernel since the last reset."""
-    return {"skim_fused": _sf.launches, "basket_decode": _bd.launches}
+    return {"skim_fused": _sf.launches, "basket_decode": _bd.launches,
+            **_pe.launches}
 
 
 def reset_launch_counts() -> None:
     _sf.launches = 0
     _bd.launches = 0
+    for name in _pe.launches:
+        _pe.launches[name] = 0
 
 
 def load_kernels() -> None:
@@ -145,6 +149,110 @@ def basket_decode_batch(parts_list, out_dtype, device="cpu"):
 
 
 # ---------------------------------------------------------------------------
+# the predicate alone
+# ---------------------------------------------------------------------------
+
+
+def predicate_eval(terms, valid, weights, program: Program) -> torch.Tensor:
+    """(T,E,K),(G,E,K),(G,E,K) float32 -> (E,) int32 mask, any E (the
+    kernel masks its own ragged edge, so nothing is padded)."""
+    return _pe.predicate_eval(
+        torch.as_tensor(terms, dtype=torch.float32),
+        torch.as_tensor(valid, dtype=torch.float32),
+        torch.as_tensor(weights, dtype=torch.float32),
+        program,
+    )
+
+
+# ---------------------------------------------------------------------------
+# window-batched cascade stage (DESIGN.md §16)
+# ---------------------------------------------------------------------------
+
+CASCADE_BACKENDS = ("cuda", "torch", "host")
+
+
+def _cascade_sig(program, shape, nb, backend):
+    return ("cascade_stage", program, tuple(shape), int(nb), backend == "cuda")
+
+
+def _stage_device(backend: str, device) -> torch.device:
+    if backend not in CASCADE_BACKENDS:
+        raise ValueError(f"unknown cascade backend {backend!r}")
+    if backend == "host":
+        return torch.device("cpu")
+    device = torch.device(device)
+    if backend == "cuda" and device.type != "cuda":
+        raise ValueError("the 'cuda' cascade backend needs a CUDA device")
+    return device
+
+
+def _cascade_stage(terms, valid, weights, packed, seg_ids, program, nb, backend):
+    stage = _pe.cascade_stage if backend == "cuda" else _pe.cascade_stage_plain
+    return stage(terms, valid, weights, packed, seg_ids, program, nb)
+
+
+def warm_cascade_stage(program: Program, shape, nb: int, backend="cuda",
+                       device="cuda") -> bool:
+    """Run the cascade step once on zeros for one shape bucket.
+
+    Called by the executor OUTSIDE its stage timers on the first sight of
+    a ``(program, batch shape)`` signature, so the library load and the
+    first launch stay out of the measured ``filter`` time.  Returns True
+    when a warm-up actually ran.
+    """
+    sig = _cascade_sig(program, shape, nb, backend)
+    if sig in _SEEN_SIGNATURES:
+        return False
+    device = _stage_device(backend, device)
+    Bn, T, E, K = shape
+    G = program.n_groups
+
+    def zeros(*s, dtype=torch.float32):
+        return torch.zeros(s, dtype=dtype, device=device)
+
+    _cascade_stage(
+        zeros(Bn, T, E, K), zeros(Bn, G, E, K), zeros(Bn, G, E, K),
+        zeros(Bn, E // 32, dtype=torch.int32), zeros(Bn, E, dtype=torch.int32),
+        program, nb, backend,
+    )
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    _note_dispatch(sig, warm=True)
+    return True
+
+
+def cascade_stage_step(terms, valid, weights, packed, seg_ids, program: Program,
+                       nb: int, backend="cuda", device="cuda"):
+    """The batched cascade stage: one device dispatch per (stage,
+    window-batch).
+
+    ``terms`` (B,T,E,K) and ``valid``/``weights`` (B,G,E,K) are host
+    (numpy) staging buffers, each uploaded in one copy; ``packed``
+    (B, E/32) int32 and ``seg_ids`` (B, E) int32 already live on the
+    stage's device.  ``backend`` is ``"cuda"`` (the kernel), ``"torch"``
+    (its plain version on ``device``) or ``"host"`` (the plain version on
+    the CPU).  ``packed`` is updated in place.  Returns ``(packed, out)``
+    with ``out`` (B, nb + 1) int32: basket bits, then each window's count
+    (:func:`stage_summary_host` reads both in one copy).
+    """
+    device = _stage_device(backend, device)
+    _note_dispatch(_cascade_sig(program, terms.shape, nb, backend))
+
+    def up(x):
+        return torch.as_tensor(x, dtype=torch.float32).to(device)
+
+    return _cascade_stage(up(terms), up(valid), up(weights), packed, seg_ids,
+                          program, nb, backend)
+
+
+def stage_summary_host(out) -> tuple[np.ndarray, np.ndarray]:
+    """One device-to-host copy of a stage's (B, nb + 1) buffer -> (basket
+    bits (B, nb) bool, counts (B,) int64)."""
+    host = out.cpu().numpy()
+    return host[:, :-1].astype(bool), host[:, -1].astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
 # the fused skim
 # ---------------------------------------------------------------------------
 
@@ -172,15 +280,19 @@ def fused_skim(terms, valid, weights, payload, program: Program, use_kernel=True
 __all__ = [
     "Program",
     "basket_decode_batch",
+    "cascade_stage_step",
     "compile_query",
     "dispatch_stats",
     "fused_skim",
     "launch_counts",
     "load_kernels",
     "pack_mask",
+    "predicate_eval",
     "reset_dispatch_stats",
     "reset_launch_counts",
     "skim_fused",
     "stage_planes",
+    "stage_summary_host",
     "unpack_mask",
+    "warm_cascade_stage",
 ]

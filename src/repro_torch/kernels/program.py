@@ -215,13 +215,19 @@ def compile_query(query) -> Program:
             else:
                 raise TypeError(f"cannot compile node {type(node)}")
 
-    return Program(
+    program = Program(
         tuple(groups),
         tuple(term_branches),
         tuple(group_colls),
         tuple(group_weights),
         tuple(group_colls2),
     )
+    # static verification gate (REPRO_VERIFY=1): prove the compiled
+    # program's structural invariants before anything evaluates it
+    from repro_torch.analysis.verify import maybe_verify_program
+
+    maybe_verify_program(program)
+    return program
 
 
 __all__ = [

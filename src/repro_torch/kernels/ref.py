@@ -250,6 +250,73 @@ def predicate_mask(program, terms, valid, weights) -> torch.Tensor:
     return mask
 
 
+def predicate_eval_batch_ref(terms, valid, weights, program) -> torch.Tensor:
+    """:func:`predicate_mask` per window of a batch: terms (B, T, E, K),
+    valid/weights (B, G, E, K) -> (B, E) int32.
+
+    Every group is a function of its own event alone, so the windows are
+    laid side by side as one (T, B*E, K) batch and evaluated in one call.
+    """
+    B, T, E, K = terms.shape
+    G = valid.shape[1]
+
+    def side_by_side(x, planes):
+        return x.permute(1, 0, 2, 3).reshape(planes, B * E, K)
+
+    mask = predicate_mask(
+        program, side_by_side(terms, T), side_by_side(valid, G),
+        side_by_side(weights, G),
+    )
+    return mask.reshape(B, E).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# bit-packed masks and the batched cascade stage
+# ---------------------------------------------------------------------------
+
+_SHIFTS = tuple(range(32))
+
+
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """(B, E) bool, E a multiple of 32 -> (B, E/32) int32 words holding
+    the uint32 bits (bit ``j`` of word ``w`` is event ``w*32 + j``)."""
+    B, E = mask.shape
+    shifts = torch.tensor(_SHIFTS, dtype=torch.int64, device=mask.device)
+    bits = mask.reshape(B, E // 32, 32).to(torch.int64) << shifts
+    return u32_to_i32(bits.sum(dim=-1))
+
+
+def unpack_bits(words: torch.Tensor, E: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits`: (B, W) int32 words -> (B, E) bool.
+    The words are widened to int64 and masked first: an int32 right shift
+    is arithmetic and would smear bit 31."""
+    shifts = torch.tensor(_SHIFTS, dtype=torch.int64, device=words.device)
+    bits = ((words.to(torch.int64) & _U32)[..., None] >> shifts) & 1
+    return bits.reshape(words.shape[0], -1)[:, :E].to(torch.bool)
+
+
+def cascade_stage_ref(terms, valid, weights, packed, seg_ids, program, nb: int):
+    """One batched cascade stage, the contract of the JAX package's
+    ``ops._cascade_stage_impl``.
+
+    ``terms`` (B,T,E,K) and ``valid``/``weights`` (B,G,E,K) are the staged
+    window inputs; ``packed`` (B, E/32) int32 is the carried survivor mask;
+    ``seg_ids`` (B, E) int32 maps each event slot to its window-local
+    basket ordinal in [0, nb).  Returns ``(new_packed (B, E/32) int32,
+    basket_alive (B, nb) int32, counts (B,) int32)``: the mask ANDed with
+    the program, each basket's max of the new mask, each window's count.
+    """
+    E = terms.shape[2]
+    alive = unpack_bits(packed, E) & (
+        predicate_eval_batch_ref(terms, valid, weights, program) > 0
+    )
+    basket_alive = torch.zeros(
+        (alive.shape[0], nb), dtype=torch.int32, device=alive.device
+    ).scatter_reduce_(1, seg_ids.to(torch.int64), alive.to(torch.int32), "amax")
+    counts = alive.sum(dim=1, dtype=torch.int32)
+    return pack_bits(alive), basket_alive, counts
+
+
 # ---------------------------------------------------------------------------
 # stream compaction and the fused skim
 # ---------------------------------------------------------------------------
@@ -335,10 +402,14 @@ def basket_decode_ref(planes, firsts, kind: int, n_values: int, out_dtype):
 __all__ = [
     "apply_op",
     "basket_decode_ref",
+    "cascade_stage_ref",
     "finish_decode",
+    "pack_bits",
     "pair_group_value",
+    "predicate_eval_batch_ref",
     "predicate_mask",
     "skim_fused_ref",
     "slot_sum",
     "stream_compact_ref",
+    "unpack_bits",
 ]

@@ -26,6 +26,7 @@ from repro_torch.core import run_skim  # noqa: E402
 from repro_torch.data.synth import make_nanoaod_like  # noqa: E402
 from repro_torch.kernels import basket_decode as bd  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import predicate_eval as pe  # noqa: E402
 from repro_torch.kernels import skim_fused as sf  # noqa: E402
 
 
@@ -49,7 +50,19 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert int(n) == int(want_n) and torch.equal(got, want)
     dec = bd.basket_decode(planes, firsts, kind=0, n_bits=3, out_dtype=torch.int32)
     assert torch.equal(dec, ref.basket_decode_ref(planes, firsts, 0, 128, torch.int32))
-    assert ops.launch_counts() == {"skim_fused": 0, "basket_decode": 0}
+    batch = [x[None] for x in t[:3]]
+    mask = pe.predicate_eval_batch(*batch, prog)
+    assert torch.equal(mask, ref.predicate_eval_batch_ref(*batch, prog))
+    assert torch.equal(pe.predicate_eval(*t[:3], prog), mask[0])
+    packed = torch.full((1, 16), -1, dtype=torch.int32)
+    seg = torch.zeros((1, 512), dtype=torch.int32)
+    _, out = pe.cascade_stage(*batch, packed, seg, prog, 1)
+    count = int(out[0, 1])
+    assert count == int(mask.sum()) and int(out[0, 0]) == int(count > 0)
+    assert ops.launch_counts() == {
+        "skim_fused": 0, "basket_decode": 0, "cascade_stage": 0,
+        "predicate_eval_batch": 0, "predicate_eval": 0,
+    }
 
 
 @pytest.mark.cuda
@@ -97,3 +110,45 @@ def test_cuda_main_path_matches_the_host(cuda_device, qname):
     assert res.output._blobs == want.output._blobs
     assert chip_smoke.fetch_row(res.stats) == chip_smoke.fetch_row(want.stats)
     assert res.extras["cascade_stages"] == want.extras["cascade_stages"]
+
+
+@pytest.mark.cuda
+def test_cuda_cascade_stage_and_predicate_eval_match_plain(cuda_device):
+    rng = np.random.default_rng(0)
+    names = ("count", "ht", "mass_pair", "expr")
+    assert chip_smoke.check_cascade_stage(rng, cuda_device, names) == (0.0, 0)
+    assert chip_smoke.check_predicate_eval(rng, cuda_device, names) == (0.0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,E", [(0, 512), (2, 0)])
+def test_cuda_cascade_stage_with_no_events_launches_nothing(cuda_device, B, E):
+    prog = dict(chip_smoke.sweep_programs())["count"]
+    T, G = prog.n_terms, prog.n_groups
+    t = torch.zeros((B, T, E, 4), device=cuda_device)
+    v = torch.zeros((B, G, E, 4), device=cuda_device)
+    packed = torch.full((B, E // 32), -1, dtype=torch.int32, device=cuda_device)
+    seg = torch.zeros((B, E), dtype=torch.int32, device=cuda_device)
+    ops.reset_launch_counts()
+    _, out = pe.cascade_stage(t, v, v.clone(), packed, seg, prog, 3)
+    assert ops.launch_counts()["cascade_stage"] == 0
+    assert torch.equal(out, torch.zeros((B, 4), dtype=torch.int32, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qname", ["quickstart", "zee"])
+def test_cuda_batched_path_matches_the_host(cuda_device, qname):
+    q = {"quickstart": chip_smoke.QUICKSTART_QUERY,
+         "zee": chip_smoke.zee_query(20_000)}[qname]
+    store = make_nanoaod_like(20_000, n_hlt=16, n_filler=4)
+    host = make_nanoaod_like(20_000, n_hlt=16, n_filler=4, device="cpu")
+    ops.reset_launch_counts()
+    res = run_skim(store, q, device_batch=3)
+    launches = ops.launch_counts()
+    want = run_skim(host, q, device="cpu", device_batch=3)
+    assert launches["cascade_stage"] > 0 and launches["skim_fused"] == 0
+    assert res.n_passed == want.n_passed > 0
+    assert res.output._blobs == want.output._blobs
+    assert chip_smoke.fetch_row(res.stats) == chip_smoke.fetch_row(want.stats)
+    for key in ("cascade_stages", "cascade_order"):
+        assert res.extras[key] == want.extras[key], key

@@ -122,7 +122,7 @@ def test_torch_backend_dispatches_like_the_jax_ledger(stores):
     assert_same_result(t, j)
     stages_run = sum(s["windows"] for s in t.extras["cascade_stages"])
     assert tops.dispatch_stats()["dispatches"] == stages_run > 0
-    assert tops.launch_counts() == {"skim_fused": 0, "basket_decode": 0}
+    assert set(tops.launch_counts().values()) == {0}
 
 
 @pytest.mark.parametrize("backend", ["torch", "host"])

@@ -160,7 +160,7 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     [
         (dict(fused_backend="cuda"), ValueError),
         (dict(fused_backend="pallas"), ValueError),
-        (dict(device_batch=2), NotImplementedError),
+        (dict(device_batch=0), ValueError),
         (dict(device="mps"), ValueError),
     ],
 )
@@ -186,6 +186,8 @@ GUARD = textwrap.dedent(
         "event": [{"type": "cut", "branch": "MET_pt", "op": ">", "value": 15.0}]}}
     res = run_skim(store, q, device="cpu", fused_backend="torch")
     assert 0 < res.n_passed < 3000, res.n_passed
+    batched = run_skim(store, q, device="cpu", fused_backend="torch", device_batch=3)
+    assert batched.n_passed == res.n_passed and batched.extras["device_batch"] == 3
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro."))]
     assert not [m for m in bad if sys.modules[m] is not None], bad
     print("ok", res.n_passed)
@@ -194,7 +196,7 @@ GUARD = textwrap.dedent(
 
 
 def test_port_runs_with_jax_and_the_jax_package_blocked():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_VERIFY="1")
     out = subprocess.run(
         [sys.executable, "-c", GUARD], capture_output=True, text=True,
         timeout=120, env=env, cwd=str(ROOT),
