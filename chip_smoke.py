@@ -9,9 +9,13 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    and CUDA versions, then the build of every kernel from ``src/``.
 2. Kernels against their plain PyTorch versions, on the card:
    ``basket_decode`` bit for bit, ``skim_fused``, ``cascade_stage`` and
-   ``predicate_eval`` over every op and group kind.  Then each kernel's
-   median time beside its plain version's and its bound, at the shapes
-   the main path gives it (window 0; the batch of the first 16 windows).
+   ``predicate_eval`` over every op and group kind, ``stream_compact``
+   bit for bit over every payload width (NaN payloads, -0.0, integers
+   past 2^24), ``skim_fused_batch`` over every op and group kind, and
+   ``flash_attention`` at the JAX tests' shapes (3e-5 in float32, a few
+   ulps in bf16).  Then each skim kernel's median time beside its plain version's
+   and its bound, at the shapes the main path gives it (window 0; the
+   batch of the first 16 windows).
 3. The main path: ``run_skim`` with every default on two 1,000,000-event
    stores — NanoAOD-like (98 branches) for the quickstart query and the
    Z->ee mass/ΔR/expression query, and the conditions-era store of
@@ -20,6 +24,14 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    ``run_skim(..., device_batch=16)``, on the same three, held against
    the staged reference, the per-window card run and the host batched
    run; and the device busy share of each (``torch.profiler``).
+   Then the ops entry points of the three kernels no skim calls, at full
+   size, each with the launch counts set to 0 before it and read after:
+   ``ops.fused_skim_batch`` on each cell's first cascade stage over its
+   first 16 windows (equal per window to ``ops.fused_skim``),
+   ``ops.stream_compact`` of eight float32 branches by the quickstart
+   cell's 1,000,000-event survivor mask, and ``ops.flash_attention`` at
+   StarCoder2-7B's head layout (1, 36, 2048, 128) in float32 and bf16;
+   then their times, beside one PyTorch call each where there is one.
 4. One JSON line listing each kernel, then the device line last.
 
 It imports ``repro_torch`` only (never JAX or the JAX package), needs one
@@ -39,6 +51,7 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
 N_EVENTS = 1_000_000
 
 QUICKSTART_QUERY = {  # examples/quickstart.py
@@ -237,10 +250,12 @@ def device_ms(fn, calls: int = 20, reps: int = 7) -> float:
     return times[len(times) // 2]
 
 
-def bound_times(nbytes: float, ops: float) -> tuple[float, float]:
+def bound_times(nbytes: float, ops: float,
+                ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, float]:
     """(ms to move ``nbytes`` at the card's memory rate, ms to do ``ops``
-    32-bit operations at its float32 rate outside the tensor cores)."""
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    operations at ``ops_per_s``: by default its float32 rate outside the
+    tensor cores)."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -492,8 +507,27 @@ def edge_events(program, terms, valid, events) -> bool:
     return bool(near.all())
 
 
-def check_skim_fused(rng, device) -> tuple[float, int]:
+def packed_edges(what, program, t, v, got, count, want, want_count) -> int:
+    """Events kept by one of two packed outputs (payload column 0 the
+    event index) and not the other; fails unless there are some and every
+    one lies within 2 ulp of a mass/ΔR cut.  Returns how many."""
     import numpy as np
+
+    E = got.shape[0]
+    m_got = np.zeros(E, bool)
+    m_got[got[: int(count), 0].long().cpu().numpy()] = True
+    m_want = np.zeros(E, bool)
+    m_want[want[: int(want_count), 0].long().cpu().numpy()] = True
+    diff = np.nonzero(m_got != m_want)[0]
+    check(len(diff) > 0 and edge_events(program, t, v, diff),
+          f"{what}: kernel and plain version disagree ({int(count)} vs "
+          f"{int(want_count)} survivors)")
+    log(f"  {what}: {len(diff)} events differ within 2 ulp of a mass/ΔR cut: "
+        f"{diff[:8].tolist()}")
+    return len(diff)
+
+
+def check_skim_fused(rng, device) -> tuple[float, int]:
     import torch
 
     from repro_torch.kernels import ref
@@ -520,19 +554,8 @@ def check_skim_fused(rng, device) -> tuple[float, int]:
                         if name == "full":
                             check(int(count) == E, "full mask: events lost")
                         continue
-                    m_got = np.zeros(E, bool)
-                    m_got[got[: int(count), 0].long().cpu().numpy()] = True
-                    m_want = np.zeros(E, bool)
-                    m_want[want[: int(want_count), 0].long().cpu().numpy()] = True
-                    diff = np.nonzero(m_got != m_want)[0]
-                    check(len(diff) > 0 and edge_events(program, t, v, diff),
-                          f"skim_fused {name} E={E} K={K} D={D}: kernel and "
-                          f"plain version disagree ({int(count)} vs "
-                          f"{int(want_count)} survivors)")
-                    edge += len(diff)
-                    log(f"  skim_fused {name} E={E} K={K} D={D}: {len(diff)} "
-                        "events differ within 2 ulp of a mass/ΔR cut: "
-                        f"{diff[:8].tolist()}")
+                    edge += packed_edges(f"skim_fused {name} E={E} K={K} D={D}",
+                                         program, t, v, got, count, want, want_count)
     log(f"  skim_fused: {cases} cases (all 8 ops, COUNT/HT/ANY/MASS/ΔR/EXPR, "
         f"E in 512/4096/4608, K in 1/4/16, D in 1/5, empty and full masks); "
         f"packed and count equal to the plain version except {edge} events "
@@ -682,6 +705,216 @@ def check_predicate_eval(rng, device, names=None) -> tuple[float, int]:
 
 
 # ---------------------------------------------------------------------------
+# phase 2a: stream_compact, skim_fused_batch and flash_attention
+# ---------------------------------------------------------------------------
+
+COMPACT_KINDS = ("float32", "int32", "bfloat16", "int64", "bool")
+
+
+def compact_payload(rng, kind: str, E: int, D: int):
+    """An (E, D) host payload of ``kind``: float32 and bfloat16 with NaNs
+    (random payload bits) and -0.0 mixed in, int32 at and above 2^24 (and
+    negative), int64 across its range, random bools."""
+    import numpy as np
+    import torch
+
+    n = E * D
+    if kind in ("float32", "bfloat16"):
+        x = rng.normal(size=n).astype(np.float32)
+        nan = (np.uint32(0x7FC00000) | rng.integers(0, 1 << 22, n).astype(np.uint32))
+        special = rng.random(n)
+        x = np.where(special < 0.05, nan.view(np.float32), x)
+        x = np.where((special >= 0.05) & (special < 0.1), np.float32(-0.0), x)
+        t = torch.from_numpy(x.reshape(E, D))
+        return t.to(torch.bfloat16) if kind == "bfloat16" else t
+    if kind == "int32":
+        big = rng.integers((1 << 24) - 3, (1 << 31) - 1, n)
+        sign = np.where(rng.random(n) < 0.3, -1, 1)
+        return torch.from_numpy((big * sign).astype(np.int32).reshape(E, D))
+    if kind == "int64":
+        return torch.from_numpy(
+            rng.integers(-(1 << 62), 1 << 62, n, dtype=np.int64).reshape(E, D))
+    return torch.from_numpy(rng.random((E, D)) < 0.5)
+
+
+def compact_mask(rng, E: int, rate: float, as_int: bool):
+    """(E,) keep mask at ``rate``: bool, or int32 whose kept entries are
+    nonzero values of either sign (the kernel keeps ``mask != 0``)."""
+    import numpy as np
+    import torch
+
+    keep = rng.random(E) < rate
+    if not as_int:
+        return torch.from_numpy(keep)
+    vals = rng.choice(np.array([1, 7, -1, -5], np.int32), E)
+    return torch.from_numpy(np.where(keep, vals, 0).astype(np.int32))
+
+
+def check_stream_compact(rng, device, Es=(1, 300, 512, 4097, N_EVENTS)) -> float:
+    """``stream_compact`` against its plain version, bit for bit: every E
+    of ``Es``, D in 1/3/16, rates 0/0.13/0.5/1, every payload kind of
+    :data:`COMPACT_KINDS`, bool and int32 masks.  Returns the largest
+    :func:`bit_err` seen."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stream_compact as sc
+
+    cases = 0
+    max_err = 0.0
+    for E in Es:
+        for D in (1, 3, 16):
+            for kind in COMPACT_KINDS:
+                payload = compact_payload(rng, kind, E, D).to(device)
+                for i, rate in enumerate((0.0, 0.13, 0.5, 1.0)):
+                    mask = compact_mask(rng, E, rate, as_int=bool(i % 2)).to(device)
+                    got, count = sc.stream_compact(payload, mask)
+                    want, want_count = ref.stream_compact_ref(payload, mask)
+                    torch.cuda.synchronize()
+                    err = bit_err(got, want)
+                    max_err = max(max_err, err)
+                    cases += 1
+                    check(int(count) == int(want_count) == int((mask != 0).sum()),
+                          f"stream_compact E={E} D={D} {kind} rate={rate}: count "
+                          f"{int(count)} vs {int(want_count)}")
+                    check(err == 0.0,
+                          f"stream_compact E={E} D={D} {kind} rate={rate}: rows "
+                          f"differ from the plain version (max |bits| {err})")
+    log(f"  stream_compact: {cases} cases bit-identical to the plain version "
+        f"(E in {'/'.join(map(str, Es))}, D in 1/3/16, rates 0/0.13/0.5/1, "
+        "float32 and bf16 with NaN payloads and -0.0, int32 at and above 2^24, "
+        f"int64, bool; bool and int32 masks); max |bits| {max_err}")
+    return max_err
+
+
+def batch_sweep_inputs(rng, program, B: int, E: int, K: int, D: int = 2):
+    """A (B, ...) batch of :func:`sweep_inputs` windows: numpy terms,
+    valid, weights and payload (column 0 the local event index)."""
+    import numpy as np
+
+    per = [sweep_inputs(rng, program, E, K, D) for _ in range(B)]
+    return tuple(np.stack([w[i] for w in per]) for i in range(4))
+
+
+def check_skim_fused_batch(rng, device, names=None) -> tuple[float, int]:
+    """``skim_fused_batch`` against its plain version over the sweep
+    programs, B in 1/3/16, E in 512/4096, K in 1/8: packed rows and counts
+    bit for bit, except events at a mass/ΔR cut's edge (as
+    :func:`check_skim_fused`).  Returns (max |kernel - plain|, edge
+    events)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import skim_fused as sf
+
+    cases = edge = 0
+    max_err = 0.0
+    for name, program in sweep_programs():
+        if names and name not in names:
+            continue
+        for B in (1, 3, 16):
+            for E in (512, 4096):
+                for K in (1, 8):
+                    host = batch_sweep_inputs(rng, program, B, E, K)
+                    t, v, w, p = (torch.from_numpy(x).to(device) for x in host)
+                    got, counts = sf.skim_fused_batch(t, v, w, p, program)
+                    want, want_counts = ref.skim_fused_batch_ref(t, v, w, p, program)
+                    torch.cuda.synchronize()
+                    cases += 1
+                    check(got.shape == want.shape and counts.dtype == torch.int32,
+                          f"skim_fused_batch {name}: {tuple(got.shape)} {counts.dtype}")
+                    max_err = max(max_err, float((got - want).abs().max()),
+                                  float((counts - want_counts).abs().max()))
+                    if torch.equal(counts, want_counts) and torch.equal(
+                        got.view(torch.int32), want.view(torch.int32)
+                    ):
+                        if name == "empty":
+                            check(int(counts.sum()) == 0, "empty mask: survivors found")
+                        if name == "full":
+                            check(int(counts.sum()) == B * E, "full mask: events lost")
+                        continue
+                    for b in range(B):
+                        n, wn = int(counts[b]), int(want_counts[b])
+                        if n == wn and torch.equal(got[b].view(torch.int32),
+                                                   want[b].view(torch.int32)):
+                            continue
+                        edge += packed_edges(
+                            f"skim_fused_batch {name} B={B} E={E} K={K} window {b}",
+                            program, t[b], v[b], got[b], n, want[b], wn)
+    log(f"  skim_fused_batch: {cases} cases (every sweep program, B in 1/3/16, "
+        f"E in 512/4096, K in 1/8); packed rows and counts equal to the plain "
+        f"version except {edge} events at a mass/ΔR cut's edge; max |err| {max_err}")
+    return max_err, edge
+
+
+FLASH_SHAPES = ((1, 1, 128, 32), (2, 3, 256, 64), (1, 2, 512, 128))  # tests/test_kernels.py
+# (rtol, atol) against the plain version on the card.  float32: the JAX
+# tests' 3e-5.  bf16: kernel and plain version both accumulate in float32
+# and round once to bf16, so they differ by at most about one bf16 ulp
+# (2^-8 of the value); 1e-2 relative plus 4e-3 absolute allows a few, far
+# under the JAX tests' 0.05, which is as large as a typical output at
+# S = 2048.
+FLASH_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-2, 4e-3)}
+
+
+def attention_close(got, want, dtype_name: str, what: str) -> float:
+    """Fails unless |got - want| <= atol + rtol * |want| everywhere (in
+    float32 for float32 inputs; for bf16 both are bf16, compared in the
+    working type's values).  Returns max |got - want|."""
+    import torch
+
+    rtol, atol = FLASH_TOL[dtype_name]
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+    diff = (g - w).abs()
+    over = diff > atol + rtol * w.abs()
+    check(not bool(over.any()),
+          f"{what}: {int(over.sum())} values outside rtol {rtol}, atol {atol} "
+          f"(max |err| {float(diff.max())})")
+    return float(diff.max())
+
+
+def attention_inputs(rng, shape, dtype, device):
+    import torch
+
+    return [torch.from_numpy(rng.normal(size=shape).astype("float32"))
+            .to(device=device, dtype=dtype) for _ in range(3)]
+
+
+def check_flash_attention(rng, device, shapes=FLASH_SHAPES) -> float:
+    """``flash_attention`` against its plain version at the JAX tests'
+    shapes, causal and not, within :data:`FLASH_TOL`.
+    Returns the largest |kernel - plain| over all cases."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    cases = 0
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for shape in shapes:
+        for causal in (True, False):
+            for dtype_name in errs:
+                dtype = getattr(torch, dtype_name)
+                q, k, v = attention_inputs(rng, shape, dtype, device)
+                got = fa.flash_attention(q, k, v, causal=causal)
+                want = ref.flash_attention_ref(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                err = attention_close(got, want, dtype_name,
+                                      f"flash_attention {shape} causal={causal} "
+                                      f"{dtype_name}")
+                errs[dtype_name] = max(errs[dtype_name], err)
+                cases += 1
+    log(f"  flash_attention: {cases} cases (shapes {list(shapes)}, causal and "
+        f"not, float32 and bf16) within (rtol, atol) {FLASH_TOL} of the plain "
+        f"version; max |err| float32 {errs['float32']}, "
+        f"bf16 {errs['bfloat16']}")
+    return max(errs.values())
+
+
+# ---------------------------------------------------------------------------
 # phase 2b: the main path's shapes, timed
 # ---------------------------------------------------------------------------
 
@@ -776,34 +1009,47 @@ def path_decode_cases(store, names, device):
     return cases
 
 
-def _summary(rows) -> dict:
+def _summary(rows) -> dict | None:
     """Mean over the path's cases of each time and of the bound; the bound
-    is by bytes or by operations as the larger of the two sums says."""
+    is by bytes or by operations as the larger of the two sums says.
+    ``library_ms`` is null unless every case timed a library call."""
+    if not rows:
+        return None
     n = len(rows)
     t_bytes = sum(r["t_bytes"] for r in rows)
     t_ops = sum(r["t_ops"] for r in rows)
+    libs = [r.get("library_ms") for r in rows]
     return {
         "ms": sum(r["ms"] for r in rows) / n,
         "plain_ms": sum(r["plain_ms"] for r in rows) / n,
         "bound_ms": sum(max(r["t_bytes"], r["t_ops"]) for r in rows) / n,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "stream_ms": sum(r["stream_ms"] for r in rows) / n,
+        "library_ms": None if None in libs else sum(libs) / n,
     }
 
 
 def bounds(summary: dict) -> dict:
-    return {k: summary[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    return {k: summary[k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
 
-def time_kernels(skim_cases, decode_cases, stage_cases) -> dict:
-    """Each kernel at the main path's shapes: its device time (CUDA graph
-    replay), its time per call as the stream sees it from the host, the
-    plain version's time per call, and the bound (decoded values counted
-    at each branch's own width)."""
+def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
+                 compact_cases=(), attn_cases=()) -> dict:
+    """Each kernel at the shapes its path gives it: its device time (CUDA
+    graph replay), its time per call as the stream sees it from the host,
+    the plain version's time per call, the bound (decoded values counted
+    at each branch's own width) and, where one PyTorch call computes the
+    same function, that call's time per call from the host
+    (``library_ms``).  Only the kernels given cases are timed."""
+    import torch
+
     from repro_torch.kernels import basket_decode as bd
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import predicate_eval as pe
     from repro_torch.kernels import ref
     from repro_torch.kernels import skim_fused as sf
+    from repro_torch.kernels import stream_compact as sc
 
     out = {}
     rows = []
@@ -888,7 +1134,78 @@ def time_kernels(skim_cases, decode_cases, stage_cases) -> dict:
             f"bound {max(t_bytes, t_ops):.7f} ms")
     out["predicate_eval_batch"] = _summary(rows)
     out["predicate_eval"] = _summary(single)
-    return out
+    rows = []
+    for program, t, v, w, p in batch_cases:
+        B, T, E, K = t.shape
+        G, D = v.shape[1], p.shape[2]
+        # B windows of skim_fused's bytes and operations
+        nbytes = 4 * B * (T * E * K + 2 * G * E * K + 2 * E * D + E // 32 + E // 512 + 1)
+        t_bytes, t_ops = bound_times(nbytes, B * E * K * (T + 4 * G))
+        row = {
+            "ms": device_ms(lambda: sf.skim_fused_batch(t, v, w, p, program)),
+            "stream_ms": stream_ms(lambda: sf.skim_fused_batch(t, v, w, p, program)),
+            "plain_ms": stream_ms(
+                lambda: ref.skim_fused_batch_ref(t, v, w, p, program)),
+            "t_bytes": t_bytes, "t_ops": t_ops, "library_ms": None,
+        }
+        rows.append(row)
+        log(f"  skim_fused_batch B={B} T={T} G={G} E={E} K={K} D={D}: kernel "
+            f"{row['ms']:.5f} ms on the device, {row['stream_ms']:.5f} ms per call "
+            f"from the host; plain {row['plain_ms']:.5f} ms; bound "
+            f"{max(t_bytes, t_ops):.7f} ms")
+    out["skim_fused_batch"] = _summary(rows)
+    rows = []
+    for payload, mask in compact_cases:
+        E, D = payload.shape
+        # read the mask once and the survivors' rows once; write the
+        # packed rows, the zero tail and the count once; one test of the
+        # mask per row
+        row_bytes = D * payload.element_size()
+        survivors = int(torch.count_nonzero(mask))
+        nbytes = E * mask.element_size() + survivors * row_bytes + E * row_bytes + 4
+        t_bytes, t_ops = bound_times(nbytes, E)
+        row = {
+            "ms": device_ms(lambda: sc.stream_compact(payload, mask)),
+            "stream_ms": stream_ms(lambda: sc.stream_compact(payload, mask)),
+            "plain_ms": stream_ms(lambda: ref.stream_compact_ref(payload, mask)),
+            # the same survivors in the same order, without the zero tail
+            "library_ms": stream_ms(lambda: payload[mask]),
+            "t_bytes": t_bytes, "t_ops": t_ops,
+        }
+        rows.append(row)
+        log(f"  stream_compact E={E} D={D} {payload.dtype}: kernel {row['ms']:.5f} "
+            f"ms on the device, {row['stream_ms']:.5f} ms per call from the host; "
+            f"plain {row['plain_ms']:.5f} ms; payload[mask] {row['library_ms']:.5f} "
+            f"ms (no zero tail); bound {max(t_bytes, t_ops):.7f} ms")
+    out["stream_compact"] = _summary(rows)
+    rows = []
+    for q, k, v in attn_cases:
+        B, H, S, D = q.shape
+        bf16 = q.dtype == torch.bfloat16
+        # q, k, v read once and the output written once; 2 products of
+        # 2 operations per (row, key, column) the causal mask keeps
+        nbytes = 4 * q.numel() * q.element_size()
+        t_bytes, t_ops = bound_times(
+            nbytes, 2 * 2 * B * H * D * S * (S + 1) / 2,
+            BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+        scale = ref.attention_scale(D)
+        row = {
+            "ms": device_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+            "stream_ms": stream_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+            "plain_ms": stream_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True)),
+            "library_ms": stream_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=scale)),
+            "t_bytes": t_bytes, "t_ops": t_ops,
+        }
+        rows.append(row)
+        log(f"  flash_attention {tuple(q.shape)} causal {q.dtype}: kernel "
+            f"{row['ms']:.5f} ms on the device, {row['stream_ms']:.5f} ms per call from "
+            f"the host; "
+            f"plain {row['plain_ms']:.5f} ms; scaled_dot_product_attention "
+            f"{row['library_ms']:.5f} ms; bound {max(t_bytes, t_ops):.7f} ms "
+            f"({'bf16 tensor-core' if bf16 else 'float32'} rate)")
+    out["flash_attention"] = _summary(rows)
+    return {name: v for name, v in out.items() if v is not None}
 
 
 # ---------------------------------------------------------------------------
@@ -1038,6 +1355,132 @@ def run_batched_path(label, query, store, host_store, per_window, batch=16) -> d
             "per_window_dispatches": pw.extras["device_dispatches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 3c: the entry points of the kernels no skim calls
+# ---------------------------------------------------------------------------
+
+# eight float32 branches of the NanoAOD-like store (n_filler=8)
+COMPACT_BRANCHES = ("MET_pt", "MET_phi") + tuple(f"Filler_{i:03d}" for i in range(6))
+# StarCoder2-7B's attention (attic/repro/configs/starcoder2_7b.py): 36 heads
+# of head dim 4608/36 = 128, over its attn_chunk of 2048 positions
+STARCODER2_7B_ATTN = (1, 36, 2048, 128)
+
+
+def run_fused_batch_path(label, stage_case, device) -> dict:
+    """``ops.fused_skim_batch`` on the first cascade stage's inputs for
+    the first 16 padded windows of a cell (as ``run_window_batch`` stages
+    them), payload column 0 the local event index.  Each window must equal
+    ``ops.fused_skim`` (the per-window kernel) on the same window, bit for
+    bit: the reference's own contract.  Each window is also held against
+    the plain version on the same tensors, bit for bit but for events at a
+    mass/ΔR cut's edge (as :func:`check_skim_fused_batch`)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    program, _nb, (t, v, w), _packed, _seg = stage_case
+    B, T, E, K = t.shape
+    payload = torch.arange(E, dtype=torch.float32, device=device).repeat(B, 1)
+    payload = payload[:, :, None].contiguous()
+    ops.reset_launch_counts()
+    packed, counts = ops.fused_skim_batch(t, v, w, payload, program)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["skim_fused_batch"]
+    check(launches > 0, f"{label}: skim_fused_batch never launched")
+    for b in range(B):
+        one, n = ops.fused_skim(t[b], v[b], w[b], payload[b], program)
+        torch.cuda.synchronize()
+        check(int(n) == int(counts[b]) and torch.equal(
+            one.view(torch.int32), packed[b].view(torch.int32)),
+            f"{label}: fused_skim_batch window {b} differs from fused_skim "
+            f"({int(counts[b])} vs {int(n)} survivors)")
+    want, want_counts = ref.skim_fused_batch_ref(t, v, w, payload, program)
+    torch.cuda.synchronize()
+    max_err = max(float((packed - want).abs().max()),
+                  float((counts - want_counts).abs().max()))
+    edge = 0
+    for b in range(B):
+        n, wn = int(counts[b]), int(want_counts[b])
+        if n == wn and torch.equal(packed[b].view(torch.int32), want[b].view(torch.int32)):
+            continue
+        edge += packed_edges(f"{label}: fused_skim_batch window {b} vs the plain version",
+                             program, t[b], v[b], packed[b], n, want[b], wn)
+    log(f"  [{label}] fused_skim_batch B={B} T={T} E={E} K={K}: survivors per "
+        f"window {counts.tolist()}; every window equals fused_skim bit for bit "
+        f"and the plain version but for {edge} events at a mass/ΔR cut's edge; "
+        f"launches {launches}")
+    return {"launches": launches, "max_abs_err": max_err,
+            "case": (program, t, v, w, payload)}
+
+
+def run_compact_path(store, host_store, n_passed: int, device) -> dict:
+    """``ops.stream_compact`` on a whole store: the quickstart cell's
+    1,000,000-event survivor mask over eight float32 branches.  The mask
+    comes from the main path on the card with ``event`` added to the
+    output branches (the quickstart query does not write it), which must
+    keep the same ``n_passed``.  The packed rows must be the survivors'
+    rows of those branches, bit for bit, and the count ``n_passed``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import run_skim
+    from repro_torch.kernels import ops
+
+    query = dict(QUICKSTART_QUERY, branches=QUICKSTART_QUERY["branches"] + ["event"])
+    res = run_skim(store, query)
+    check(res.n_passed == n_passed,
+          f"quickstart with event: {res.n_passed} survivors vs {n_passed}")
+    mask_host = np.zeros(store.n_events, bool)
+    mask_host[res.output.read_flat("event")] = True
+    check(int(mask_host.sum()) == n_passed, "quickstart: event indices repeat")
+    payload_host = np.stack([host_store.read_flat(b) for b in COMPACT_BRANCHES], axis=1)
+    check(payload_host.dtype == np.float32, f"payload is {payload_host.dtype}")
+    payload = torch.from_numpy(payload_host).to(device)
+    mask = torch.from_numpy(mask_host).to(device)
+    ops.reset_launch_counts()
+    packed, count = ops.stream_compact(payload, mask)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["stream_compact"]
+    check(launches > 0, "stream_compact never launched")
+    got = packed.cpu().numpy()
+    n = int(count)
+    check(n == n_passed, f"stream_compact counted {n}, the skim passed {n_passed}")
+    check(got[:n].tobytes() == payload_host[mask_host].tobytes(),
+          "stream_compact: packed rows are not the survivors' rows")
+    check(not got[n:].view(np.uint32).any(), "stream_compact: tail not zero")
+    log(f"  [quickstart] stream_compact of {payload_host.shape} float32 "
+        f"({', '.join(COMPACT_BRANCHES)}) by the survivor mask: {n} rows, equal "
+        f"to the survivors' rows bit for bit, tail zero; launches {launches}")
+    return {"launches": launches, "case": (payload, mask)}
+
+
+def run_attention_path(rng, device) -> dict:
+    """``ops.flash_attention`` at StarCoder2-7B's head layout, causal, in
+    float32 and bf16, held against the plain version (:data:`FLASH_TOL`)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    launches, cases, errs = 0, [], {}
+    for dtype_name in FLASH_TOL:
+        q, k, v = attention_inputs(rng, STARCODER2_7B_ATTN, getattr(torch, dtype_name),
+                                   device)
+        ops.reset_launch_counts()
+        out = ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        n = ops.launch_counts()["flash_attention"]
+        check(n > 0, f"flash_attention {dtype_name} never launched")
+        launches += n
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        errs[dtype_name] = attention_close(
+            out, want, dtype_name, f"flash_attention {STARCODER2_7B_ATTN} {dtype_name}")
+        cases.append((q, k, v))
+        del out, want
+    log(f"  flash_attention {STARCODER2_7B_ATTN} causal (StarCoder2-7B): within "
+        f"tolerance of the plain version, max |err| {errs}; launches {launches}")
+    return {"launches": launches, "cases": cases, "max_abs_err": max(errs.values())}
+
+
 def device_busy(label, query, store, **kw) -> None:
     """One more run of the main path under ``torch.profiler``: the device
     time of every kernel over the run's wall time, and the kernels that
@@ -1088,6 +1531,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: no card")
     device = torch.device("cuda")
+    # the plain attention's products in full float32 (PyTorch's default,
+    # stated): TF32 would miss the 3e-5 tolerance
+    torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
 
     log("== 1. device ==")
@@ -1111,6 +1557,9 @@ def main() -> int:
     skim_err, _ = check_skim_fused(rng, device)
     stage_err, _ = check_cascade_stage(rng, device)
     pred_err, _ = check_predicate_eval(rng, device)
+    compact_err = check_stream_compact(rng, device)
+    batch_err, _ = check_skim_fused_batch(rng, device)
+    flash_err = check_flash_attention(rng, device)
 
     log(f"== building the {N_EVENTS:,}-event stores ==")
     from repro_torch.data.synth import make_nanoaod_like
@@ -1134,16 +1583,17 @@ def main() -> int:
 
     log("== 2b. timing at the main path's shapes (window 0; the batch of the "
         "first 16 windows) ==")
+    stage_cases = {label: path_stage_cases(st, [q], device)
+                   for label, q, st, _ in cells}
     timing = time_kernels(
         path_skim_cases(store, [q for _, q, *_ in cells[:2]], device),
         path_decode_cases(store, ["nElectron", "Electron_charge", "HLT_IsoMu24",
                                   "Electron_mvaId", "luminosityBlock"], device),
-        [c for _, q, st, _ in cells for c in path_stage_cases(st, [q], device)],
+        [c for cases in stage_cases.values() for c in cases],
     )
 
     log("== 3. main path: run_skim with every default, on the card ==")
-    totals = dict.fromkeys(("skim_fused", "basket_decode", "cascade_stage",
-                            "predicate_eval_batch", "predicate_eval"), 0)
+    totals = dict.fromkeys(ops.launch_counts(), 0)
     results = {}
     for label, query, st, host in cells:
         results[label] = run_main_path(label, query, st, host)
@@ -1163,28 +1613,64 @@ def main() -> int:
     for label, query, st, _ in cells:
         device_busy(f"{label}, device_batch=16", query, st, device_batch=16)
 
+    log("== 3c. the entry points no skim calls, at full size: "
+        "ops.fused_skim_batch, ops.stream_compact, ops.flash_attention ==")
+    log(f"  launches of the three kernels on the run_skim paths above: "
+        f"skim_fused_batch {totals['skim_fused_batch']}, stream_compact "
+        f"{totals['stream_compact']}, flash_attention {totals['flash_attention']}")
+    fused_batch = {label: run_fused_batch_path(label, stage_cases[label][0], device)
+                   for label, *_ in cells}
+    compact = run_compact_path(store, host_store, results["quickstart"]["n_passed"],
+                               device)
+    attention = run_attention_path(rng, device)
+    log("== 3d. timing of the three at their paths' shapes ==")
+    timing.update(time_kernels(
+        batch_cases=[r["case"] for r in fused_batch.values()],
+        compact_cases=[compact["case"]],
+        attn_cases=attention["cases"],
+    ))
+
     kernels = [
         {"name": "skim_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/skim_fused.cu",
          "replaces": "src/repro/kernels/skim_fused.py:151",
          "launches": totals["skim_fused"], "max_abs_err": skim_err,
-         **bounds(timing["skim_fused"]), "library_ms": None},
+         **bounds(timing["skim_fused"])},
         {"name": "basket_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/basket_decode.cu",
          "replaces": "src/repro/kernels/basket_decode.py:135",
          "launches": totals["basket_decode"], "max_abs_err": decode_err,
-         **bounds(timing["basket_decode"]), "library_ms": None},
+         **bounds(timing["basket_decode"])},
         {"name": "predicate_eval_batch", "route": "cuda",
          "source": "src/repro_torch/csrc/predicate_eval.cu",
          "replaces": "src/repro/kernels/predicate_eval.py:270",
          "launches": totals["cascade_stage"] + totals["predicate_eval_batch"],
          "max_abs_err": max(stage_err, pred_err),
-         **bounds(timing["predicate_eval_batch"]), "library_ms": None},
+         **bounds(timing["predicate_eval_batch"])},
         {"name": "predicate_eval", "route": "cuda",
          "source": "src/repro_torch/csrc/predicate_eval.cu",
          "replaces": "src/repro/kernels/predicate_eval.py:304",
          "launches": totals["predicate_eval"], "max_abs_err": pred_err,
-         **bounds(timing["predicate_eval"]), "library_ms": None},
+         **bounds(timing["predicate_eval"])},
+        # the three below have no caller in run_skim: their launches are
+        # those of their own path, the ops entry points of phase 3c
+        {"name": "skim_fused_batch", "route": "cuda",
+         "source": "src/repro_torch/csrc/skim_fused.cu",
+         "replaces": "src/repro/kernels/skim_fused.py:119",
+         "launches": sum(r["launches"] for r in fused_batch.values()),
+         "max_abs_err": max([batch_err] + [r["max_abs_err"] for r in fused_batch.values()]),
+         **bounds(timing["skim_fused_batch"])},
+        {"name": "stream_compact", "route": "cuda",
+         "source": "src/repro_torch/csrc/stream_compact.cu",
+         "replaces": "src/repro/kernels/stream_compact.py:58",
+         "launches": compact["launches"], "max_abs_err": compact_err,
+         **bounds(timing["stream_compact"])},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:93",
+         "launches": attention["launches"],
+         "max_abs_err": max(flash_err, attention["max_abs_err"]),
+         **bounds(timing["flash_attention"])},
     ]
     log("kernel means over the path's shapes (ms; stream_ms is per call from "
         "the host): " + json.dumps(timing))

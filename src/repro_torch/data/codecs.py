@@ -266,7 +266,7 @@ def decode_basket(blob: bytes, codec: str, dtype) -> np.ndarray:
 
 
 def decode_basket_batch(
-    blobs: list, codec: str, dtype, backend: str = "host", device="cpu"
+    blobs: list, codec: str, dtype, backend: str = "host", device=None
 ) -> list:
     """Decode a list of basket blobs in one round (DESIGN.md §16).
 
@@ -275,7 +275,8 @@ def decode_basket_batch(
     codec ships the compressed *plane words* — not decoded columns — to
     ``device`` and decodes them there
     (``repro_torch.kernels.ops.basket_decode_batch``: the CUDA kernel on
-    the card, its plain PyTorch version on the CPU), grouped by codec
+    the card, its plain PyTorch version on the CPU; ``None`` is the card,
+    raising without one), grouped by codec
     kind so each group is one dispatch.  Output order matches ``blobs``
     and is bit-identical to the host reference for every kind (int
     zigzag-delta prefix sums are wrap-exact int32, float prefix-xor is

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels of the skim data plane.
 
 Each kernel has a CUDA C++ source under ``repro_torch/csrc/``, a wrapper
-module here (``skim_fused``, ``basket_decode``) that launches it for a
-CUDA tensor and counts its launches, and a plain PyTorch version in
+module here (``skim_fused``, ``basket_decode``, ``predicate_eval``,
+``stream_compact``, ``flash_attention``) that launches it for a CUDA
+tensor and counts its launches, and a plain PyTorch version in
 ``ref.py``; ``ops.py`` is the host side the engine calls.
 """
 

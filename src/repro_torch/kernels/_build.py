@@ -28,6 +28,8 @@ SOURCES = {
     "skim_fused": "skim_fused.cu",
     "basket_decode": "basket_decode.cu",
     "predicate_eval": "predicate_eval.cu",
+    "stream_compact": "stream_compact.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 # sm_90a: the H100's own target.  No fast math (cosf/sinf/sinhf/coshf and

@@ -11,10 +11,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import basket_decode as _bd
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import predicate_eval as _pe
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import skim_fused as _sf
+from repro_torch.kernels import stream_compact as _sc
 from repro_torch.kernels.program import Program, compile_query  # re-export
 
 # ---------------------------------------------------------------------------
@@ -53,15 +56,33 @@ def _note_dispatch(sig, warm: bool = False) -> None:
 
 def launch_counts() -> dict:
     """Launches of each hand-written kernel since the last reset."""
-    return {"skim_fused": _sf.launches, "basket_decode": _bd.launches,
-            **_pe.launches}
+    return {**_sf.launches, "basket_decode": _bd.launches, **_pe.launches,
+            "stream_compact": _sc.launches, "flash_attention": _fa.launches}
 
 
 def reset_launch_counts() -> None:
-    _sf.launches = 0
     _bd.launches = 0
-    for name in _pe.launches:
-        _pe.launches[name] = 0
+    _sc.launches = 0
+    _fa.launches = 0
+    for counts in (_sf.launches, _pe.launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def _tensors(device, *xs, dtype=None) -> list[torch.Tensor]:
+    """The inputs of an entry point as tensors: a tensor stays on its own
+    device; anything else (numpy, lists) goes to ``device``, which defaults
+    to the card (:func:`repro_torch.device.resolve_device`: it raises when
+    there is none, naming ``device="cpu"``)."""
+    target = None
+    out = []
+    for x in xs:
+        if not isinstance(x, torch.Tensor):
+            if target is None:
+                target = resolve_device(device)
+            x = torch.from_numpy(np.ascontiguousarray(x)).to(target)
+        out.append(x if dtype is None else x.to(dtype))
+    return out
 
 
 def load_kernels() -> None:
@@ -120,22 +141,24 @@ def stage_planes(parts_list) -> tuple[np.ndarray, np.ndarray, int]:
     return planes, firsts, bits_max
 
 
-def basket_decode_batch(parts_list, out_dtype, device="cpu"):
+def basket_decode_batch(parts_list, out_dtype, device=None):
     """Decode a batch of ``bitpack_raw_parts`` dicts of the same kind.
 
     Pads plane counts and words to the batch maximum
     (:func:`stage_planes`), decodes the batch in one call on ``device`` —
     the CUDA kernel on the card, its plain version on the CPU — and
     returns a list of correctly sized numpy arrays, bit-identical to the
-    host codec (``repro_torch.data.codecs.bitpack_decode``).
+    host codec (``repro_torch.data.codecs.bitpack_decode``).  ``device``
+    defaults to the card (:func:`repro_torch.device.resolve_device`: it
+    raises when there is none, naming ``device="cpu"``).
     """
+    device = resolve_device(device)
     kind = parts_list[0]["kind"]
     assert all(p["kind"] == kind for p in parts_list)
     if kind == 3:  # KIND_RAW_F32: literals — passthrough, nothing to decode
         return [p["raw"].astype(np.dtype(out_dtype)) for p in parts_list]
     planes, firsts, bits_max = stage_planes(parts_list)
 
-    device = torch.device(device)
     _note_dispatch(("decode", kind, planes.shape, device.type))
     out = _bd.basket_decode(
         torch.from_numpy(planes.view(np.int32)).to(device),
@@ -153,15 +176,31 @@ def basket_decode_batch(parts_list, out_dtype, device="cpu"):
 # ---------------------------------------------------------------------------
 
 
-def predicate_eval(terms, valid, weights, program: Program) -> torch.Tensor:
+def predicate_eval(terms, valid, weights, program: Program,
+                   device=None) -> torch.Tensor:
     """(T,E,K),(G,E,K),(G,E,K) float32 -> (E,) int32 mask, any E (the
-    kernel masks its own ragged edge, so nothing is padded)."""
+    kernel masks its own ragged edge, so nothing is padded).  Tensors stay
+    on their device; numpy inputs go to ``device`` (default: the card)."""
     return _pe.predicate_eval(
-        torch.as_tensor(terms, dtype=torch.float32),
-        torch.as_tensor(valid, dtype=torch.float32),
-        torch.as_tensor(weights, dtype=torch.float32),
-        program,
+        *_tensors(device, terms, valid, weights, dtype=torch.float32), program
     )
+
+
+# ---------------------------------------------------------------------------
+# stream compaction
+# ---------------------------------------------------------------------------
+
+
+def stream_compact(payload, mask, device=None):
+    """(E, D) payload, (E,) mask -> (packed (E, D) with the rows where
+    ``mask`` is nonzero first, in order, then zeros; count () int32).
+    Any E, no padding.  Tensors stay on their device; numpy inputs go to
+    ``device`` (default: the card).  A numpy mask of another integer type
+    than int32 is kept where nonzero."""
+    payload, mask = _tensors(device, payload, mask)
+    if mask.dtype not in _sc.MASK_DTYPES:
+        mask = mask != 0
+    return _sc.stream_compact(payload, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -277,13 +316,49 @@ def fused_skim(terms, valid, weights, payload, program: Program, use_kernel=True
     return _ref.skim_fused_ref(terms, valid, weights, payload, program)
 
 
+def fused_skim_batch(terms, valid, weights, payload, program: Program,
+                     use_kernel=True, device=None):
+    """Window-batched one-pass skim: one dispatch for a batch of padded
+    windows, terms (B,T,E,K), valid/weights (B,G,E,K), payload (B,E,D).
+    Returns (packed (B,E,D) with each window's survivors front-packed,
+    counts (B,)): per window bit-identical to :func:`fused_skim`.
+
+    ``use_kernel`` routes to the CUDA kernel for tensors on the card (the
+    plain version for CPU tensors), otherwise to the plain version on the
+    tensors' own device.  Tensors stay on their device; numpy inputs go
+    to ``device`` (default: the card).
+    """
+    terms, valid, weights = _tensors(device, terms, valid, weights,
+                                     dtype=torch.float32)
+    (payload,) = _tensors(device, payload)
+    _note_dispatch(("fused_batch", program, tuple(terms.shape), bool(use_kernel)))
+    if use_kernel:
+        return _sf.skim_fused_batch(terms, valid, weights, payload, program)
+    return _ref.skim_fused_batch_ref(terms, valid, weights, payload, program)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q, k, v, causal=True, sm_scale=None, device=None):
+    """(B, H, S, D) float32 or bfloat16 attention, causal by default, the
+    output in q's dtype.  Tensors stay on their device; numpy inputs go
+    to ``device`` (default: the card)."""
+    q, k, v = _tensors(device, q, k, v)
+    return _fa.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+
+
 __all__ = [
     "Program",
     "basket_decode_batch",
     "cascade_stage_step",
     "compile_query",
     "dispatch_stats",
+    "flash_attention",
     "fused_skim",
+    "fused_skim_batch",
     "launch_counts",
     "load_kernels",
     "pack_mask",
@@ -293,6 +368,7 @@ __all__ = [
     "skim_fused",
     "stage_planes",
     "stage_summary_host",
+    "stream_compact",
     "unpack_mask",
     "warm_cascade_stage",
 ]

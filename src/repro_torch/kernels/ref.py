@@ -337,6 +337,53 @@ def skim_fused_ref(terms, valid, weights, payload, program):
     return stream_compact_ref(payload, predicate_mask(program, terms, valid, weights))
 
 
+def skim_fused_batch_ref(terms, valid, weights, payload, program):
+    """:func:`skim_fused_ref` per window of a batch: terms (B, T, E, K),
+    valid/weights (B, G, E, K), payload (B, E, D) -> (packed (B, E, D)
+    with each window's survivors first then zeros, counts (B,) int32)."""
+    keep = predicate_eval_batch_ref(terms, valid, weights, program) > 0
+    B, E, D = payload.shape
+    # survivors first, each window in event order (a stable sort of ~keep)
+    order = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)
+    packed = torch.gather(payload, 1, order[:, :, None].expand(B, E, D))
+    counts = keep.sum(dim=1, dtype=torch.int32)
+    tail = torch.arange(E, device=payload.device)[None, :] >= counts[:, None]
+    return packed.masked_fill_(tail[:, :, None], 0), counts
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30  # the reference's mask value (flash_attention.py NEG_INF)
+
+
+def attention_scale(head_dim: int, sm_scale: float | None = None) -> float:
+    """The float32 factor q is scaled by: ``sm_scale`` or 1/sqrt(D)."""
+    scale = sm_scale if sm_scale is not None else 1.0 / np.sqrt(head_dim)
+    return float(np.float32(scale))
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, sm_scale: float | None = None):
+    """(B, H, S, D) attention with the Pallas ``_attn_kernel``'s arithmetic
+    in float32: q, k and v upcast, q scaled before the product, the logit
+    of every key after the query's own position set to -1e30 when
+    ``causal``, softmax with the denominator floored at 1e-30, the result
+    cast to q's dtype."""
+    scale = attention_scale(q.shape[-1], sm_scale)
+    qf = q.to(torch.float32) * scale
+    logits = qf @ k.to(torch.float32).transpose(-1, -2)
+    if causal:
+        S = q.shape[2]
+        rows = torch.arange(S, device=q.device)
+        logits = logits.masked_fill(rows[:, None] < rows[None, :], NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = (p @ v.to(torch.float32)) / torch.clamp_min(l, 1e-30)
+    return out.to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # basket_decode
 # ---------------------------------------------------------------------------
@@ -401,13 +448,16 @@ def basket_decode_ref(planes, firsts, kind: int, n_values: int, out_dtype):
 
 __all__ = [
     "apply_op",
+    "attention_scale",
     "basket_decode_ref",
     "cascade_stage_ref",
     "finish_decode",
+    "flash_attention_ref",
     "pack_bits",
     "pair_group_value",
     "predicate_eval_batch_ref",
     "predicate_mask",
+    "skim_fused_batch_ref",
     "skim_fused_ref",
     "slot_sum",
     "stream_compact_ref",

@@ -6,6 +6,11 @@ order.  By convention payload column 0 is the local event index, so the
 packed output alone gives the host the survivor mask (see
 ``repro_torch.core.neardata.fused_window_skim``).
 
+Two wrappers over one launch, each with its own launch counter:
+:func:`skim_fused` (one window, the engine's per-window path) and
+:func:`skim_fused_batch` (a batch of windows, each packed on its own);
+the first is the B = 1 launch of the second.
+
 The program reaches the kernel as data: :func:`program_descriptor`
 flattens a frozen :class:`Program` into small int32/float32 arrays,
 uploaded once per (program, device) and cached, so one build serves every
@@ -27,8 +32,10 @@ from repro_torch.kernels.program import GROUP_EXPR, Program
 
 EVENT_TILE = 512  # events per block (csrc/skim_fused.cu kTile)
 MAX_STACK = 16  # RPN stack depth the kernel holds (csrc kMaxStack)
+MAX_WINDOWS = 65535  # the grid's y dimension (one window per row)
 
-launches = 0  # kernel launches through skim_fused(); never reset here
+# kernel launches through each wrapper; never reset here
+launches = {"skim_fused": 0, "skim_fused_batch": 0}
 KERNELS_PER_CALL = 2  # skim_fused_launch runs the evaluate and compact kernels
 _LAUNCHES_LOCK = threading.Lock()  # pipelined skims call from several threads
 
@@ -111,20 +118,63 @@ def _lib():
     fn = lib.skim_fused_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, ctypes.c_longlong, i, i,
+        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_longlong, i, i,
                        p, p, p, p, p, p, p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check(name, x, shape, device):
+def _check(who, name, x, shape, device):
     if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"skim_fused: {name} must be contiguous float32")
+        raise ValueError(f"{who}: {name} must be contiguous float32")
     if tuple(x.shape) != tuple(shape) or x.device != device:
         raise ValueError(
-            f"skim_fused: {name} has shape {tuple(x.shape)} on {x.device}, "
+            f"{who}: {name} has shape {tuple(x.shape)} on {x.device}, "
             f"expected {tuple(shape)} on {device}"
         )
+
+
+def _launch(who, terms, valid, weights, payload, program: Program):
+    """Launch ``skim_fused_launch`` over a (B, T, E, K) batch on the card:
+    (packed (B, E, D), counts (B,) int32)."""
+    device = terms.device
+    B, T, E, K = terms.shape
+    G = program.n_groups
+    D = payload.shape[-1]
+    if T != program.n_terms:
+        raise ValueError(f"{who}: {T} term planes for {program.n_terms} terms")
+    if B > MAX_WINDOWS:
+        raise ValueError(f"{who}: {B} windows exceed the grid's {MAX_WINDOWS}")
+    _check(who, "terms", terms, (B, T, E, K), device)
+    _check(who, "valid", valid, (B, G, E, K), device)
+    _check(who, "weights", weights, (B, G, E, K), device)
+    _check(who, "payload", payload, (B, E, D), device)
+    if B == 0 or E == 0:
+        return payload.clone(), torch.zeros(B, dtype=torch.int32, device=device)
+    out = torch.empty_like(payload)
+    totals = torch.empty(B, dtype=torch.int32, device=device)
+    ints, floats, off = program_descriptor(program, device)
+    words = torch.empty((B, -(-E // 32)), dtype=torch.int32, device=device)
+    tile_counts = torch.empty((B, -(-E // EVENT_TILE)), dtype=torch.int32,
+                              device=device)
+
+    def at(base, name):
+        return ctypes.c_void_p(base.data_ptr() + 4 * off[name])
+
+    p = _build.ptr
+    with torch.cuda.device(device):
+        rc = _lib().skim_fused_launch(
+            p(terms), p(valid), p(weights), p(payload), B, T, G, E, K, D,
+            at(ints, "groups"), at(ints, "term_ids"), at(ints, "ops"),
+            at(floats, "thrs"), at(floats, "cmp_thrs"), at(ints, "rpn_op"),
+            at(ints, "rpn_term"), at(floats, "rpn_const"),
+            p(words), p(tile_counts), p(out), p(totals),
+            _build.stream_of(device),
+        )
+    _build.check_launch(who, rc)
+    with _LAUNCHES_LOCK:
+        launches[who] += KERNELS_PER_CALL
+    return out, totals
 
 
 def skim_fused(terms, valid, weights, payload, program: Program):
@@ -135,50 +185,44 @@ def skim_fused(terms, valid, weights, payload, program: Program):
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
     plain version, :func:`repro_torch.kernels.ref.skim_fused_ref`.
     """
-    global launches
     if not terms.is_cuda:
         return _ref.skim_fused_ref(terms, valid, weights, payload, program)
-    device = terms.device
-    T, E, K = terms.shape
-    G = program.n_groups
-    D = payload.shape[1]
-    if T != program.n_terms:
-        raise ValueError(f"skim_fused: {T} term planes for {program.n_terms} terms")
-    _check("terms", terms, (T, E, K), device)
-    _check("valid", valid, (G, E, K), device)
-    _check("weights", weights, (G, E, K), device)
-    _check("payload", payload, (E, D), device)
-    if E == 0:
-        return payload.clone(), torch.zeros((), dtype=torch.int32, device=device)
-    out = torch.empty_like(payload)
-    total = torch.empty(1, dtype=torch.int32, device=device)
-    ints, floats, off = program_descriptor(program, device)
-    words = torch.empty(-(-E // 32), dtype=torch.int32, device=device)
-    tile_counts = torch.empty(-(-E // EVENT_TILE), dtype=torch.int32, device=device)
-
-    def at(base, name):
-        return ctypes.c_void_p(base.data_ptr() + 4 * off[name])
-
-    p = _build.ptr
-    with torch.cuda.device(device):
-        rc = _lib().skim_fused_launch(
-            p(terms), p(valid), p(weights), p(payload), T, G, E, K, D,
-            at(ints, "groups"), at(ints, "term_ids"), at(ints, "ops"),
-            at(floats, "thrs"), at(floats, "cmp_thrs"), at(ints, "rpn_op"),
-            at(ints, "rpn_term"), at(floats, "rpn_const"),
-            p(words), p(tile_counts), p(out), p(total),
-            _build.stream_of(device),
+    if terms.dim() != 3 or payload.dim() != 2:
+        raise ValueError(
+            f"skim_fused: terms {tuple(terms.shape)} and payload "
+            f"{tuple(payload.shape)} are not (T, E, K) and (E, D)"
         )
-    _build.check_launch("skim_fused", rc)
-    with _LAUNCHES_LOCK:
-        launches += KERNELS_PER_CALL
-    return out, total[0]
+    out, totals = _launch("skim_fused", terms[None], valid[None], weights[None],
+                          payload[None], program)
+    return out[0], totals[0]
+
+
+def skim_fused_batch(terms, valid, weights, payload, program: Program):
+    """The one-pass skim over a batch of windows: terms (B, T, E, K),
+    valid/weights (B, G, E, K), payload (B, E, D) float32 -> (packed
+    (B, E, D) with each window's survivors first in its own slice, counts
+    (B,) int32).  Per window it equals :func:`skim_fused`.  Any E.
+
+    A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
+    plain version, :func:`repro_torch.kernels.ref.skim_fused_batch_ref`.
+    """
+    if not terms.is_cuda:
+        return _ref.skim_fused_batch_ref(terms, valid, weights, payload, program)
+    if terms.dim() != 4 or payload.dim() != 3:
+        raise ValueError(
+            f"skim_fused_batch: terms {tuple(terms.shape)} and payload "
+            f"{tuple(payload.shape)} are not (B, T, E, K) and (B, E, D)"
+        )
+    return _launch("skim_fused_batch", terms, valid, weights, payload, program)
 
 
 __all__ = [
     "EVENT_TILE",
     "KERNELS_PER_CALL",
+    "MAX_WINDOWS",
     "flatten_program",
+    "launches",
     "program_descriptor",
     "skim_fused",
+    "skim_fused_batch",
 ]

@@ -161,7 +161,7 @@ def test_predicate_eval_ragged_matches_pallas_interpret(name, E):
     want = np.asarray(jops.predicate_eval(
         terms, valid, weights, _jax_program(prog), interpret=True
     ))
-    got = tops.predicate_eval(terms, valid, weights, prog).numpy()
+    got = tops.predicate_eval(terms, valid, weights, prog, device="cpu").numpy()
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
 

@@ -25,9 +25,11 @@ import chip_smoke  # noqa: E402  (the card checks and the queries)
 from repro_torch.core import run_skim  # noqa: E402
 from repro_torch.data.synth import make_nanoaod_like  # noqa: E402
 from repro_torch.kernels import basket_decode as bd  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import predicate_eval as pe  # noqa: E402
 from repro_torch.kernels import skim_fused as sf  # noqa: E402
+from repro_torch.kernels import stream_compact as sc  # noqa: E402
 
 
 @pytest.fixture
@@ -59,9 +61,16 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     _, out = pe.cascade_stage(*batch, packed, seg, prog, 1)
     count = int(out[0, 1])
     assert count == int(mask.sum()) and int(out[0, 0]) == int(count > 0)
+    got, counts = sf.skim_fused_batch(*batch, t[3][None], prog)
+    assert int(counts[0]) == int(n) and torch.equal(got[0], want)
+    packed, m = sc.stream_compact(t[3], mask[0] > 0)
+    assert int(m) == int(n) and torch.equal(packed, want)
+    q = t[0][None, :, :, :2].contiguous()
+    assert torch.equal(fa.flash_attention(q, q, q), ref.flash_attention_ref(q, q, q))
     assert ops.launch_counts() == {
-        "skim_fused": 0, "basket_decode": 0, "cascade_stage": 0,
-        "predicate_eval_batch": 0, "predicate_eval": 0,
+        "skim_fused": 0, "skim_fused_batch": 0, "basket_decode": 0,
+        "cascade_stage": 0, "predicate_eval_batch": 0, "predicate_eval": 0,
+        "stream_compact": 0, "flash_attention": 0,
     }
 
 
@@ -152,3 +161,58 @@ def test_cuda_batched_path_matches_the_host(cuda_device, qname):
     assert chip_smoke.fetch_row(res.stats) == chip_smoke.fetch_row(want.stats)
     for key in ("cascade_stages", "cascade_order"):
         assert res.extras[key] == want.extras[key], key
+
+
+@pytest.mark.cuda
+def test_cuda_stream_compact_matches_plain(cuda_device):
+    err = chip_smoke.check_stream_compact(np.random.default_rng(0), cuda_device,
+                                          Es=(1, 300, 4097))
+    assert err == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_skim_fused_batch_matches_plain(cuda_device):
+    names = ("count", "ht", "mass_pair", "expr", "empty", "full")
+    assert chip_smoke.check_skim_fused_batch(
+        np.random.default_rng(0), cuda_device, names) == (0.0, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_matches_plain(cuda_device):
+    chip_smoke.check_flash_attention(np.random.default_rng(0), cuda_device,
+                                     chip_smoke.FLASH_SHAPES[:2] + ((1, 2, 200, 48),))
+
+
+@pytest.mark.cuda
+def test_cuda_new_entry_points_launch_their_kernels(cuda_device):
+    rng = np.random.default_rng(3)
+    prog = dict(chip_smoke.sweep_programs())["count"]
+    host = chip_smoke.batch_sweep_inputs(rng, prog, 3, 1000, 4)
+    ops.reset_launch_counts()
+    got, counts = ops.fused_skim_batch(*host, prog)
+    packed, n = ops.stream_compact(host[3][0], host[0][0, 0, :, 0] > 20)
+    q = rng.normal(size=(1, 2, 64, 16)).astype(np.float32)
+    out = ops.flash_attention(q, q, q)
+    assert got.is_cuda and packed.is_cuda and out.is_cuda
+    assert ops.launch_counts()["skim_fused_batch"] == sf.KERNELS_PER_CALL
+    assert ops.launch_counts()["stream_compact"] == sc.KERNELS_PER_CALL
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_new_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    x = torch.zeros((8, 2), device=cuda_device)
+    with pytest.raises(ValueError):
+        sc.stream_compact(x, torch.zeros(8, dtype=torch.float32, device=cuda_device))
+    with pytest.raises(ValueError):
+        sc.stream_compact(x.t(), torch.zeros(2, dtype=torch.bool, device=cuda_device))
+    q = torch.zeros((1, 1, 8, 160), device=cuda_device)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)  # head dim above 128
+    with pytest.raises(ValueError):
+        fa.flash_attention(q[..., :64].double(), q[..., :64].double(), q[..., :64].double())
+    prog = dict(chip_smoke.sweep_programs())["count"]
+    host = chip_smoke.batch_sweep_inputs(np.random.default_rng(1), prog, 2, 512, 4)
+    t = [torch.from_numpy(a).to(cuda_device) for a in host]
+    with pytest.raises(ValueError):
+        sf.skim_fused_batch(t[0], t[1], t[2], t[3].double(), prog)

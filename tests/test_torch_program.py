@@ -188,6 +188,23 @@ GUARD = textwrap.dedent(
     assert 0 < res.n_passed < 3000, res.n_passed
     batched = run_skim(store, q, device="cpu", fused_backend="torch", device_batch=3)
     assert batched.n_passed == res.n_passed and batched.extras["device_batch"] == 3
+    import numpy as np
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(0)
+    payload = rng.normal(size=(300, 2)).astype(np.float32)
+    packed, n = ops.stream_compact(payload, payload[:, 0] > 0, device="cpu")
+    assert int(n) == int((payload[:, 0] > 0).sum())
+    from repro_torch.kernels.program import GROUP_COUNT, OP_IDS, Group, Program
+    prog = Program((Group(GROUP_COUNT, (0,), (OP_IDS[">"],), (15.0,)),),
+                   ("MET_pt",), (None,), (None,))
+    terms = rng.exponential(20.0, (2, 1, 512, 1)).astype(np.float32)
+    ones = np.ones((2, 1, 512, 1), np.float32)
+    out, counts = ops.fused_skim_batch(terms, ones, ones, payload[:1].repeat(512, 0)
+                                       .reshape(1, 512, 2).repeat(2, 0), prog,
+                                       device="cpu")
+    assert out.shape == (2, 512, 2) and counts.shape == (2,)
+    q = rng.normal(size=(1, 2, 16, 8)).astype(np.float32)
+    assert ops.flash_attention(q, q, q, device="cpu").shape == (1, 2, 16, 8)
     bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "repro."))]
     assert not [m for m in bad if sys.modules[m] is not None], bad
     print("ok", res.n_passed)
