@@ -6,16 +6,19 @@
 Phases, in order; the first failure stops the run with a non-zero exit:
 
 1. Device: the card's name and power limit (``nvidia-smi``), the torch
-   and CUDA versions, then the build of every kernel from ``src/``.
+   and CUDA versions, then the build of every kernel from ``src/``, and
+   the attention library's SASS (``cuobjdump``): its bf16 route must hold
+   ``HGMMA`` (wgmma) and its float32 route tf32 ``HMMA`` (mma.sync).
 2. Kernels against their plain PyTorch versions, on the card:
    ``basket_decode`` bit for bit, ``skim_fused``, ``cascade_stage`` and
    ``predicate_eval`` over every op and group kind, ``stream_compact``
    bit for bit over every payload width (NaN payloads, -0.0, integers
    past 2^24), ``skim_fused_batch`` over every op and group kind, and
-   ``flash_attention`` at the JAX tests' shapes (3e-5 in float32, a few
-   ulps in bf16).  Then each skim kernel's median time beside its plain version's
-   and its bound, at the shapes the main path gives it (window 0; the
-   batch of the first 16 windows).
+   ``flash_attention`` at the JAX tests' shapes and at its edges (ragged
+   S, a padded D, many heads), 3e-5 in float32, a few ulps in bf16.
+   Then each skim kernel's median time beside its plain version's and
+   its bound, at the shapes the main path gives it (window 0; the batch
+   of the first 16 windows).
 3. The main path: ``run_skim`` with every default on two 1,000,000-event
    stores — NanoAOD-like (98 branches) for the quickstart query and the
    Z->ee mass/ΔR/expression query, and the conditions-era store of
@@ -31,7 +34,8 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    ``ops.stream_compact`` of eight float32 branches by the quickstart
    cell's 1,000,000-event survivor mask, and ``ops.flash_attention`` at
    StarCoder2-7B's head layout (1, 36, 2048, 128) in float32 and bf16;
-   then their times, beside one PyTorch call each where there is one.
+   then their times, beside one PyTorch call each where there is one
+   (and the kernels ``torch.profiler`` saw that call run).
 4. One JSON line listing each kernel, then the device line last.
 
 It imports ``repro_torch`` only (never JAX or the JAX package), needs one
@@ -51,6 +55,7 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
 N_EVENTS = 1_000_000
 
@@ -256,6 +261,65 @@ def bound_times(nbytes: float, ops: float,
     operations at ``ops_per_s``: by default its float32 rate outside the
     tensor cores)."""
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+
+
+def attention_ops_ms(ops: float, bf16: bool) -> float:
+    """The least time for ``ops`` operations of attention.  bf16: the
+    tensor cores' bf16 rate.  float32: the lesser of the two ways to a
+    float32-exact product, the CUDA cores at their float32 rate and split
+    TF32 on the tensor cores (three TF32 products per product at the TF32
+    rate), which is the lesser: 3 / 495 < 1 / 67."""
+    if bf16:
+        return ops / BF16_OPS_PER_S * 1e3
+    return min(ops / FP32_OPS_PER_S, 3 * ops / TF32_OPS_PER_S) * 1e3
+
+
+def profiled_kernels(fn) -> list[str] | str:
+    """The names of the device kernels (not memsets) a call of ``fn`` ran,
+    from ``torch.profiler``, or "not measured" where it saw none.  Some
+    sessions see no device events at all: it tries three, with more calls
+    each time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm: a first call may set up what later calls reuse
+    for calls in (1, 3, 10):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = sorted({ev.key for ev in prof.key_averages()
+                        if ev.device_type == DeviceType.CUDA
+                        and not ev.key.startswith("Memset")})
+        if names:
+            return names
+    return "not measured"
+
+
+def check_tensor_core_sass() -> dict:
+    """Counts, in the SASS of the attention library, the bf16 route's wgmma
+    (``HGMMA``) and the float32 route's tf32 mma.sync (``HMMA`` ... ``TF32``);
+    fails if either is 0 or ``cuobjdump`` is missing."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
+    check(Path(tool).exists(), "cuobjdump not found: the tensor-core check cannot run")
+    lib = _build.lib_path("flash_attention")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120)
+    check(sass.returncode == 0, f"cuobjdump -sass {lib.name} failed: {sass.stderr.strip()}")
+    lines = sass.stdout.splitlines()
+    counts = {"HGMMA": sum("HGMMA" in ln for ln in lines),
+              "HMMA_TF32": sum("HMMA" in ln and "TF32" in ln for ln in lines)}
+    log(f"  flash_attention SASS: {counts['HGMMA']} HGMMA (bf16 route, wgmma), "
+        f"{counts['HMMA_TF32']} tf32 HMMA (float32 route, mma.sync)")
+    check(counts["HGMMA"] > 0, "flash_attention: no HGMMA in the bf16 route's SASS")
+    check(counts["HMMA_TF32"] > 0, "flash_attention: no tf32 HMMA in the float32 route's SASS")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -848,6 +912,9 @@ def check_skim_fused_batch(rng, device, names=None) -> tuple[float, int]:
 
 
 FLASH_SHAPES = ((1, 1, 128, 32), (2, 3, 256, 64), (1, 2, 512, 128))  # tests/test_kernels.py
+# the kernel's edges: S a multiple of neither key tile (32, 128), a D the
+# wrapper pads to 48, B*H = 72 heads over several waves of CTAs
+FLASH_EDGE_SHAPES = ((1, 2, 200, 128), (1, 2, 2049, 128), (1, 2, 200, 40), (2, 36, 384, 128))
 # (rtol, atol) against the plain version on the card.  float32: the JAX
 # tests' 3e-5.  bf16: kernel and plain version both accumulate in float32
 # and round once to bf16, so they differ by at most about one bf16 ulp
@@ -883,9 +950,10 @@ def attention_inputs(rng, shape, dtype, device):
             .to(device=device, dtype=dtype) for _ in range(3)]
 
 
-def check_flash_attention(rng, device, shapes=FLASH_SHAPES) -> float:
+def check_flash_attention(rng, device, shapes=FLASH_SHAPES + FLASH_EDGE_SHAPES) -> float:
     """``flash_attention`` against its plain version at the JAX tests'
-    shapes, causal and not, within :data:`FLASH_TOL`.
+    shapes and :data:`FLASH_EDGE_SHAPES`, causal and not, within
+    :data:`FLASH_TOL`.
     Returns the largest |kernel - plain| over all cases."""
     import torch
 
@@ -1031,7 +1099,8 @@ def _summary(rows) -> dict | None:
 
 def bounds(summary: dict) -> dict:
     return {k: summary[k]
-            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "by_dtype")
+            if k in summary}
 
 
 def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
@@ -1184,27 +1253,41 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         bf16 = q.dtype == torch.bfloat16
         # q, k, v read once and the output written once; 2 products of
         # 2 operations per (row, key, column) the causal mask keeps
-        nbytes = 4 * q.numel() * q.element_size()
-        t_bytes, t_ops = bound_times(
-            nbytes, 2 * 2 * B * H * D * S * (S + 1) / 2,
-            BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+        t_bytes, _ = bound_times(4 * q.numel() * q.element_size(), 0)
+        t_ops = attention_ops_ms(2 * 2 * B * H * D * S * (S + 1) / 2, bf16)
         scale = ref.attention_scale(D)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=scale)
+
         row = {
+            "dtype": str(q.dtype).removeprefix("torch."),
+            "library_kernels": profiled_kernels(sdpa),
             "ms": device_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
             "stream_ms": stream_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
             "plain_ms": stream_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True)),
-            "library_ms": stream_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True, scale=scale)),
+            "library_ms": stream_ms(sdpa),
+            "library_device_ms": device_ms(sdpa),
             "t_bytes": t_bytes, "t_ops": t_ops,
         }
         rows.append(row)
         log(f"  flash_attention {tuple(q.shape)} causal {q.dtype}: kernel "
             f"{row['ms']:.5f} ms on the device, {row['stream_ms']:.5f} ms per call from "
-            f"the host; "
-            f"plain {row['plain_ms']:.5f} ms; scaled_dot_product_attention "
-            f"{row['library_ms']:.5f} ms; bound {max(t_bytes, t_ops):.7f} ms "
-            f"({'bf16 tensor-core' if bf16 else 'float32'} rate)")
+            f"the host; plain {row['plain_ms']:.5f} ms; scaled_dot_product_attention "
+            f"{row['library_ms']:.5f} ms per call from the host, "
+            f"{row['library_device_ms']:.5f} ms on the device, kernels "
+            f"{row['library_kernels']}; bound {max(t_bytes, t_ops):.7f} ms "
+            f"({'bf16 tensor cores' if bf16 else 'split TF32 on the tensor cores'})")
     out["flash_attention"] = _summary(rows)
+    if rows:
+        out["flash_attention"]["by_dtype"] = {
+            r["dtype"]: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                         "library_ms": r["library_ms"],
+                         "library_device_ms": r["library_device_ms"],
+                         "library_kernels": r["library_kernels"],
+                         "bound_ms": max(r["t_bytes"], r["t_ops"])}
+            for r in rows}
     return {name: v for name, v in out.items() if v is not None}
 
 
@@ -1550,6 +1633,7 @@ def main() -> int:
     build_s = _build.build_all()
     ops.load_kernels()
     log(f"  kernels built in {build_s:.1f} s into {_build.build_dir()}")
+    check_tensor_core_sass()
 
     log("== 2. kernels against their plain versions ==")
     rng = np.random.default_rng(0)

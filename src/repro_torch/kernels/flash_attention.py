@@ -1,10 +1,11 @@
 """The attention kernel (``csrc/flash_attention.cu``).
 
 Causal or full online-softmax attention over (B, H, S, D) tensors of
-float32 or bfloat16, accumulated in float32, with the arithmetic of the
-JAX package's Pallas ``_attn_kernel``: q scaled before the product,
--1e30 as the running max's start, the denominator floored at 1e-30, the
-output in q's dtype.
+float32 or bfloat16, accumulated in float32, computing what the JAX
+package's Pallas ``_attn_kernel`` computes: ``sm_scale`` or 1/sqrt(D) on
+the logits, -1e30 as the running max's start, the denominator floored at
+1e-30, the output in q's dtype.  bf16 runs on wgmma fed by TMA, float32
+on mma.sync in split TF32 (the source's note says where each rounds).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version, :func:`repro_torch.kernels.ref.flash_attention_ref`.
@@ -16,13 +17,16 @@ import ctypes
 import threading
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_HEAD_DIM = 128  # each lane holds at most 4 output columns
-MAX_HEADS = 65535  # B*H: the grid's y dimension
+MAX_HEAD_DIM = 128  # two 64-column TMA boxes (bf16); 16 mma column tiles (float32)
+HEAD_DIM_STEP = 16  # the kernel takes D in multiples of 16 (one bf16 wgmma step)
+MAX_HEADS = 2**31 - 1  # B*H: the grid's x dimension
+MAX_Q_TILES = 65535  # the grid's y dimension, in tiles of 64 (float32) or 128 rows
 
 launches = 0  # kernel launches through flash_attention(); never reset here
 _LAUNCHES_LOCK = threading.Lock()
@@ -35,6 +39,29 @@ def _fn():
         fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def stage(q, k, v, sm_scale: float | None = None):
+    """What the kernel is given: q, k and v with D zero-padded to a
+    multiple of :data:`HEAD_DIM_STEP` (zero columns add nothing to q.k and
+    their output columns are dropped), each 16-byte aligned, and the scale
+    of the original D.  The kernel takes only a scale > 0: a negative one
+    is folded into q as -q (exact), a zero one as q * 0 with scale 1 (the
+    reference's own q * 0).  Returns (q, k, v, scale)."""
+    scale = _ref.attention_scale(q.shape[-1], sm_scale)
+    if scale < 0:
+        q, scale = -q, -scale
+    elif scale == 0:
+        q, scale = q * 0, 1.0
+    pad = -q.shape[-1] % HEAD_DIM_STEP
+    staged = []
+    for x in (q, k, v):
+        if pad:
+            x = F.pad(x, (0, pad))
+        if x.data_ptr() % 16:
+            x = x.clone()
+        staged.append(x)
+    return (*staged, scale)
 
 
 def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None):
@@ -57,23 +84,23 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None)
         raise ValueError("flash_attention: q, k and v must be contiguous")
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
-    if B * H > MAX_HEADS:
-        raise ValueError(f"flash_attention: {B * H} heads exceed the grid's {MAX_HEADS}")
-    out = torch.empty_like(q)
+    if B * H > MAX_HEADS or -(-S // 64) > MAX_Q_TILES:
+        raise ValueError(f"flash_attention: {B * H} heads of {S} rows exceed the grid")
     if q.numel() == 0:
-        return out
-    p = _build.ptr
+        return torch.empty_like(q)
     with torch.cuda.device(q.device):
+        qs, ks, vs, scale = stage(q, k, v, sm_scale)
+        out = torch.empty_like(qs)
+        p = _build.ptr
         rc = _fn()(
-            p(q), p(k), p(v), p(out), B * H, S, D,
-            _ref.attention_scale(D, sm_scale), int(bool(causal)),
-            int(q.dtype == torch.bfloat16),
+            p(qs), p(ks), p(vs), p(out), B * H, S, qs.shape[-1], scale,
+            int(bool(causal)), int(q.dtype == torch.bfloat16),
             _build.stream_of(q.device),
         )
     _build.check_launch("flash_attention", rc)
     with _LAUNCHES_LOCK:
         launches += 1
-    return out
+    return out if out.shape[-1] == D else out[..., :D].contiguous()
 
 
-__all__ = ["DTYPES", "MAX_HEAD_DIM", "flash_attention"]
+__all__ = ["DTYPES", "HEAD_DIM_STEP", "MAX_HEAD_DIM", "flash_attention", "stage"]

@@ -12,7 +12,18 @@ tests' own (``tests/test_kernels.py``): the online softmax rescales tile
 by tile and sums in another order than one softmax over the whole row,
 and bf16 keeps 8 bits of mantissa.  The CUDA kernel is held against the
 plain version on the card in ``tests/test_torch_cuda.py``.
+
+The second half emulates, in plain torch on the CPU, the rounding of the
+CUDA kernel's two routes (its key tiles, the online rescale, the scale
+applied to the float32 logits, exp2 with one folded constant; P rounded
+to bf16 before P V on the bf16 route, three split-TF32 products on the
+float32 route) and holds each to the reference within ``chip_smoke``'s
+card tolerances ``FLASH_TOL`` and to the Pallas kernel within ``TOL``.
+A single TF32 product misses 3e-5: that is why the float32 route splits.
 """
+
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +35,12 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (FLASH_TOL, the card's tolerances)
 
 TOL = {"float32": 3e-5, "bfloat16": 0.05}
 
@@ -103,3 +120,170 @@ def test_flash_attention_ref_floors_the_denominator_and_keeps_the_dtype():
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
     assert tref.attention_scale(64) == float(np.float32(0.125))
     assert tref.attention_scale(64, 0.3) == float(np.float32(0.3))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's rounding, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+# keys per K/V tile of each route (kBc and kF32Keys in csrc/flash_attention.cu)
+ROUTE_KEYS = {"bf16": 128, "tf32x3": 32, "tf32": 32}
+LOG2E = 1.4426950408889634
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest, ties away
+    from zero: cvt.rna.tf32.f32 on finite values."""
+    bits = (x.contiguous().view(torch.int32) + 0x1000) & -0x2000
+    return bits.view(torch.float32)
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, route: str) -> torch.Tensor:
+    """a @ b as the route's tensor cores form it, accumulated in float32."""
+    if route == "bf16":  # bf16 x bf16 products are exact in float32
+        return a @ b
+    big_a, big_b = _tf32(a), _tf32(b)
+    if route == "tf32":
+        return big_a @ big_b
+    small_a, small_b = _tf32(a - big_a), _tf32(b - big_b)
+    return small_a @ big_b + big_a @ small_b + big_a @ big_b
+
+
+def _emulate(q, k, v, causal: bool, route: str, sm_scale=None) -> torch.Tensor:
+    """The kernel's arithmetic over float32 (B, H, S, D) inputs (bf16 values
+    upcast for the bf16 route): key tiles of ROUTE_KEYS[route], running max
+    from -1e30, p = exp2(s c - m c) with c = scale * log2(e) in float32 and
+    s c - m c rounded once (one FMA), the row sums in float32, P rounded to
+    bf16 before P V on the bf16 route, the sum floored at 1e-30."""
+    S = q.shape[2]
+    c = torch.tensor(tref.attention_scale(q.shape[-1], sm_scale), dtype=torch.float32)
+    c = c * torch.tensor(LOG2E, dtype=torch.float32)
+    m = torch.full(q.shape[:3] + (1,), tref.NEG_INF, dtype=torch.float32)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    rows = torch.arange(S)[:, None]
+    step = ROUTE_KEYS[route]
+    for k0 in range(0, S, step):
+        kt, vt = k[:, :, k0:k0 + step], v[:, :, k0:k0 + step]
+        s = _product(q, kt.transpose(-1, -2), route)
+        keys = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        if causal:
+            s = s.masked_fill(keys > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * c)
+        mc = m_new * c
+        p = torch.exp2((s.double() * c.double() - mc.double()).float())
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if route == "bf16":
+            p = p.to(torch.bfloat16).float()
+        acc = acc * alpha + _product(p, vt, route)
+        m = m_new
+    return acc / torch.clamp_min(l, 1e-30)
+
+
+def _over(got, want, rtol: float, atol: float) -> int:
+    """How many values fall outside atol + rtol * |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return int((np.abs(got - want) > atol + rtol * np.abs(want)).sum())
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 200, 64), (1, 2, 256, 128), (2, 1, 130, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_route_rounding_stays_within_flash_tol(shape, causal):
+    """P rounded to bf16 before P V, the scale after the product, exp2: the
+    result rounded to bf16 stays within the card's bf16 FLASH_TOL of the
+    reference on the same bf16 inputs (ragged S included)."""
+    x = [torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(shape[2], shape)]
+    got = _emulate(*(a.float() for a in x), causal, "bf16").to(torch.bfloat16)
+    want = tref.flash_attention_ref(*x, causal=causal)
+    rtol, atol = chip_smoke.FLASH_TOL["bfloat16"]
+    assert _over(got.float(), want.float(), rtol, atol) == 0
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 200, 64), (1, 2, 256, 128), (2, 1, 130, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_tf32_route_rounding_stays_within_flash_tol(shape, causal):
+    """Three TF32 products per product (small*big + big*small + big*big)
+    stay within the card's float32 FLASH_TOL (3e-5) of the reference."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(shape[2] + 1, shape))
+    got = _emulate(q, k, v, causal, "tf32x3")
+    want = tref.flash_attention_ref(q, k, v, causal=causal)
+    rtol, atol = chip_smoke.FLASH_TOL["float32"]
+    assert _over(got, want, rtol, atol) == 0
+
+
+@pytest.mark.parametrize("route", ["bf16", "tf32x3"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_route_emulations_match_pallas(route, causal):
+    """Each route's emulation against the Pallas kernel in interpret mode,
+    within the JAX tests' tolerances (TOL)."""
+    shape = (1, 2, 256, 64)
+    host = _inputs(7, shape)
+    if route == "bf16":
+        x = [jnp.asarray(a, jnp.bfloat16) for a in host]
+        got = _emulate(*(torch.from_numpy(np.asarray(a, np.float32)) for a in x), causal, route)
+        tol = TOL["bfloat16"]
+    else:
+        x = [jnp.asarray(a) for a in host]
+        got = _emulate(*(torch.from_numpy(a) for a in host), causal, route)
+        tol = TOL["float32"]
+    want = jops.flash_attention(*x, causal=causal, interpret=True)
+    _close(got.numpy(), np.asarray(want, np.float32), tol)
+
+
+def test_split_tf32_route_with_sm_scale_matches_pallas():
+    q, k, v = _inputs(11, (1, 1, 128, 32))
+    got = _emulate(*(torch.from_numpy(a) for a in (q, k, v)), True, "tf32x3", sm_scale=0.3)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                causal=True, sm_scale=0.3, interpret=True)
+    _close(got.numpy(), want, TOL["float32"])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_a_single_tf32_product_misses_the_float32_tolerance(causal):
+    """Why the float32 route splits: one TF32 pass keeps 11 bits and puts
+    values outside 3e-5 of the reference, where the split does not."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(13, (1, 2, 256, 64)))
+    want = tref.flash_attention_ref(q, k, v, causal=causal)
+    rtol, atol = chip_smoke.FLASH_TOL["float32"]
+    assert _over(_emulate(q, k, v, causal, "tf32"), want, rtol, atol) > 0
+    assert _over(_emulate(q, k, v, causal, "tf32x3"), want, rtol, atol) == 0
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    x = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 2.0**-12, -(1.0 + 2.0**-11),
+                      1.0 + 3 * 2.0**-11], dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0 + 2.0**-10, 1.0, -(1.0 + 2.0**-10), 1.0 + 2.0**-9],
+                        dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)
+
+
+@pytest.mark.parametrize("D", [40, 24, 8, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_pad_equals_the_unpadded_plain_version(D, dtype):
+    """The wrapper's staging for the kernel: D zero-padded to a multiple of
+    16, the scale taken from the original D, the output sliced back."""
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _inputs(D, (1, 2, 96, D)))
+    qs, ks, vs, scale = tfa.stage(q, k, v)
+    assert qs.shape[-1] % tfa.HEAD_DIM_STEP == 0 and qs.shape[-1] - D < tfa.HEAD_DIM_STEP
+    assert scale == tref.attention_scale(D)
+    assert torch.equal(qs[..., :D], q) and not qs[..., D:].any()
+    for causal in (True, False):
+        got = tref.flash_attention_ref(qs, ks, vs, causal, sm_scale=scale)[..., :D]
+        want = tref.flash_attention_ref(q, k, v, causal)
+        if dtype == torch.float32:
+            _close(got.numpy(), want.numpy(), 1e-6)
+        else:
+            _close(got.float().numpy(), want.float().numpy(), 2.0**-8)
+
+
+@pytest.mark.parametrize("sm_scale", [-0.2, 0.0])
+def test_stage_folds_a_scale_that_is_not_positive_into_q(sm_scale):
+    """The kernel takes scale > 0; staging moves a sign or a zero into q,
+    and the plain version on the staged inputs equals it on the originals."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(17, (1, 1, 64, 16)))
+    qs, ks, vs, scale = tfa.stage(q, k, v, sm_scale)
+    assert scale > 0
+    got = tref.flash_attention_ref(qs, ks, vs, True, sm_scale=scale)
+    want = tref.flash_attention_ref(q, k, v, True, sm_scale=sm_scale)
+    _close(got.numpy(), want.numpy(), 1e-6)

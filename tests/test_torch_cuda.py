@@ -180,7 +180,8 @@ def test_cuda_skim_fused_batch_matches_plain(cuda_device):
 @pytest.mark.cuda
 def test_cuda_flash_attention_matches_plain(cuda_device):
     chip_smoke.check_flash_attention(np.random.default_rng(0), cuda_device,
-                                     chip_smoke.FLASH_SHAPES[:2] + ((1, 2, 200, 48),))
+                                     chip_smoke.FLASH_SHAPES[:2] + ((1, 2, 200, 48),)
+                                     + chip_smoke.FLASH_EDGE_SHAPES)
 
 
 @pytest.mark.cuda
