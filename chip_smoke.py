@@ -10,20 +10,27 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    the attention library's SASS (``cuobjdump``): its bf16 route must hold
    ``HGMMA`` (wgmma) and its float32 route tf32 ``HMMA`` (mma.sync).
 2. Kernels against their plain PyTorch versions, on the card:
-   ``basket_decode`` bit for bit, ``skim_fused``, ``cascade_stage`` and
+   ``basket_decode`` bit for bit (same-shaped batches, mixed-kind rounds
+   in one launch each, rounds of real blobs through
+   ``ops.basket_decode_round``), ``skim_fused`` over every op and group
+   kind and at E from 1 to 1,000,000 (the single-pass look-back over
+   many tiles, one launch a call), ``cascade_stage`` and
    ``predicate_eval`` over every op and group kind, ``stream_compact``
    bit for bit over every payload width (NaN payloads, -0.0, integers
    past 2^24), ``skim_fused_batch`` over every op and group kind, and
    ``flash_attention`` at the JAX tests' shapes and at its edges (ragged
    S, a padded D, many heads), 3e-5 in float32, a few ulps in bf16.
    Then each skim kernel's median time beside its plain version's and
-   its bound, at the shapes the main path gives it (window 0; the batch
-   of the first 16 windows).
+   its bound, at the shapes the main path gives it (window 0's decode
+   rounds and skim calls; the batch of the first 16 windows), with the
+   host-to-host time of a whole decode round and of a window's skim.
 3. The main path: ``run_skim`` with every default on two 1,000,000-event
    stores — NanoAOD-like (98 branches) for the quickstart query and the
    Z->ee mass/ΔR/expression query, and the conditions-era store of
    ``benchmarks/bench_cascade.py`` for its HT query — each held against
-   the port's own host runs of the same store.  Then the batched cascade,
+   the port's own host runs of the same store, with one ``basket_decode``
+   launch per decode round that sends a bitpack miss to the card and one
+   ``skim_fused`` launch per window skim.  Then the batched cascade,
    ``run_skim(..., device_batch=16)``, on the same three, held against
    the staged reference, the per-window card run and the host batched
    run; and the device busy share of each (``torch.profiler``).
@@ -48,6 +55,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -221,6 +229,20 @@ def stream_ms(fn, calls: int = 50) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / calls
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """Host time per call of ``calls`` calls of a function that returns its
+    results on the host (it waits for its own work)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter() - t0) / calls * 1e3
 
 
 def device_ms(fn, calls: int = 20, reps: int = 7) -> float:
@@ -416,11 +438,103 @@ def check_basket_decode(rng, device) -> float:
         check(err == 0.0, f"basket_decode round trip of {arr.dtype} (kind "
               f"{part['kind']}) is not bit-identical (max |bits| {err})")
         cases += 1
+    # (c) whole rounds: mixed kinds, widths and output types in one launch,
+    # against the plain version of the round on the same staged layout
+    for seed in range(4):
+        baskets = random_round(rng, 24)
+        layout = ops.plan_round(baskets)
+        staged = torch.empty(layout["n_in"], dtype=torch.int32)
+        ops.fill_round(staged.numpy(), layout)
+        want = ref.basket_decode_round_ref(*ops.round_views(staged, layout),
+                                           layout["out_bytes"])
+        dev = staged.to(device)
+        got = torch.zeros(layout["out_bytes"], dtype=torch.uint8, device=device)
+        ops.reset_launch_counts()
+        bd.decode_round(*ops.round_views(dev, layout), got)
+        torch.cuda.synchronize()
+        check(ops.launch_counts()["basket_decode"] == 1,
+              "basket_decode: a round took more than one launch")
+        got = got.cpu()
+        for (p, _), (o, store) in zip(baskets, layout["stores"]):
+            nb = p["n"] * store.itemsize
+            err = bit_err(got[o: o + nb].view(store), want[o: o + nb].view(store))
+            max_err = max(max_err, err)
+            check(err == 0.0, f"basket_decode round {seed}: kind {p['kind']} "
+                  f"n={p['n']} bits={p['bits']} -> {store} differs from the plain "
+                  f"version (max |bits| {err})")
+        cases += 1
+    # (d) rounds of real blobs through ops.basket_decode_round, against the
+    # host codec: several branches, every kind, raw literals, empty baskets
+    blobs, dtypes, arrays = round_blobs(rng)
+    for _ in range(2):
+        ops.reset_launch_counts()
+        got = ops.basket_decode_round(
+            {name: [bitpack_raw_parts(b) for b in bs] for name, bs in blobs.items()},
+            dtypes, device=device)
+        check(ops.launch_counts()["basket_decode"] == 1,
+              "ops.basket_decode_round took more than one launch")
+        for name, arrs in arrays.items():
+            for g, a in zip(got[name], arrs):
+                check(g.dtype == a.dtype and g.tobytes() == a.tobytes(),
+                      f"ops.basket_decode_round {name}: not the encoded values")
+        cases += 1
     log(f"  basket_decode: {cases} cases bit-identical to the plain version "
-        "(kinds 0/1/2, widths 1-32, n in 1/31/4095/4096/4097, outputs "
+        "(kinds 0/1/2, widths 0-32, n in 1/31/4095/4096/4097/10000, outputs "
         "int32/int16/int8/int64, float32/float64, bool; wrap-around, -0.0, "
-        f"NaN payloads); max |bits| {max_err}")
+        "NaN payloads; 4 mixed rounds of 24 baskets in one launch each; 2 rounds "
+        f"of real blobs, raw literals and empty baskets among them); max |bits| "
+        f"{max_err}")
     return max_err
+
+
+def random_round(rng, n: int):
+    """``n`` baskets for one decode round as (bitpack_raw_parts-style dict,
+    torch output dtype): random kinds, plane words and firsts, widths 0, 1,
+    31, 32 or any, value counts with ragged tails and one wider than the
+    kernel's 4096-value chunk, every output type of
+    :data:`DECODE_OUT_DTYPES`."""
+    import numpy as np
+    import torch
+
+    out = []
+    for i in range(n):
+        kind = int(rng.integers(0, 3))
+        size = int(rng.choice([1, 31, 32, 33, 4095, 4096, 4097, 10000]))
+        W = -(-size // 32)
+        bits = 1 if kind == 2 else int(rng.choice([0, 1, 31, 32, rng.integers(1, 33)]))
+        planes = np.zeros((max(bits, 1), W), np.uint32)
+        planes[:bits] = rng.integers(0, 1 << 32, (bits, W), dtype=np.uint64)
+        names = DECODE_OUT_DTYPES[kind]
+        out.append(({"kind": kind, "n": size, "bits": bits, "n_pad": W * 32,
+                     "first": int(rng.integers(0, 1 << 32, dtype=np.uint64)),
+                     "planes": planes.reshape(-1)},
+                    getattr(torch, names[i % len(names)])))
+    return out
+
+
+def round_blobs(rng):
+    """A fetch round of real blobs: ({branch: [blob, ...]}, {branch: dtype},
+    {branch: [the encoded arrays]}), with int32, int16, bool, xor-coded and
+    raw-literal float32 branches, empty and ragged baskets."""
+    import numpy as np
+
+    from repro_torch.data.codecs import bitpack_encode
+
+    gens = {
+        "nJet": lambda n: rng.integers(0, 9, n).astype(np.int32),
+        "run_id": lambda n: rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32),
+        "charge": lambda n: rng.choice(np.array([-1, 1], np.int16), n),
+        "HLT_bit": lambda n: rng.random(n) < 0.3,
+        "discrete": lambda n: rng.choice(np.array([1.0, 1.25, -0.0], np.float32), n),
+        "smooth": lambda n: (rng.exponential(30, n) + 1).astype(np.float32),
+    }
+    blobs, dtypes, arrays = {}, {}, {}
+    for name, gen in gens.items():
+        arrs = [gen(n) for n in (4096, 0, 1, 4097, 300)]
+        blobs[name] = [bitpack_encode(a) for a in arrs]
+        dtypes[name] = arrs[0].dtype
+        arrays[name] = arrs
+    return blobs, dtypes, arrays
 
 
 # ---------------------------------------------------------------------------
@@ -624,7 +738,49 @@ def check_skim_fused(rng, device) -> tuple[float, int]:
         f"E in 512/4096/4608, K in 1/4/16, D in 1/5, empty and full masks); "
         f"packed and count equal to the plain version except {edge} events "
         "at a mass/ΔR cut's edge")
+    max_err = max(max_err, check_skim_fused_sizes(rng, device))
     return max_err, edge
+
+
+SKIM_SIZES = (1, 300, 512, 4097, 65_536, 1_000_000)
+
+
+def check_skim_fused_sizes(rng, device, Es=SKIM_SIZES) -> float:
+    """The single-pass compaction across many tiles and a ragged last tile:
+    ``skim_fused`` at each E of ``Es`` (1,954 tiles of look-back at 10^6)
+    equal to the plain version bit for bit, zero tail and count included,
+    in one launch per call; twice per E, so the second call meets the
+    first call's status words under an older epoch."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import skim_fused as sf
+
+    progs = dict(sweep_programs())
+    cases = 0
+    for E in Es:
+        for name in ("count", "ht", "full"):
+            program = progs[name]
+            host = sweep_inputs(rng, program, E, 4, 2)
+            t, v, w, p = (torch.from_numpy(x).to(device) for x in host)
+            want, want_count = ref.skim_fused_ref(t, v, w, p, program)
+            for _ in range(2):
+                ops.reset_launch_counts()
+                got, count = sf.skim_fused(t, v, w, p, program)
+                torch.cuda.synchronize()
+                check(ops.launch_counts()["skim_fused"] == 1,
+                      f"skim_fused E={E}: {ops.launch_counts()['skim_fused']} "
+                      "launches for one call")
+                check(int(count) == int(want_count) and torch.equal(
+                    got.view(torch.int32), want.view(torch.int32)),
+                    f"skim_fused {name} E={E}: {int(count)} survivors vs "
+                    f"{int(want_count)}, or the packed rows or zero tail differ")
+                cases += 1
+            del t, v, w, p, got, want
+    log(f"  skim_fused at E in {'/'.join(map(str, Es))} (count, ht, full; twice "
+        f"each): {cases} calls, one launch each, packed rows, zero tail and "
+        "count equal to the plain version bit for bit")
+    return 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -1009,8 +1165,9 @@ def path_skim_cases(store, queries, device):
             K = window_pad_K(data, stage.program, store)
             pb = build_padded_inputs(data, stage.program, store, K=K,
                                      include_index=True, to_device=False)
+            arrays = pad_window(pb)
             cases.append((stage.program,
-                          [torch.from_numpy(a).to(device) for a in pad_window(pb)]))
+                          [torch.from_numpy(a).to(device) for a in arrays], arrays))
     return cases
 
 
@@ -1054,26 +1211,40 @@ def path_stage_cases(store, queries, device, batch: int = 16):
     return cases
 
 
-def path_decode_cases(store, names, device):
-    """One basket per branch (a window is one basket on the main path),
-    staged by ``ops.stage_planes`` and decoded to the branch's own dtype,
-    as ``ops.basket_decode_batch`` does."""
-    import numpy as np
+def path_decode_cases(store, queries, device):
+    """The decode rounds of window 0 of each (label, query) (a window is one basket
+    on the main path): one round per cascade stage's fetch set, and one for
+    the output branches no stage read, each basket decoded to its branch's
+    own dtype.  Each case: (label, parts {branch: [part]}, dtypes, plan_round
+    layout, the staged round on ``device``, an output buffer there)."""
     import torch
 
+    from repro_torch.core.planner import plan_skim
+    from repro_torch.core.query import parse_query
     from repro_torch.data.codecs import bitpack_raw_parts
     from repro_torch.kernels import ops
 
     cases = []
-    for name in names:
-        part = bitpack_raw_parts(store._blobs[name][0])
-        if part["kind"] == 3:
-            continue  # raw literals never reach the card
-        planes, firsts, bits = ops.stage_planes([part])
-        dtype = ops.torch_dtype(store.branches[name].np_dtype())
-        cases.append((name, part["kind"], bits, dtype,
-                      torch.from_numpy(planes.view(np.int32)).to(device),
-                      torch.from_numpy(firsts.view(np.int32)).to(device)))
+    for label, q in queries:
+        plan = plan_skim(parse_query(q), store, window_events=store.basket_events,
+                         prune=False, cascade=True)
+        rounds = [list(stage.branches) for stage in plan.cascade.stages]
+        seen = {b for r in rounds for b in r}
+        rounds.append([b for b in plan.output_branches if b not in seen])
+        for i, names in enumerate(rounds):
+            parts = {n: [bitpack_raw_parts(store._blobs[n][0])] for n in names}
+            dtypes = {n: store.branches[n].np_dtype() for n in names}
+            baskets = [(ps[0], ops.torch_dtype(dtypes[n])) for n, ps in parts.items()
+                       if ps[0]["kind"] != 3 and ps[0]["n"]]
+            if not baskets:
+                continue
+            layout = ops.plan_round(baskets)
+            staged = torch.empty(layout["n_in"], dtype=torch.int32)
+            ops.fill_round(staged.numpy(), layout)
+            cases.append((f"{label} round {i}", parts, dtypes, layout,
+                          staged.to(device),
+                          torch.empty(layout["out_bytes"], dtype=torch.uint8,
+                                      device=device)))
     return cases
 
 
@@ -1099,7 +1270,8 @@ def _summary(rows) -> dict | None:
 
 def bounds(summary: dict) -> dict:
     return {k: summary[k]
-            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "by_dtype")
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "by_dtype",
+                      "per_basket_ms", "round_ms", "window_ms")
             if k in summary}
 
 
@@ -1115,6 +1287,7 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
 
     from repro_torch.kernels import basket_decode as bd
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import predicate_eval as pe
     from repro_torch.kernels import ref
     from repro_torch.kernels import skim_fused as sf
@@ -1122,50 +1295,71 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
 
     out = {}
     rows = []
-    for program, (t, v, w, p) in skim_cases:
+    for program, (t, v, w, p), arrays in skim_cases:
         T, E, K = t.shape
         G, D = v.shape[0], p.shape[1]
         # read terms, valid, weights and payload once; write the packed
-        # rows, the count, the ballot words and the tile counts once
-        nbytes = 4 * (T * E * K + 2 * G * E * K + 2 * E * D + E // 32 + E // 512 + 1)
+        # rows (zero tail included) and the count once
+        nbytes = 4 * (T * E * K + 2 * G * E * K + 2 * E * D + 1)
         ops = E * K * (T + 4 * G)  # a compare per term slot, the group's AND/sum
         t_bytes, t_ops = bound_times(nbytes, ops)
         row = {
             "ms": device_ms(lambda: sf.skim_fused(t, v, w, p, program)),
             "stream_ms": stream_ms(lambda: sf.skim_fused(t, v, w, p, program)),
             "plain_ms": stream_ms(lambda: ref.skim_fused_ref(t, v, w, p, program)),
+            # the path's whole call: numpy in, one upload, the launch, one
+            # readback of counts and rows
+            "window_ms": host_ms(lambda: kops.fused_skim(*arrays, program,
+                                                         device=t.device)),
             "t_bytes": t_bytes, "t_ops": t_ops,
         }
         rows.append(row)
         log(f"  skim_fused T={T} G={G} E={E} K={K} D={D}: kernel {row['ms']:.5f} ms "
             f"on the device, {row['stream_ms']:.5f} ms per call from the host; "
-            f"plain {row['plain_ms']:.5f} ms; bound {max(t_bytes, t_ops):.7f} ms")
+            f"numpy to packed rows (ops.fused_skim) {row['window_ms']:.5f} "
+            f"ms; plain {row['plain_ms']:.5f} ms; bound {max(t_bytes, t_ops):.7f} ms")
     out["skim_fused"] = _summary(rows)
+    if rows:
+        out["skim_fused"]["window_ms"] = sum(r["window_ms"] for r in rows) / len(rows)
     rows = []
-    for name, kind, bits, dt, planes, firsts in decode_cases:
-        N, B, W = planes.shape
-        # read the planes and firsts once; write each value once at the
-        # branch's own width
-        nbytes = 4 * (N * B * W + N) + N * W * 32 * dt.itemsize
-        ops = N * W * 32 * (3 * bits + 6)  # rebuild a code, transform, scan
+    for label, parts, dtypes, layout, staged, dev_out in decode_cases:
+        views = kops.round_views(staged, layout)
+        descs = layout["descs"]
+        N = len(descs)
+        W, bits, n = descs[:, 1], descs[:, 3], descs[:, 7]
+        # read each basket's planes (n_bits planes of W words) and its
+        # first once; write each value once at its branch's own width.
+        # The staging's stride and alignment padding and the descriptors
+        # are not work the decode needs.
+        nbytes = 4 * (int((bits * W).sum()) + N) + sum(
+            int(k) * store.itemsize for k, (_, store) in zip(n, layout["stores"]))
+        ops = int((W * 32 * (3 * bits + 6)).sum())  # rebuild a code, transform, scan
         t_bytes, t_ops = bound_times(nbytes, ops)
-
-        def kernel():
-            return bd.basket_decode(planes, firsts, kind=kind, n_bits=bits, out_dtype=dt)
-
         row = {
-            "ms": device_ms(kernel),
-            "stream_ms": stream_ms(kernel),
-            "plain_ms": stream_ms(
-                lambda: ref.basket_decode_ref(planes, firsts, kind, W * 32, dt)),
+            "ms": device_ms(lambda: bd.decode_round(*views, dev_out)),
+            "stream_ms": stream_ms(lambda: bd.decode_round(*views, dev_out)),
+            "plain_ms": stream_ms(lambda: ref.basket_decode_round_ref(
+                *views, layout["out_bytes"]), calls=5),
+            # the path's whole call: blob parts in, one upload, the launch,
+            # one readback, numpy arrays out
+            "round_ms": host_ms(lambda: kops.basket_decode_round(parts, dtypes,
+                                                                 staged.device)),
             "t_bytes": t_bytes, "t_ops": t_ops,
         }
+        row["per_basket_ms"] = row["ms"] / N
         rows.append(row)
-        log(f"  basket_decode {name} N={N} B={B} W={W} kind={kind} -> {dt}: kernel "
-            f"{row['ms']:.5f} ms on the device, {row['stream_ms']:.5f} ms per call "
-            f"from the host; plain {row['plain_ms']:.5f} ms; bound "
+        log(f"  basket_decode {label}: {N} baskets ({sorted(set(descs[:, 4].tolist()))} "
+            f"kinds) in one launch: kernel {row['ms']:.5f} ms on the device "
+            f"({row['per_basket_ms']:.6f} ms a basket), {row['stream_ms']:.5f} ms per "
+            f"call from the host; parts to arrays (ops.basket_decode_round) "
+            f"{row['round_ms']:.5f} ms; plain {row['plain_ms']:.5f} ms; bound "
             f"{max(t_bytes, t_ops):.7f} ms")
     out["basket_decode"] = _summary(rows)
+    if rows:
+        out["basket_decode"]["per_basket_ms"] = (
+            sum(r["per_basket_ms"] for r in rows) / len(rows))
+        out["basket_decode"]["round_ms"] = sum(r["round_ms"] for r in rows) / len(rows)
+
     rows, single = [], []
     for program, nb, (t, v, w), packed, seg in stage_cases:
         B, T, E, K = t.shape
@@ -1208,7 +1402,7 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         B, T, E, K = t.shape
         G, D = v.shape[1], p.shape[2]
         # B windows of skim_fused's bytes and operations
-        nbytes = 4 * B * (T * E * K + 2 * G * E * K + 2 * E * D + E // 32 + E // 512 + 1)
+        nbytes = 4 * B * (T * E * K + 2 * G * E * K + 2 * E * D + 1)
         t_bytes, t_ops = bound_times(nbytes, B * E * K * (T + 4 * G))
         row = {
             "ms": device_ms(lambda: sf.skim_fused_batch(t, v, w, p, program)),
@@ -1305,6 +1499,44 @@ def fetch_row(stats) -> dict:
     }
 
 
+def count_calls(store):
+    """Count, until the returned function is called, the decode rounds of
+    ``store`` that send a bitpack miss to the card (a miss the card
+    decodes: not empty, not raw literals) and the calls of
+    ``ops.fused_skim``.  Returns (counts, restore)."""
+    from repro_torch.data.codecs import bitpack_raw_parts
+    from repro_torch.kernels import ops
+
+    counts = {"device_rounds": 0, "window_skims": 0}
+    uncached, window = store._decode_round_uncached, ops.fused_skim
+    lock = threading.Lock()  # the prefetcher decodes on its own thread
+
+    def on_card(blob) -> bool:
+        part = bitpack_raw_parts(blob)
+        return part["n"] > 0 and part["kind"] != 3
+
+    def counting_decode(blobs):
+        if (store.codec == "bitpack" and store.resolved_decode_backend() == "device"
+                and any(on_card(b) for bs in blobs.values() for b in bs)):
+            with lock:
+                counts["device_rounds"] += 1
+        return uncached(blobs)
+
+    def counting_window(*a, **k):
+        with lock:
+            counts["window_skims"] += 1
+        return window(*a, **k)
+
+    store._decode_round_uncached = counting_decode
+    ops.fused_skim = counting_window
+
+    def restore():
+        del store._decode_round_uncached
+        ops.fused_skim = window
+
+    return counts, restore
+
+
 def run_main_path(label, query, store, host_store) -> dict:
     """``run_skim`` with every default on the card: survivors and output
     columns held against the staged reference and the host cascade, the
@@ -1316,6 +1548,7 @@ def run_main_path(label, query, store, host_store) -> dict:
     from repro_torch.kernels import ops
 
     stats0 = store.decode_backend_stats()
+    counts, restore = count_calls(store)
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1323,6 +1556,7 @@ def run_main_path(label, query, store, host_store) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    restore()
     dec = store.decode_backend_stats()
 
     staged = run_skim(host_store, query, fused=False, pipeline=False, device="cpu")
@@ -1347,8 +1581,16 @@ def run_main_path(label, query, store, host_store) -> dict:
         "(one request per query stage, not per cascade stage); host cascade "
         f"{host.stats.bytes_fetched} B in {host.stats.requests} requests")
 
+    log(f"  [{label}] decode rounds with a bitpack miss {counts['device_rounds']}, "
+        f"per-window skim calls {counts['window_skims']}")
     check(launches["skim_fused"] > 0, f"{label}: skim_fused never launched")
     check(launches["basket_decode"] > 0, f"{label}: basket_decode never launched")
+    check(launches["basket_decode"] == counts["device_rounds"],
+          f"{label}: {launches['basket_decode']} decode launches for "
+          f"{counts['device_rounds']} rounds with a bitpack miss")
+    check(launches["skim_fused"] == counts["window_skims"],
+          f"{label}: {launches['skim_fused']} skim_fused launches for "
+          f"{counts['window_skims']} calls")
     check(dec["backend"] == "device", f"{label}: decode tier is {dec['backend']}")
     check(dec["device_baskets"] > stats0["device_baskets"],
           f"{label}: no basket decoded on the card")
@@ -1386,6 +1628,7 @@ def run_batched_path(label, query, store, host_store, per_window, batch=16) -> d
     from repro_torch.core import run_skim
     from repro_torch.kernels import ops
 
+    counts, restore = count_calls(store)
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1393,6 +1636,7 @@ def run_batched_path(label, query, store, host_store, per_window, batch=16) -> d
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    restore()
 
     host = run_skim(host_store, query, device="cpu", device_batch=batch)
     preload = run_skim(host_store, query, device="cpu", cascade=False)
@@ -1410,6 +1654,9 @@ def run_batched_path(label, query, store, host_store, per_window, batch=16) -> d
 
     check(launches["cascade_stage"] > 0, f"{label}: cascade_stage never launched")
     check(launches["basket_decode"] > 0, f"{label}: basket_decode never launched")
+    check(launches["basket_decode"] == counts["device_rounds"],
+          f"{label}: {launches['basket_decode']} decode launches for "
+          f"{counts['device_rounds']} rounds with a bitpack miss")
     check(res.extras["device_batch"] == batch, f"{label}: device_batch not reported")
     for ref_name, ref in (("staged reference", per_window["staged"]),
                           ("per-window card run", pw)):
@@ -1671,8 +1918,7 @@ def main() -> int:
                    for label, q, st, _ in cells}
     timing = time_kernels(
         path_skim_cases(store, [q for _, q, *_ in cells[:2]], device),
-        path_decode_cases(store, ["nElectron", "Electron_charge", "HLT_IsoMu24",
-                                  "Electron_mvaId", "luminosityBlock"], device),
+        path_decode_cases(store, [(label, q) for label, q, *_ in cells[:2]], device),
         [c for cases in stage_cases.values() for c in cases],
     )
 

@@ -409,12 +409,10 @@ def fused_window_skim(
         to_device=False,
     )
     arrays = pad_window(pb, pad_to)
-    packed, count = ops.fused_skim(
-        *(torch.from_numpy(x).to(device) for x in arrays),
-        program, use_kernel=(backend == "cuda"),
+    packed, k = ops.fused_skim(
+        *arrays, program, use_kernel=(backend == "cuda"), device=device,
     )
-    k = int(count)
-    packed = packed[:k].cpu().numpy()
+    packed = packed[:k]
     idx = packed[:, 0].astype(np.int64)
     real = idx < E  # drop phantom survivors from event-axis padding
     packed, idx = packed[real], idx[real]

@@ -1,8 +1,7 @@
 // compact.cuh: stable stream compaction by warp ballot and popcount.
 //
-// The compaction half of skim_fused.cu and the whole of
-// stream_compact.cu: both kernels keep one rank-and-copy, as the JAX
-// package's skim_fused and stream_compact share one compaction idea.
+// The whole of stream_compact.cu.  (skim_fused.cu compacts in one pass,
+// by decoupled look-back, and no longer uses it.)
 //
 // Two passes over tiles of kTile events, one thread per event:
 //  * pass 1 (ballot_tile, at the end of the caller's own kernel): the

@@ -36,6 +36,7 @@ Header per basket (little-endian uint32s):
 
 from __future__ import annotations
 
+import struct
 import zlib as _zlib
 
 import numpy as np
@@ -53,6 +54,7 @@ KIND_RAW_F32 = 3  # incompressible floats stored verbatim (LZ4-style bail-out)
 _RAW_BAILOUT_BITS = 24
 
 _HEADER_WORDS = 6
+_HEADER = struct.Struct("<6I")
 
 
 def _zigzag_encode(v: np.ndarray) -> np.ndarray:
@@ -185,16 +187,9 @@ def bitpack_raw_parts(blob: bytes) -> dict:
     Raw-mode baskets (kind 3) carry ``raw`` float bytes instead of planes —
     the kernel wrapper passes them through (no decode needed).
     """
-    header = np.frombuffer(blob[: _HEADER_WORDS * 4], dtype=np.uint32)
-    kind = int(header[1])
+    _magic, kind, n, bits, n_pad, first = _HEADER.unpack_from(blob)
     body = blob[_HEADER_WORDS * 4 :]
-    out = {
-        "kind": kind,
-        "n": int(header[2]),
-        "bits": int(header[3]),
-        "n_pad": int(header[4]),
-        "first": int(header[5]),
-    }
+    out = {"kind": kind, "n": n, "bits": bits, "n_pad": n_pad, "first": first}
     if kind == KIND_RAW_F32:
         out["raw"] = np.frombuffer(body, dtype=np.float32)
         out["planes"] = np.zeros(0, np.uint32)
@@ -268,40 +263,38 @@ def decode_basket(blob: bytes, codec: str, dtype) -> np.ndarray:
 def decode_basket_batch(
     blobs: list, codec: str, dtype, backend: str = "host", device=None
 ) -> list:
-    """Decode a list of basket blobs in one round (DESIGN.md §16).
+    """Decode a list of one branch's basket blobs in one round
+    (:func:`decode_basket_round` with one branch).  Output order matches
+    ``blobs``, bit-identical to the host reference for every kind."""
+    return decode_basket_round({"": blobs}, codec, {"": dtype}, backend, device)[""]
+
+
+def decode_basket_round(
+    blobs: dict, codec: str, dtypes: dict, backend: str = "host", device=None
+) -> dict:
+    """Decode a fetch round, ``{branch: [blob, ...]}``, with each branch's
+    dtype in ``dtypes`` (DESIGN.md §16).
 
     ``backend="host"`` (or any codec without a device decode) loops the
     host reference decoder.  ``backend="device"`` with the ``bitpack``
     codec ships the compressed *plane words* — not decoded columns — to
-    ``device`` and decodes them there
-    (``repro_torch.kernels.ops.basket_decode_batch``: the CUDA kernel on
-    the card, its plain PyTorch version on the CPU; ``None`` is the card,
-    raising without one), grouped by codec
-    kind so each group is one dispatch.  Output order matches ``blobs``
-    and is bit-identical to the host reference for every kind (int
-    zigzag-delta prefix sums are wrap-exact int32, float prefix-xor is
-    exact, bools and raw literals are identity).
+    ``device`` and decodes every branch's baskets there in one call
+    (``repro_torch.kernels.ops.basket_decode_round``: one launch of the
+    CUDA kernel on the card, its plain PyTorch version on the CPU;
+    ``None`` is the card, raising without one).  Output order matches
+    ``blobs`` and is bit-identical to the host reference for every kind
+    (int zigzag-delta prefix sums are wrap-exact int32, float prefix-xor
+    is exact, bools and raw literals are identity).
     """
     if backend != "device" or codec != "bitpack":
         decode = CODECS[codec][1]
-        return [decode(blob, dtype) for blob in blobs]
+        return {name: [decode(blob, dtypes[name]) for blob in bs]
+                for name, bs in blobs.items()}
     from repro_torch.kernels import ops
 
-    parts = [bitpack_raw_parts(blob) for blob in blobs]
-    out: list = [None] * len(blobs)
-    groups: dict[int, list[int]] = {}
-    for i, p in enumerate(parts):
-        if p["n"] == 0:
-            out[i] = np.empty(0, dtype=dtype)
-        else:
-            groups.setdefault(p["kind"], []).append(i)
-    for _kind, idxs in sorted(groups.items()):
-        decoded = ops.basket_decode_batch(
-            [parts[i] for i in idxs], dtype, device=device
-        )
-        for i, vals in zip(idxs, decoded):
-            out[i] = np.asarray(vals)
-    return out
+    parts = {name: [bitpack_raw_parts(blob) for blob in bs]
+             for name, bs in blobs.items()}
+    return ops.basket_decode_round(parts, dtypes, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,7 @@ from repro_torch.data.codecs import (
     basket_digest,
     basket_stats,
     decode_basket,
-    decode_basket_batch,
+    decode_basket_round,
     encode_basket,
 )
 
@@ -700,29 +700,33 @@ class EventStore:
             self._decode_backend_resolved = backend
         return self._decode_backend_resolved
 
-    def _decode_batch(self, name: str, blobs: list, dtype) -> list:
-        """Backend-dispatched decode of one branch's blobs (no cache).
+    def _decode_round_uncached(self, blobs: dict) -> dict:
+        """Backend-dispatched decode of a round, ``{branch: [blob, ...]}``
+        (no cache).
 
-        The device tier covers the bitpack codec only; other codecs fall
-        back to the host reference, counted in ``decode_fallbacks``.  An
-        error of the device decode itself is raised, never hidden behind
-        the host path.  Both tiers are bit-identical by the codec
-        contract."""
+        The device tier covers the bitpack codec only, and decodes the
+        whole round in one call; other codecs fall back to the host
+        reference, counted in ``decode_fallbacks``.  An error of the
+        device decode itself is raised, never hidden behind the host path.
+        Both tiers are bit-identical by the codec contract."""
+        dtypes = {name: self.branches[name].np_dtype() for name in blobs}
+        n = sum(len(bs) for bs in blobs.values())
         backend = self.resolved_decode_backend()
-        if backend == "device" and blobs:
+        if backend == "device" and n:
             if self.codec == "bitpack":
-                vals = decode_basket_batch(
-                    blobs, self.codec, dtype, backend="device",
+                vals = decode_basket_round(
+                    blobs, self.codec, dtypes, backend="device",
                     device=self.resolved_device(),
                 )
                 with self._decode_lock:
-                    self.decode_device_baskets += len(blobs)
+                    self.decode_device_baskets += n
                 return vals
             with self._decode_lock:
-                self.decode_fallbacks += len(blobs)
+                self.decode_fallbacks += n
         with self._decode_lock:
-            self.decode_host_baskets += len(blobs)
-        return [decode_basket(blob, self.codec, dtype) for blob in blobs]
+            self.decode_host_baskets += n
+        return {name: [decode_basket(blob, self.codec, dtypes[name]) for blob in bs]
+                for name, bs in blobs.items()}
 
     def decode_blob(self, name: str, blob: bytes) -> np.ndarray:
         """Decode one basket blob, memoized through a small per-store LRU.
@@ -737,43 +741,69 @@ class EventStore:
         return self.decode_blobs(name, [blob])[0]
 
     def decode_blobs(self, name: str, blobs: list) -> list:
-        """Decode a list of basket blobs for one branch in one round.
+        """Decode a list of basket blobs for one branch: a round of one
+        branch (:meth:`decode_round`)."""
+        return self.decode_round({name: blobs})[name]
 
-        The batch form of :meth:`decode_blob` (same LRU, same freezing):
-        cache misses decode together through the backend-selected tier
-        (:meth:`_decode_batch`), so a device-backed store pays one kernel
-        dispatch per fetch round instead of one per basket.
+    def decode_round(self, blobs: dict) -> dict:
+        """Decode a fetch round, ``{branch: [blob, ...]}``, through the
+        decoded-basket LRU; returns ``{branch: [array, ...]}``.
+
+        The LRU sees exactly what one :meth:`decode_blobs`-style pass per
+        branch, in the round's order, would make it see — the same
+        lookups, hits, misses, byte counters, insertions, evictions and
+        freezing — but the misses of every branch decode together
+        (:meth:`_decode_round_uncached`), so a device-backed store pays one
+        kernel launch per fetch round instead of one per branch.  A miss
+        holds its slot with a placeholder until the round's values arrive;
+        another thread that meets the placeholder counts a miss and
+        decodes the basket itself, as it would have before the insert.
         """
-        dtype = self.branches[name].np_dtype()
         if self.decode_cache_baskets <= 0:
-            return self._decode_batch(name, list(blobs), dtype)
-        out: list = [None] * len(blobs)
-        misses: list[int] = []
+            return self._decode_round_uncached({n: list(bs) for n, bs in blobs.items()})
+        out = {name: [None] * len(bs) for name, bs in blobs.items()}
+        misses: dict[str, list[int]] = {}
+        pending = object()  # this round's placeholder
         with self._decode_lock:
-            for i, blob in enumerate(blobs):
-                cached = self._decode_cache.get((name, blob))
-                if cached is not None:
-                    self._decode_cache.move_to_end((name, blob))
-                    self.decode_cache_hits += 1
-                    self.decode_cache_hit_bytes += cached.nbytes
-                    out[i] = cached
-                else:
-                    self.decode_cache_misses += 1
-                    misses.append(i)
-        if misses:
-            decoded = self._decode_batch(
-                name, [blobs[i] for i in misses], dtype
-            )
-            with self._decode_lock:
-                for i, vals in zip(misses, decoded):
-                    if vals.flags.writeable:
-                        vals.flags.writeable = False
-                    self.decode_cache_miss_bytes += vals.nbytes
-                    self._decode_cache[(name, blobs[i])] = vals
-                    self._decode_cache.move_to_end((name, blobs[i]))
-                    out[i] = vals
+            for name, bs in blobs.items():
+                miss = misses[name] = []
+                for i, blob in enumerate(bs):
+                    cached = self._decode_cache.get((name, blob))
+                    if isinstance(cached, np.ndarray):
+                        self._decode_cache.move_to_end((name, blob))
+                        self.decode_cache_hits += 1
+                        self.decode_cache_hit_bytes += cached.nbytes
+                        out[name][i] = cached
+                    else:
+                        self.decode_cache_misses += 1
+                        miss.append(i)
+                for i in miss:
+                    self._decode_cache[(name, bs[i])] = pending
+                    self._decode_cache.move_to_end((name, bs[i]))
                 while len(self._decode_cache) > self.decode_cache_baskets:
                     self._decode_cache.popitem(last=False)
+        todo = {name: [blobs[name][i] for i in miss]
+                for name, miss in misses.items() if miss}
+        decoded = None
+        try:
+            decoded = self._decode_round_uncached(todo) if todo else {}
+        finally:
+            with self._decode_lock:
+                for name, miss in misses.items():
+                    vals_list = None if decoded is None else decoded[name] if miss else []
+                    for j, i in enumerate(miss):
+                        key = (name, blobs[name][i])
+                        if vals_list is None:  # the decode raised
+                            if self._decode_cache.get(key) is pending:
+                                del self._decode_cache[key]
+                            continue
+                        vals = vals_list[j]
+                        if vals.flags.writeable:
+                            vals.flags.writeable = False
+                        self.decode_cache_miss_bytes += vals.nbytes
+                        if self._decode_cache.get(key) is pending:
+                            self._decode_cache[key] = vals
+                        out[name][i] = vals
         return out
 
     def decode_backend_stats(self) -> dict:

@@ -1,12 +1,20 @@
 """The bitpack basket-decode kernel (``csrc/basket_decode.cu``).
 
-Decodes ``N`` baskets of the ``bitpack`` codec (``repro_torch.data.codecs``)
-in one launch: per basket, ``B`` bit-planes of ``W`` uint32 words give
-``W*32`` codes, then the inverse transform of the codec kind —
+Decodes the baskets of one fetch round of the ``bitpack`` codec
+(``repro_torch.data.codecs``) in one launch, whatever their kinds,
+widths and output types: per basket, ``n_bits`` bit-planes of ``W``
+uint32 words give ``W*32`` codes, then the inverse transform of the codec
+kind —
 
   kind 0 (int)   : zigzag^-1 then a wrap-exact inclusive prefix *sum*,
   kind 1 (float) : inclusive prefix *xor* then a bitcast to float32,
   kind 2 (bool)  : identity.
+
+A round is flat: one descriptor row of :data:`DESC_FIELDS` int32 per
+basket (:func:`descriptor`), the firsts, the plane words of every basket,
+and one byte buffer that receives each basket's values at its own offset
+and width.  ``kernels/ops.py`` stages a fetch round into that layout;
+:func:`basket_decode` lays a same-shaped ``(N, B, W)`` batch on it.
 
 uint32 words travel as int32 tensors holding the same bits (PyTorch has
 few uint32 ops).  The kernel stores each value at ``out_dtype``'s own
@@ -19,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -26,7 +35,14 @@ from repro_torch.kernels import ref as _ref
 
 KIND_INT, KIND_FLOAT, KIND_BOOL = 0, 1, 2
 
-launches = 0  # kernel launches through basket_decode(); never reset here
+# descriptor row (csrc/basket_decode.cu kDesc*): plane-word offset, words
+# per plane W, words between planes, n_bits, kind, output byte offset,
+# store flags (out_bytes | STORE_BOOL | STORE_PADDED), values n
+DESC_FIELDS = 8
+STORE_BOOL = 1 << 8  # a 1-byte output holding value != 0
+STORE_PADDED = 1 << 9  # the plane block is padded to 16 bytes (bulk copy)
+
+launches = 0  # kernel launches; never reset here
 _LAUNCHES_LOCK = threading.Lock()  # pipelined skims call from several threads
 
 
@@ -34,8 +50,8 @@ def _lib():
     lib = _build.load("basket_decode")
     fn = lib.basket_decode_launch
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, p, ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -55,6 +71,80 @@ def store_width(kind: int, out_dtype) -> tuple[int, bool] | None:
     return out_dtype.itemsize, False
 
 
+def stored_dtype(kind: int, out_dtype) -> torch.dtype:
+    """The dtype the kernel writes for ``out_dtype``: itself where
+    :func:`store_width` stores it directly, else the 32-bit result (float32
+    bits for a float kind, int32 otherwise)."""
+    if store_width(kind, out_dtype) is not None:
+        return out_dtype
+    return torch.float32 if kind == KIND_FLOAT else torch.int32
+
+
+def descriptor(plane_off, W, stride, n_bits, kind, out_off, out_dtype, n,
+               padded=False) -> list[int]:
+    """One basket's descriptor row."""
+    width = store_width(kind, out_dtype)
+    nbytes, as_bool = width or (4, False)
+    store = nbytes | (STORE_BOOL if as_bool else 0) | (STORE_PADDED if padded else 0)
+    return [plane_off, W, stride, n_bits, kind, out_off, store, n]
+
+
+def _check_round(descs, firsts, planes, out) -> None:
+    """Raise on tensors the kernel does not take (their contents, built by
+    the caller, are not read here: that would cost a device sync)."""
+    device = descs.device
+    N = descs.shape[0] if descs.dim() == 2 else -1
+    for name, x, dtype, shape in (
+        ("descs", descs, torch.int32, (N, DESC_FIELDS)),
+        ("firsts", firsts, torch.int32, (N,)),
+        ("planes", planes, torch.int32, tuple(planes.shape[:1])),
+        ("out", out, torch.uint8, tuple(out.shape[:1])),
+    ):
+        if x.dtype != dtype or not x.is_contiguous() or x.device != device \
+                or tuple(x.shape) != shape:
+            raise ValueError(
+                f"basket_decode: {name} must be contiguous {dtype} of shape "
+                f"{shape} on {device}"
+            )
+
+
+def decode_round(descs, firsts, planes, out):
+    """Decode one round into ``out``.
+
+    Args:
+      descs:  (N, DESC_FIELDS) int32 — one :func:`descriptor` row a basket.
+      firsts: (N,) int32 — first-value bit patterns.
+      planes: (P,) int32 — the plane words the descriptors address.
+      out:    (bytes,) uint8 — receives each basket's ``n`` values at its
+              output offset, at its stored width.
+    Returns ``out``.  Tensors on the card launch the kernel (or raise);
+    CPU tensors take the plain version,
+    :func:`repro_torch.kernels.ref.basket_decode_round_ref`.  The
+    descriptors are the caller's (``kernels/ops.py`` builds them from
+    checked kinds and widths); their tensors are checked here.
+    """
+    global launches
+    _check_round(descs, firsts, planes, out)
+    if not descs.is_cuda:
+        out.copy_(_ref.basket_decode_round_ref(descs, firsts, planes, out.numel()))
+        return out
+    N = descs.shape[0]
+    if N:
+        p = _build.ptr
+        device = descs.device
+        if device.index is None or device.index == torch.cuda.current_device():
+            rc = _lib().basket_decode_launch(p(descs), p(firsts), p(planes), p(out),
+                                             N, _build.stream_of(device))
+        else:
+            with torch.cuda.device(device):
+                rc = _lib().basket_decode_launch(p(descs), p(firsts), p(planes),
+                                                 p(out), N, _build.stream_of(device))
+        _build.check_launch("basket_decode", rc)
+        with _LAUNCHES_LOCK:
+            launches += 1
+    return out
+
+
 def basket_decode(planes, firsts, *, kind: int, n_bits: int,
                   out_dtype=torch.float32):
     """Decode ``N`` same-shaped baskets.
@@ -66,10 +156,10 @@ def basket_decode(planes, firsts, *, kind: int, n_bits: int,
       kind, n_bits: codec kind (0, 1 or 2) and the planes to read.
     Returns: (N, W*32) values of ``out_dtype``.
 
-    A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-    plain version, :func:`repro_torch.kernels.ref.basket_decode_ref`.
+    A CUDA tensor launches the round kernel on the batch laid out as a
+    round (or raises); a CPU tensor takes the plain version,
+    :func:`repro_torch.kernels.ref.basket_decode_ref`.
     """
-    global launches
     N, B, W = planes.shape
     if kind not in (KIND_INT, KIND_FLOAT, KIND_BOOL):
         raise ValueError(f"basket_decode: kind {kind} has no decode")
@@ -85,21 +175,28 @@ def basket_decode(planes, firsts, *, kind: int, n_bits: int,
                 f"basket_decode: {name} must be contiguous int32 of shape "
                 f"{shape} on {device}"
             )
-    width = store_width(kind, out_dtype)
-    nbytes, as_bool = width or (4, False)
-    store_dtype = out_dtype if width else torch.int32
-    out = torch.empty((N, W * 32), dtype=store_dtype, device=device)
-    if N and W:
-        p = _build.ptr
-        with torch.cuda.device(device):
-            rc = _lib().basket_decode_launch(
-                p(planes), p(firsts), p(out), N, B, W, n_bits, kind,
-                nbytes, int(as_bool), _build.stream_of(device),
-            )
-        _build.check_launch("basket_decode", rc)
-        with _LAUNCHES_LOCK:
-            launches += 1
-    return out if width else _ref.finish_decode(out, kind, out_dtype)
+    store = stored_dtype(kind, out_dtype)
+    V = W * 32
+    row = V * store.itemsize
+    descs = torch.from_numpy(np.asarray(
+        [descriptor(i * B * W, W, W, n_bits, kind, i * row, out_dtype, V)
+         for i in range(N)], np.int32).reshape(N, DESC_FIELDS)).to(device)
+    out = torch.empty(N * row, dtype=torch.uint8, device=device)
+    decode_round(descs, firsts, planes.reshape(-1), out)
+    out = out.view(store).reshape(N, V)
+    return out if store == out_dtype else _ref.finish_decode(out, kind, out_dtype)
 
 
-__all__ = ["KIND_BOOL", "KIND_FLOAT", "KIND_INT", "basket_decode", "store_width"]
+__all__ = [
+    "DESC_FIELDS",
+    "KIND_BOOL",
+    "KIND_FLOAT",
+    "KIND_INT",
+    "STORE_BOOL",
+    "STORE_PADDED",
+    "basket_decode",
+    "decode_round",
+    "descriptor",
+    "store_width",
+    "stored_dtype",
+]

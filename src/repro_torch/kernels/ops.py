@@ -8,6 +8,9 @@ dispatch in the same ledger as the JAX package's ``kernels/ops.py``.
 
 from __future__ import annotations
 
+import functools
+import threading
+
 import numpy as np
 import torch
 
@@ -122,53 +125,198 @@ def unpack_mask(words: np.ndarray, n: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
 def torch_dtype(dtype) -> torch.dtype:
     """numpy dtype -> the torch dtype of the same kind and width."""
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
 
 
-def stage_planes(parts_list) -> tuple[np.ndarray, np.ndarray, int]:
-    """Plane words of same-kind ``bitpack_raw_parts`` dicts, padded to the
-    batch maximum: (planes (N, B, W) uint32, firsts (N,) uint32, B)."""
-    bits_max = max(p["bits"] for p in parts_list)
-    w_max = max(p["n_pad"] // 32 for p in parts_list)
-    planes = np.zeros((len(parts_list), bits_max, w_max), dtype=np.uint32)
-    firsts = np.zeros((len(parts_list),), dtype=np.uint32)
-    for i, p in enumerate(parts_list):
-        pw = p["planes"].reshape(max(p["bits"], 1), -1)
-        planes[i, : pw.shape[0], : pw.shape[1]] = pw
-        firsts[i] = p["first"]
-    return planes, firsts, bits_max
+# torch dtype -> numpy dtype, for the types a decode round stores
+_NP_OF = {torch.int32: np.int32, torch.int16: np.int16, torch.int8: np.int8,
+          torch.uint8: np.uint8, torch.bool: np.bool_, torch.float32: np.float32}
 
 
 def basket_decode_batch(parts_list, out_dtype, device=None):
-    """Decode a batch of ``bitpack_raw_parts`` dicts of the same kind.
+    """Decode a list of ``bitpack_raw_parts`` dicts of one branch: a round
+    of one branch (:func:`basket_decode_round`), so one launch for all of
+    its kinds.  Returns a list of correctly sized numpy arrays,
+    bit-identical to the host codec
+    (``repro_torch.data.codecs.bitpack_decode``).  ``device`` defaults to
+    the card (:func:`repro_torch.device.resolve_device`: it raises when
+    there is none, naming ``device="cpu"``).
+    """
+    return basket_decode_round({"": parts_list}, {"": out_dtype}, device)[""]
 
-    Pads plane counts and words to the batch maximum
-    (:func:`stage_planes`), decodes the batch in one call on ``device`` —
-    the CUDA kernel on the card, its plain version on the CPU — and
-    returns a list of correctly sized numpy arrays, bit-identical to the
-    host codec (``repro_torch.data.codecs.bitpack_decode``).  ``device``
-    defaults to the card (:func:`repro_torch.device.resolve_device`: it
-    raises when there is none, naming ``device="cpu"``).
+
+def _lane_words(W: int) -> int:
+    """Words per plane rounded up to 128 lanes: the JAX package's padded
+    width, which its dispatch ledger compiles by."""
+    return -(-W // 128) * 128
+
+
+class _Staging(threading.local):
+    """One thread's grow-only transfer buffers, by (device, name), and its
+    event on each device.  A buffer is reused only by its own thread, and
+    only after that thread's last call waited on its event: each user
+    below waits before it returns.  (The prefetcher decodes on its own
+    thread while the consumer decodes and filters on its.)"""
+
+    def __init__(self):
+        self.buffers: dict = {}
+        self.events: dict = {}
+
+    def buffer(self, device, name: str, n: int, dtype, pinned: bool = False):
+        """The first ``n`` elements of buffer ``name``: page-locked host
+        memory when ``pinned``, else memory on ``device``."""
+        buf = self.buffers.get((device, name))
+        if buf is None or buf.numel() < n:
+            size = 1 << max(n - 1, 1 << 13).bit_length()
+            buf = (torch.empty(size, dtype=dtype, pin_memory=True) if pinned
+                   else torch.empty(size, dtype=dtype, device=device))
+            self.buffers[(device, name)] = buf
+        return buf[:n]
+
+    def wait(self, device) -> None:
+        """Record this thread's event on the current stream; wait for it."""
+        event = self.events.get(device)
+        if event is None:
+            event = self.events[device] = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        event.synchronize()
+
+
+_STAGING = _Staging()
+
+
+def plan_round(baskets) -> dict:
+    """The flat layout of a decode round of ``(part, torch out dtype)``
+    pairs (``bitpack_raw_parts`` dicts of kinds 0-2, n > 0): descriptors
+    (N, 8) int32, firsts (N,) uint32, then each basket's planes at an odd
+    stride (lane j of the kernel reads bank (j*stride + w) % 32: no
+    conflicts), each block padded to 16 bytes; and each basket's output
+    at a 16-byte aligned offset.  Returns a dict: ``descs``, ``firsts``,
+    ``blocks`` (plane offset, W, stride, n_bits, words), ``stores``
+    (output offset, stored torch dtype), ``base`` (first plane word),
+    ``n_in`` (int32 words staged), ``out_bytes``."""
+    N = len(baskets)
+    descs = np.empty((N, _bd.DESC_FIELDS), np.int32)
+    firsts = np.empty(N, np.uint32)
+    blocks, stores = [], []
+    p_words = o_bytes = 0
+    for k, (p, tdt) in enumerate(baskets):
+        kind, n = p["kind"], p["n"]
+        if kind not in (_bd.KIND_INT, _bd.KIND_FLOAT, _bd.KIND_BOOL):
+            raise ValueError(f"basket_decode: kind {kind} has no decode")
+        W = p["n_pad"] // 32
+        words = p["planes"]
+        n_bits = min(p["bits"], words.size // W, 32)
+        S = W | 1
+        store = _bd.stored_dtype(kind, tdt)
+        descs[k] = _bd.descriptor(p_words, W, S, n_bits, kind, o_bytes, tdt, n,
+                                  padded=True)
+        firsts[k] = p["first"]
+        blocks.append((p_words, W, S, n_bits, words))
+        stores.append((o_bytes, store))
+        p_words += (n_bits * S + 3) & ~3
+        o_bytes += (n * store.itemsize + 15) & ~15
+    base = (9 * N + 3) & ~3
+    return {"descs": descs, "firsts": firsts, "blocks": blocks, "stores": stores,
+            "base": base, "n_in": base + p_words, "out_bytes": o_bytes}
+
+
+def fill_round(staged: np.ndarray, layout: dict) -> None:
+    """Write a round's :func:`plan_round` layout into ``staged`` (int32,
+    at least ``n_in`` words)."""
+    N, base = len(layout["descs"]), layout["base"]
+    staged[: 8 * N] = layout["descs"].reshape(-1)
+    staged[8 * N: 9 * N] = layout["firsts"].view(np.int32)
+    for off, W, S, n_bits, words in layout["blocks"]:
+        src = words[: n_bits * W].view(np.int32)
+        if S == W:
+            staged[base + off: base + off + n_bits * W] = src
+        else:
+            dst = staged[base + off: base + off + n_bits * S].reshape(n_bits, S)
+            dst[:, :W] = src.reshape(n_bits, W)
+
+
+def round_views(staged: torch.Tensor, layout: dict):
+    """(descs, firsts, planes): views of a staged round tensor, as
+    :func:`repro_torch.kernels.basket_decode.decode_round` takes them."""
+    N = len(layout["descs"])
+    return (staged[: 8 * N].view(N, _bd.DESC_FIELDS), staged[8 * N: 9 * N],
+            staged[layout["base"]: layout["n_in"]])
+
+
+def basket_decode_round(parts, dtypes, device=None) -> dict:
+    """Decode one fetch round: every basket of every branch in one launch.
+
+    Args:
+      parts:  {branch: [``bitpack_raw_parts`` dict, ...]} — any kinds.
+      dtypes: {branch: numpy dtype} — each branch's output type.
+    Returns {branch: [numpy array, ...]} in the order given, bit-identical
+    to the host codec.
+
+    Empty baskets and raw literals (kind 3) never reach the device.  The
+    rest is noted in the dispatch ledger once per (branch, kind) — the
+    JAX package decodes each such group in one call and its ledger counts
+    them so — but goes to the device together: one descriptor a basket,
+    the firsts and every basket's planes packed into one page-locked
+    buffer, one host-to-device copy, one launch of the round kernel
+    (:func:`repro_torch.kernels.basket_decode.decode_round`), one copy of
+    the packed outputs back into page-locked memory, and one wait on an
+    event recorded after it (not a device-wide synchronize: the
+    prefetcher decodes on another thread meanwhile).  Types the kernel
+    does not store directly are converted on the host after the copy.
+    On the CPU the round runs the same staging through the plain version.
     """
     device = resolve_device(device)
-    kind = parts_list[0]["kind"]
-    assert all(p["kind"] == kind for p in parts_list)
-    if kind == 3:  # KIND_RAW_F32: literals — passthrough, nothing to decode
-        return [p["raw"].astype(np.dtype(out_dtype)) for p in parts_list]
-    planes, firsts, bits_max = stage_planes(parts_list)
-
-    _note_dispatch(("decode", kind, planes.shape, device.type))
-    out = _bd.basket_decode(
-        torch.from_numpy(planes.view(np.int32)).to(device),
-        torch.from_numpy(firsts.view(np.int32)).to(device),
-        kind=kind,
-        n_bits=bits_max,
-        out_dtype=torch_dtype(out_dtype),
-    )
-    out = out.cpu().numpy()
-    return [out[i, : p["n"]] for i, p in enumerate(parts_list)]
+    out = {name: [None] * len(ps) for name, ps in parts.items()}
+    baskets = []  # (branch, index, part, torch output dtype)
+    for name, ps in parts.items():
+        dtype = np.dtype(dtypes[name])
+        kinds: dict[int, list[int]] = {}
+        for i, p in enumerate(ps):
+            if p["n"] == 0:
+                out[name][i] = np.empty(0, dtype=dtype)
+            elif p["kind"] == 3:  # KIND_RAW_F32: literals, nothing to decode
+                out[name][i] = p["raw"].astype(dtype)
+            else:
+                kinds.setdefault(p["kind"], []).append(i)
+        tdt = torch_dtype(dtype)
+        for kind, idxs in sorted(kinds.items()):
+            group = [ps[i] for i in idxs]
+            shape = (len(group), max(p["bits"] for p in group),
+                     _lane_words(max(p["n_pad"] // 32 for p in group)))
+            _note_dispatch(("decode", kind, shape, device.type))
+            baskets.extend((name, i, ps[i], tdt) for i in idxs)
+    if not baskets:
+        return out
+    layout = plan_round([(p, tdt) for _n, _i, p, tdt in baskets])
+    n_in, o_bytes = layout["n_in"], layout["out_bytes"]
+    on_card = device.type == "cuda"
+    if on_card:
+        host_in = _STAGING.buffer(device, "round in", n_in, torch.int32, pinned=True)
+    else:
+        host_in = torch.empty(n_in, dtype=torch.int32)
+    fill_round(host_in.numpy(), layout)
+    if on_card:
+        dev_in = _STAGING.buffer(device, "round in, card", n_in, torch.int32)
+        dev_in.copy_(host_in, non_blocking=True)
+        dev_out = _STAGING.buffer(device, "round out, card", o_bytes, torch.uint8)
+        _bd.decode_round(*round_views(dev_in, layout), dev_out)
+        host_out = _STAGING.buffer(device, "round out", o_bytes, torch.uint8, pinned=True)
+        host_out.copy_(dev_out, non_blocking=True)
+        _STAGING.wait(device)
+    else:
+        host_out = torch.zeros(o_bytes, dtype=torch.uint8)
+        _bd.decode_round(*round_views(host_in, layout), host_out)
+    raw = host_out.numpy()
+    for (name, i, p, tdt), (o, store) in zip(baskets, layout["stores"]):
+        vals = np.frombuffer(raw, dtype=_NP_OF[store], count=p["n"], offset=o).copy()
+        if store != tdt:
+            vals = _ref.finish_decode(torch.from_numpy(vals), p["kind"], tdt).numpy()
+        out[name][i] = vals
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -302,18 +450,58 @@ def skim_fused(terms, valid, weights, payload, program: Program):
     return _sf.skim_fused(terms, valid, weights, payload, program)
 
 
-def fused_skim(terms, valid, weights, payload, program: Program, use_kernel=True):
-    """Backend-dispatched one-pass skim (the engine's device path).
+def fused_skim(terms, valid, weights, payload, program: Program, use_kernel=True,
+               device=None):
+    """Backend-dispatched one-pass skim (the engine's per-window path).
 
-    ``use_kernel`` routes to :func:`skim_fused` — the CUDA kernel for
-    tensors on the card — otherwise to the plain PyTorch version over the
-    same padded layout on the tensors' own device.  Returns (packed (E, D)
-    survivors-first, count).
+    ``terms`` (T,E,K), ``valid``/``weights`` (G,E,K), ``payload`` (E,D)
+    float32.  ``use_kernel`` routes to :func:`skim_fused` — the CUDA
+    kernel for tensors on the card — otherwise to the plain PyTorch
+    version over the same padded layout on the tensors' own device.
+    Returns (packed (E, D) survivors-first, count).
+
+    Tensors stay on their device and give tensors there.  numpy arrays
+    (the engine's inputs) go to ``device`` (default: the card) and give
+    (packed numpy (E, D), count int): on the card the kernel's inputs are
+    packed into one page-locked buffer and uploaded by one copy, and its
+    counts and packed rows come back by one copy into page-locked memory
+    and one event wait.
     """
     _note_dispatch(("fused", program, tuple(terms.shape), bool(use_kernel)))
-    if use_kernel:
-        return skim_fused(terms, valid, weights, payload, program)
-    return _ref.skim_fused_ref(terms, valid, weights, payload, program)
+    skim = skim_fused if use_kernel else _ref.skim_fused_ref
+    if isinstance(terms, torch.Tensor):
+        return skim(terms, valid, weights, payload, program)
+    device = resolve_device(device)
+    if use_kernel and device.type == "cuda":
+        return _skim_staged((terms, valid, weights, payload), program, device)
+    packed, count = skim(*_tensors(device, terms, valid, weights, payload,
+                                   dtype=torch.float32), program)
+    return packed.cpu().numpy(), int(count)
+
+
+def _skim_staged(arrays, program: Program, device) -> tuple[np.ndarray, int]:
+    """:func:`fused_skim` of numpy arrays by the kernel: one upload, one
+    launch, one readback."""
+    E, D = arrays[3].shape
+    sizes = [a.size for a in arrays]
+    n_in = sum(sizes)
+    hdr = _sf.header_words(1)
+    host_in = _STAGING.buffer(device, "skim in", n_in, torch.float32, pinned=True)
+    staged = host_in.numpy()
+    views, o = [], 0
+    for a, n in zip(arrays, sizes):
+        staged[o: o + n] = a.reshape(-1)
+        views.append((o, n, a.shape))
+        o += n
+    dev_in = _STAGING.buffer(device, "skim in, card", n_in, torch.float32)
+    dev_in.copy_(host_in, non_blocking=True)
+    t, v, w, pl = (dev_in[o: o + n].view(shape)[None] for o, n, shape in views)
+    buf = _sf.launch("skim_fused", t, v, w, pl, program)
+    host = _STAGING.buffer(device, "skim out", hdr + E * D, torch.int32, pinned=True)
+    host.copy_(buf, non_blocking=True)
+    _STAGING.wait(device)
+    raw = host.numpy()
+    return raw[hdr:].view(np.float32).reshape(E, D).copy(), int(raw[0])
 
 
 def fused_skim_batch(terms, valid, weights, payload, program: Program,
@@ -353,20 +541,23 @@ def flash_attention(q, k, v, causal=True, sm_scale=None, device=None):
 __all__ = [
     "Program",
     "basket_decode_batch",
+    "basket_decode_round",
     "cascade_stage_step",
     "compile_query",
     "dispatch_stats",
     "flash_attention",
     "fused_skim",
     "fused_skim_batch",
+    "fill_round",
     "launch_counts",
     "load_kernels",
     "pack_mask",
+    "plan_round",
     "predicate_eval",
     "reset_dispatch_stats",
     "reset_launch_counts",
+    "round_views",
     "skim_fused",
-    "stage_planes",
     "stage_summary_host",
     "stream_compact",
     "unpack_mask",

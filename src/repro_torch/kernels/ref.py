@@ -446,10 +446,46 @@ def basket_decode_ref(planes, firsts, kind: int, n_values: int, out_dtype):
     raise ValueError(kind)
 
 
+def basket_decode_round_ref(descs, firsts, planes, out_nbytes: int):
+    """The plain version of a decode round, over the kernel's flat layout.
+
+    Args:
+      descs:  (N, 8) int32 — per basket: plane-word offset, words per
+              plane W, words between planes, n_bits, kind, output byte
+              offset, store flags (bytes | 256 for a bool byte), values n
+              (``repro_torch.kernels.basket_decode.descriptor``).
+      firsts: (N,) int32 — first-value bit patterns.
+      planes: (P,) int32 — the plane words the descriptors address.
+      out_nbytes: the size of the round's output buffer.
+    Returns: (out_nbytes,) uint8 — each basket's ``n`` values at its output
+    offset, stored as the kernel stores them: 4 bytes (the 32-bit result),
+    2 or 1 (its low bytes), or a bool byte (value != 0).  Bytes no basket
+    owns are zero.
+    """
+    out = torch.zeros(out_nbytes, dtype=torch.uint8, device=planes.device)
+    for i, (off, W, stride, n_bits, kind, out_off, store, n) in enumerate(
+        descs.tolist()
+    ):
+        if n == 0 or W == 0:
+            continue
+        block = planes[off: off + n_bits * stride].reshape(n_bits, stride)
+        dtype = torch.float32 if kind == 1 else torch.int32
+        vals = basket_decode_ref(block[None, :, :W], firsts[i: i + 1], kind, n, dtype)
+        bits = vals[0].view(torch.int32)
+        nbytes = store & 0xFF
+        if store & 0x100:
+            stored = (bits != 0).to(torch.uint8)
+        else:
+            stored = bits.to({4: torch.int32, 2: torch.int16, 1: torch.int8}[nbytes])
+        out[out_off: out_off + n * nbytes] = stored.view(torch.uint8)
+    return out
+
+
 __all__ = [
     "apply_op",
     "attention_scale",
     "basket_decode_ref",
+    "basket_decode_round_ref",
     "cascade_stage_ref",
     "finish_decode",
     "flash_attention_ref",

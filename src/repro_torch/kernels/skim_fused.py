@@ -9,18 +9,25 @@ packed output alone gives the host the survivor mask (see
 Two wrappers over one launch, each with its own launch counter:
 :func:`skim_fused` (one window, the engine's per-window path) and
 :func:`skim_fused_batch` (a batch of windows, each packed on its own);
-the first is the B = 1 launch of the second.
+the first is the B = 1 launch of the second.  A launch is one kernel
+(single-pass compaction by decoupled look-back, the zero tail written by
+the kernel itself), and writes the counts and the packed rows into one
+allocation (:func:`launch`), so a caller can read both back in one copy.
 
 The program reaches the kernel as data: :func:`program_descriptor`
 flattens a frozen :class:`Program` into small int32/float32 arrays,
-uploaded once per (program, device) and cached, so one build serves every
-cascade stage.
+uploaded once per (program, device) and cached by the program's
+identity for as long as the program lives, so one build serves every
+cascade stage and a call hashes nothing.  The look-back's status words
+live in a grow-only workspace per (device, stream), tagged with a
+per-call epoch (:class:`_Workspace`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+import weakref
 
 import numpy as np
 import torch
@@ -36,9 +43,13 @@ MAX_WINDOWS = 65535  # the grid's y dimension (one window per row)
 
 # kernel launches through each wrapper; never reset here
 launches = {"skim_fused": 0, "skim_fused_batch": 0}
-KERNELS_PER_CALL = 2  # skim_fused_launch runs the evaluate and compact kernels
+KERNELS_PER_CALL = 1  # skim_fused_launch runs one kernel
 _LAUNCHES_LOCK = threading.Lock()  # pipelined skims call from several threads
+EPOCH_LIMIT = 1 << 30  # epochs live in 30 bits of a status word
 
+# (id(program), device) -> (descriptor arrays, pointer arguments).  An
+# entry leaves when its program is collected, so the map holds only live
+# programs and a later program at the same address never finds it.
 _DESCRIPTORS: dict = {}
 
 
@@ -100,17 +111,67 @@ def flatten_program(program: Program) -> tuple[np.ndarray, np.ndarray, dict]:
 
 def program_descriptor(program: Program, device: torch.device):
     """The program's descriptor arrays on ``device`` (cached)."""
-    key = (program, str(device))
-    desc = _DESCRIPTORS.get(key)
-    if desc is None:
+    return _descriptor_entry(program, device)[0]
+
+
+def _descriptor_entry(program: Program, device: torch.device):
+    """((ints, floats, offsets), the eight kernel pointer arguments),
+    cached by ``id(program)`` while the program lives."""
+    key = (id(program), device)
+    entry = _DESCRIPTORS.get(key)
+    if entry is None:
         ints, floats, offsets = flatten_program(program)
-        desc = (
-            torch.from_numpy(ints).to(device),
-            torch.from_numpy(floats).to(device),
-            offsets,
-        )
-        _DESCRIPTORS[key] = desc
-    return desc
+        ints = torch.from_numpy(ints).to(device)
+        floats = torch.from_numpy(floats).to(device)
+
+        def at(base, name):
+            return ctypes.c_void_p(base.data_ptr() + 4 * offsets[name])
+
+        args = (at(ints, "groups"), at(ints, "term_ids"), at(ints, "ops"),
+                at(floats, "thrs"), at(floats, "cmp_thrs"), at(ints, "rpn_op"),
+                at(ints, "rpn_term"), at(floats, "rpn_const"))
+        entry = ((ints, floats, offsets), args)
+        _DESCRIPTORS[key] = entry
+        weakref.finalize(program, _DESCRIPTORS.pop, key, None)
+    return entry
+
+
+class _Workspace:
+    """The look-back's status words (one per tile) and ticket counters
+    (one per window) on one (device, stream), grow-only, and the epoch of
+    its last launch.  Launches on one stream run in order, so one
+    workspace never serves two kernels at once.  Status words of earlier
+    epochs read as "not published"; at the epoch limit they are zeroed on
+    the stream and the epochs start again.  Each launch leaves its
+    counters at 0."""
+
+    _all: dict = {}
+    _lock = threading.Lock()
+
+    def __init__(self, device):
+        self.device = device
+        self.status = torch.zeros(0, dtype=torch.int64, device=device)
+        self.tickets = torch.zeros(0, dtype=torch.int32, device=device)
+        self.epoch = 0
+
+    @classmethod
+    def reserve(cls, device, stream: int, n_status: int, n_tickets: int):
+        """(status, tickets, epoch) for one launch on ``stream``."""
+        with cls._lock:
+            ws = cls._all.get((device, stream))
+            if ws is None:
+                ws = cls._all[(device, stream)] = cls(device)
+            if ws.status.numel() < n_status:
+                ws.status = torch.zeros(max(n_status, 2 * ws.status.numel()),
+                                        dtype=torch.int64, device=device)
+            if ws.tickets.numel() < n_tickets:
+                ws.tickets = torch.zeros(max(n_tickets, 2 * ws.tickets.numel()),
+                                         dtype=torch.int32, device=device)
+            ws.epoch += 1
+            if ws.epoch >= EPOCH_LIMIT:
+                ws.status.zero_()
+                ws.epoch = 1
+            return ws.status, ws.tickets, ws.epoch
 
 
 def _lib():
@@ -119,7 +180,7 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_longlong, i, i,
-                       p, p, p, p, p, p, p, p, p, p, p, p, p]
+                       p, p, p, p, p, p, p, p, p, p, ctypes.c_uint, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -134,9 +195,18 @@ def _check(who, name, x, shape, device):
         )
 
 
-def _launch(who, terms, valid, weights, payload, program: Program):
-    """Launch ``skim_fused_launch`` over a (B, T, E, K) batch on the card:
-    (packed (B, E, D), counts (B,) int32)."""
+def header_words(B: int) -> int:
+    """int32 words before the rows in :func:`launch`'s buffer: the B
+    counts, padded to 16 bytes."""
+    return (B + 3) & ~3
+
+
+def launch(who, terms, valid, weights, payload, program: Program):
+    """Launch ``skim_fused_launch`` over a (B, T, E, K) batch on the card.
+
+    Returns ``buf``, one int32 allocation: the B counts, padding to
+    :func:`header_words`, then the packed (B, E, D) rows' bits — so one
+    device-to-host copy brings back both."""
     device = terms.device
     B, T, E, K = terms.shape
     G = program.n_groups
@@ -149,32 +219,35 @@ def _launch(who, terms, valid, weights, payload, program: Program):
     _check(who, "valid", valid, (B, G, E, K), device)
     _check(who, "weights", weights, (B, G, E, K), device)
     _check(who, "payload", payload, (B, E, D), device)
+    hdr = header_words(B)
+    buf = torch.empty(hdr + B * E * D, dtype=torch.int32, device=device)
     if B == 0 or E == 0:
-        return payload.clone(), torch.zeros(B, dtype=torch.int32, device=device)
-    out = torch.empty_like(payload)
-    totals = torch.empty(B, dtype=torch.int32, device=device)
-    ints, floats, off = program_descriptor(program, device)
-    words = torch.empty((B, -(-E // 32)), dtype=torch.int32, device=device)
-    tile_counts = torch.empty((B, -(-E // EVENT_TILE)), dtype=torch.int32,
-                              device=device)
-
-    def at(base, name):
-        return ctypes.c_void_p(base.data_ptr() + 4 * off[name])
-
+        buf.zero_()
+        return buf
+    _, args = _descriptor_entry(program, device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    status, tickets, epoch = _Workspace.reserve(
+        device, stream, B * -(-E // EVENT_TILE), B)
     p = _build.ptr
-    with torch.cuda.device(device):
-        rc = _lib().skim_fused_launch(
-            p(terms), p(valid), p(weights), p(payload), B, T, G, E, K, D,
-            at(ints, "groups"), at(ints, "term_ids"), at(ints, "ops"),
-            at(floats, "thrs"), at(floats, "cmp_thrs"), at(ints, "rpn_op"),
-            at(ints, "rpn_term"), at(floats, "rpn_const"),
-            p(words), p(tile_counts), p(out), p(totals),
-            _build.stream_of(device),
-        )
+    call = (p(terms), p(valid), p(weights), p(payload), B, T, G, E, K, D, *args,
+            p(status), p(tickets), epoch, ctypes.c_void_p(buf.data_ptr() + 4 * hdr),
+            p(buf), ctypes.c_void_p(stream))
+    if device.index is None or device.index == torch.cuda.current_device():
+        rc = _lib().skim_fused_launch(*call)
+    else:
+        with torch.cuda.device(device):
+            rc = _lib().skim_fused_launch(*call)
     _build.check_launch(who, rc)
     with _LAUNCHES_LOCK:
         launches[who] += KERNELS_PER_CALL
-    return out, totals
+    return buf
+
+
+def split(buf, B: int, E: int, D: int):
+    """:func:`launch`'s buffer -> (packed (B, E, D) float32, counts (B,)
+    int32), views of it."""
+    hdr = header_words(B)
+    return buf[hdr:].view(torch.float32).view(B, E, D), buf[:B]
 
 
 def skim_fused(terms, valid, weights, payload, program: Program):
@@ -192,8 +265,10 @@ def skim_fused(terms, valid, weights, payload, program: Program):
             f"skim_fused: terms {tuple(terms.shape)} and payload "
             f"{tuple(payload.shape)} are not (T, E, K) and (E, D)"
         )
-    out, totals = _launch("skim_fused", terms[None], valid[None], weights[None],
-                          payload[None], program)
+    E, D = payload.shape
+    buf = launch("skim_fused", terms[None], valid[None], weights[None],
+                 payload[None], program)
+    out, totals = split(buf, 1, E, D)
     return out[0], totals[0]
 
 
@@ -213,7 +288,8 @@ def skim_fused_batch(terms, valid, weights, payload, program: Program):
             f"skim_fused_batch: terms {tuple(terms.shape)} and payload "
             f"{tuple(payload.shape)} are not (B, T, E, K) and (B, E, D)"
         )
-    return _launch("skim_fused_batch", terms, valid, weights, payload, program)
+    buf = launch("skim_fused_batch", terms, valid, weights, payload, program)
+    return split(buf, *payload.shape)
 
 
 __all__ = [
@@ -221,8 +297,11 @@ __all__ = [
     "KERNELS_PER_CALL",
     "MAX_WINDOWS",
     "flatten_program",
+    "header_words",
+    "launch",
     "launches",
     "program_descriptor",
     "skim_fused",
     "skim_fused_batch",
+    "split",
 ]

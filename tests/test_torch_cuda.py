@@ -11,6 +11,7 @@ contraction, so they round as the plain versions' separate ops do.
 """
 
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -195,7 +196,8 @@ def test_cuda_new_entry_points_launch_their_kernels(cuda_device):
     q = rng.normal(size=(1, 2, 64, 16)).astype(np.float32)
     out = ops.flash_attention(q, q, q)
     assert got.is_cuda and packed.is_cuda and out.is_cuda
-    assert ops.launch_counts()["skim_fused_batch"] == sf.KERNELS_PER_CALL
+    assert sf.KERNELS_PER_CALL == 1  # single-pass compaction: one kernel a call
+    assert ops.launch_counts()["skim_fused_batch"] == 1
     assert ops.launch_counts()["stream_compact"] == sc.KERNELS_PER_CALL
     assert ops.launch_counts()["flash_attention"] == 1
 
@@ -217,3 +219,75 @@ def test_cuda_new_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     t = [torch.from_numpy(a).to(cuda_device) for a in host]
     with pytest.raises(ValueError):
         sf.skim_fused_batch(t[0], t[1], t[2], t[3].double(), prog)
+
+
+@pytest.mark.cuda
+def test_cuda_mixed_round_matches_plain(cuda_device):
+    """One launch decodes a round of every kind, width and output type
+    (a basket wider than the 4096-value chunk among them), byte for byte
+    as the plain version of the round on the same staged layout."""
+    rng = np.random.default_rng(11)
+    baskets = chip_smoke.random_round(rng, 40)
+    layout = ops.plan_round(baskets)
+    staged = torch.empty(layout["n_in"], dtype=torch.int32)
+    ops.fill_round(staged.numpy(), layout)
+    want = ref.basket_decode_round_ref(*ops.round_views(staged, layout),
+                                       layout["out_bytes"])
+    got = torch.zeros(layout["out_bytes"], dtype=torch.uint8, device=cuda_device)
+    ops.reset_launch_counts()
+    bd.decode_round(*ops.round_views(staged.to(cuda_device), layout), got)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["basket_decode"] == 1
+    got = got.cpu()
+    for (part, _), (o, store) in zip(baskets, layout["stores"]):
+        nb = part["n"] * store.itemsize
+        assert torch.equal(got[o: o + nb], want[o: o + nb]), (part["kind"], part["n"])
+
+
+@pytest.mark.cuda
+def test_cuda_skim_fused_single_pass_at_every_size(cuda_device):
+    """The look-back across up to 1,954 tiles and a ragged last tile, one
+    launch per call, tail and count included."""
+    assert chip_smoke.check_skim_fused_sizes(np.random.default_rng(2), cuda_device) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_skim_fused_is_one_launch_per_call(cuda_device):
+    prog = dict(chip_smoke.sweep_programs())["ht"]
+    host = chip_smoke.sweep_inputs(np.random.default_rng(4), prog, 4096, 8, 1)
+    t = [torch.from_numpy(x).to(cuda_device) for x in host]
+    ops.reset_launch_counts()
+    for _ in range(5):
+        sf.skim_fused(*t, prog)
+    packed, k = ops.fused_skim(*host, prog, device=cuda_device)
+    want, n = ref.skim_fused_ref(*t, prog)
+    assert ops.launch_counts()["skim_fused"] == 6
+    assert k == int(n) and packed.tobytes() == want.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_cuda_two_threads_decode_rounds_at_once(cuda_device):
+    """Rounds decoded from two threads at once (as the prefetcher and the
+    consumer do) each get their own values: per-thread staging buffers,
+    each round waiting on its own event."""
+    blobs, dtypes, arrays = chip_smoke.round_blobs(np.random.default_rng(9))
+    from repro_torch.data.codecs import bitpack_raw_parts
+
+    halves = [{n: blobs[n] for n in list(blobs)[i::2]} for i in range(2)]
+    errors = []
+
+    def work(half):
+        parts = {n: [bitpack_raw_parts(b) for b in bs] for n, bs in half.items()}
+        for _ in range(50):
+            got = ops.basket_decode_round(parts, dtypes, device=cuda_device)
+            for n in half:
+                if [g.tobytes() for g in got[n]] != [a.tobytes() for a in arrays[n]]:
+                    errors.append(n)
+
+    threads = [threading.Thread(target=work, args=(h,), name=f"decode-{i}")
+               for i, h in enumerate(halves)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors

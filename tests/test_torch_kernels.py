@@ -148,7 +148,9 @@ def test_basket_decode_edges_bit_exact(arr):
     assert part["kind"] != 3
     (got,) = tops.basket_decode_batch([part], arr.dtype, device="cpu")
     assert got.tobytes() == arr.tobytes()
-    planes, firsts, bits = tops.stage_planes([part])
+    bits, W = part["bits"], part["n_pad"] // 32
+    planes = part["planes"].reshape(-1, W)[None, :bits]
+    firsts = np.array([part["first"]], np.uint32)
     want = np.asarray(jbd.basket_decode(
         jnp.asarray(planes), jnp.asarray(firsts), kind=part["kind"], n_bits=bits,
         out_dtype=jnp.float32 if part["kind"] == 1 else jnp.int32, interpret=True,
@@ -352,3 +354,21 @@ def test_program_descriptor_layout():
     n = len(grp.rpn)
     assert ints[off["rpn_op"]: off["rpn_op"] + n].tolist() == [op for op, _ in grp.rpn]
     assert floats[off["cmp_thrs"]] == np.float32(grp.cmp_thr)
+
+
+def test_program_descriptor_cache_holds_only_live_programs():
+    """Descriptors are cached by identity while the program lives: a
+    second call returns the same arrays, and a collected program's entry
+    goes, so compiling a query per run does not grow the cache."""
+    import gc
+
+    cpu = torch.device("cpu")
+    before = len(tsf._DESCRIPTORS)
+    for _ in range(20):
+        prog = dataclasses.replace(SWEEP["expr"])
+        first = tsf.program_descriptor(prog, cpu)
+        assert tsf.program_descriptor(prog, cpu) is first
+        assert len(tsf._DESCRIPTORS) <= before + 1
+        del prog, first
+        gc.collect()
+    assert len(tsf._DESCRIPTORS) == before
