@@ -6,16 +6,21 @@
 Phases, in order; the first failure stops the run with a non-zero exit:
 
 1. Device: the card's name and power limit (``nvidia-smi``), the torch
-   and CUDA versions, then the build of every kernel from ``src/``, and
-   the attention library's SASS (``cuobjdump``): its bf16 route must hold
-   ``HGMMA`` (wgmma) and its float32 route tf32 ``HMMA`` (mma.sync).
+   and CUDA versions, then the build of every kernel from ``src/`` and,
+   beside it, of the parent's ``cascade_stage`` kernel the script keeps
+   as a timing baseline (:data:`PARENT_STAGE_CU`), and the attention
+   library's SASS (``cuobjdump``): its bf16 route must hold ``HGMMA``
+   (wgmma) and its float32 route tf32 ``HMMA`` (mma.sync).
 2. Kernels against their plain PyTorch versions, on the card:
    ``basket_decode`` bit for bit (same-shaped batches, mixed-kind rounds
    in one launch each, rounds of real blobs through
    ``ops.basket_decode_round``), ``skim_fused`` over every op and group
    kind and at E from 1 to 1,000,000 (the single-pass look-back over
    many tiles, one launch a call), ``cascade_stage`` and
-   ``predicate_eval`` over every op and group kind, ``stream_compact``
+   ``predicate_eval`` over every op and group kind (``cascade_stage``
+   also over staged windows only: K = 1/8/16/64, a short last tile,
+   subsets of a batch staged, dead tiles, every copy mode, bit for bit),
+   ``stream_compact``
    bit for bit over every payload width (NaN payloads, -0.0, integers
    past 2^24), ``skim_fused_batch`` over every op and group kind, and
    ``flash_attention`` at the JAX tests' shapes and at its edges (ragged
@@ -23,7 +28,9 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    Then each skim kernel's median time beside its plain version's and
    its bound, at the shapes the main path gives it (window 0's decode
    rounds and skim calls; the batch of the first 16 windows), with the
-   host-to-host time of a whole decode round and of a window's skim.
+   host-to-host time of a whole decode round, of a window's skim and of a
+   cascade stage step; ``cascade_stage`` beside the parent's kernel on
+   the same inputs and the parent's step (three pageable uploads).
 3. The main path: ``run_skim`` with every default on two 1,000,000-event
    stores — NanoAOD-like (98 branches) for the quickstart query and the
    Z->ee mass/ΔR/expression query, and the conditions-era store of
@@ -33,7 +40,9 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    ``skim_fused`` launch per window skim.  Then the batched cascade,
    ``run_skim(..., device_batch=16)``, on the same three, held against
    the staged reference, the per-window card run and the host batched
-   run; and the device busy share of each (``torch.profiler``).
+   run, with one page-locked host-to-device copy per stage step
+   (:func:`count_uploads`); and the device busy share of each
+   (``torch.profiler``).
    Then the ops entry points of the three kernels no skim calls, at full
    size, each with the launch counts set to 0 before it and read after:
    ``ops.fused_skim_batch`` on each cell's first cascade stage over its
@@ -813,6 +822,56 @@ def batch_inputs(rng, program, B: int, E: int, K: int, basket_events: int):
     return terms, valid, weights, packed, seg, nb
 
 
+def dense_batch(inputs):
+    """The dense (Bn,T,E,K), (Bn,G,E,K), (Bn,G,E,K) numpy batch that the
+    windows staged in ``inputs`` (``ops.CascadeInputs``) stand for: zeros
+    in every row no window is staged to."""
+    import numpy as np
+
+    Bn, T, E, K = inputs.shape
+    G = inputs.n_groups
+    out = [np.zeros((Bn, n, E, K), np.float32) for n in (T, G, G)]
+    for s, b in enumerate(inputs.rows):
+        for dense, part in zip(out, inputs.window(s)):
+            dense[b] = part
+    return tuple(out)
+
+
+def staged_batch(rng, program, B: int, E: int, K: int, basket_events: int, rows,
+                 start: int = 0, keep=()):
+    """A window-batch staged for one cascade stage as ``run_window_batch``
+    stages it: :func:`batch_inputs`' windows, with only ``rows`` staged
+    (``ops.CascadeInputs``, host memory) and every other row's mask words
+    zero, as a window with no live event has, except the rows in ``keep``,
+    which keep live words the stage must leave alone.  In every staged
+    window the events before ``start`` are dead with zero planes (a live
+    span that starts inside a mask word), and so are the events of one
+    512-event run (tiles with no live event).  Returns (inputs, packed
+    (B, E/32) int32, seg_ids (B, E) int32, nb)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    terms, valid, weights, packed, seg, nb = batch_inputs(
+        rng, program, B, E, K, basket_events)
+    alive = ops.unpack_mask(packed, E)
+    dead = np.zeros(E, bool)
+    dead[:start] = True
+    if E >= 2048:
+        dead[1024:1536] = True
+    for b in range(B):
+        if b in rows:
+            alive[b, dead] = False
+        elif b not in keep:
+            alive[b] = False
+    inputs = ops.CascadeInputs(terms.shape, program.n_groups, rows)
+    for s, b in enumerate(inputs.rows):
+        for part, dense in zip(inputs.window(s), (terms, valid, weights)):
+            part[...] = dense[b]
+            part[:, dead] = 0.0
+    return inputs, ops.pack_mask(alive).view(np.int32), seg, nb
+
+
 def _mask_edges(program, t, v, got, want) -> int:
     """Events where two (B, E) masks differ; every one must lie within
     2 ulp of a mass/ΔR cut (checked), else the run fails."""
@@ -888,6 +947,105 @@ def check_cascade_stage(rng, device, names=None) -> tuple[float, int]:
     return max_err, edge
 
 
+def check_cascade_stage_windows(rng, device, names=None) -> tuple[float, int]:
+    """``cascade_stage_windows`` (the kernel over the staged windows only,
+    as ``ops.cascade_stage_step`` launches it) against its plain version,
+    bit for bit: every sweep program at K in 1/8/16/64, E in 512/4000
+    (4000: a short last tile), B in 1/5/16 with all, some, one or no
+    windows staged, live spans that start inside a mask word, a run of
+    tiles with no live event, and a row not staged whose live words must
+    stay as they are; then a misaligned buffer (4-byte ``cp.async``) and a
+    shape too large for shared memory (read from device memory).
+    Returns (max |kernel - plain| over words and the (B, nb+1) buffer;
+    events that differ at a mass/ΔR cut's edge)."""
+    import torch
+
+    from repro_torch.kernels import predicate_eval as pe
+
+    cases = edge = 0
+    max_err = 0.0
+    modes = set()
+
+    def one(label, program, planes, rows, packed, seg, nb):
+        nonlocal cases, edge, max_err
+        want_p, want = pe.cascade_stage_windows_plain(
+            planes, rows, packed.clone(), seg, program, nb)
+        got_p = packed.clone()
+        _, got = pe.cascade_stage_windows(planes, rows, got_p, seg, program, nb)
+        torch.cuda.synchronize()
+        E = seg.shape[1]
+        err = max(float((got_p != want_p).any()), float((got - want).abs().max()))
+        max_err = max(max_err, err)
+        cases += 1
+        if err:
+            # only mass/ΔR events at a cut's edge may differ; the kernel's
+            # bits and counts then follow its own mask
+            from repro_torch.kernels import ref
+
+            m_got, m_want = ref.unpack_bits(got_p, E), ref.unpack_bits(want_p, E)
+            dense = [torch.zeros((packed.shape[0], n, E, planes.shape[3]),
+                                 device=device)
+                     for n in (program.n_terms, program.n_groups)]
+            dense[0][rows.long()] = planes[:, :program.n_terms]
+            dense[1][rows.long()] = planes[:, program.n_terms:program.n_terms
+                                           + program.n_groups]
+            n = _mask_edges(program, dense[0], dense[1], m_got, m_want)
+            check(n > 0, f"cascade_stage_windows {label}: bits or counts differ "
+                  "where the masks agree")
+            own = torch.zeros_like(got[:, :nb])
+            own.scatter_reduce_(1, seg.long(), m_got.int(), "amax")
+            check(torch.equal(got[:, :nb], own) and torch.equal(
+                got[:, nb], m_got.sum(dim=1, dtype=torch.int32)),
+                f"cascade_stage_windows {label}: bits or counts do not follow "
+                "the kernel's own mask")
+            edge += n
+
+    for name, program in sweep_programs():
+        if names and name not in names:
+            continue
+        for K in (1, 8, 16, 64):
+            for B in (1, 5, 16):
+                subsets = {"all": range(B), "none": ()}
+                if B > 1:
+                    subsets.update(some=range(0, B, 3), one=(B // 2,))
+                for E in (512, 4000):
+                    for subset, rows in subsets.items():
+                        keep = (1,) if B > 1 and 1 not in rows else ()
+                        inputs, packed, seg, nb = staged_batch(
+                            rng, program, B, E, K, 1024, tuple(rows), start=37,
+                            keep=keep)
+                        planes, r = inputs.views(inputs.host.to(device))
+                        one(f"{name} K={K} B={B} E={E} {subset}", program, planes,
+                            r, torch.from_numpy(packed).to(device),
+                            torch.from_numpy(seg).to(device), nb)
+                        modes.add(pe.stage_plan(planes.shape[1], K,
+                                                pe.event_lanes(program, K), True)[1])
+        # a misaligned buffer: 4-byte cp.async; K = 512: device memory
+        for K, shift in ((8, 1), (512, 0)):
+            inputs, packed, seg, nb = staged_batch(rng, program, 3, 512, K, 128,
+                                                   (0, 2), start=5)
+            raw = torch.zeros(inputs.host.numel() + 4, dtype=torch.int32,
+                              device=device)
+            dev = raw[shift: shift + inputs.host.numel()]
+            dev.copy_(inputs.host)
+            planes, r = inputs.views(dev)
+            aligned = planes.data_ptr() % 16 == 0
+            modes.add(pe.stage_plan(planes.shape[1], K, pe.event_lanes(program, K),
+                                    aligned)[1])
+            one(f"{name} K={K} shift={shift}", program, planes, r,
+                torch.from_numpy(packed).to(device), torch.from_numpy(seg).to(device),
+                nb)
+    check(modes == {pe.MODE_BULK, pe.MODE_ASYNC4, pe.MODE_DIRECT},
+          f"cascade_stage_windows: copy modes {sorted(modes)} run, not all three")
+    log(f"  cascade_stage_windows: {cases} cases (every sweep program, K in "
+        "1/8/16/64, E in 512/4000, B in 1/5/16 with all/some/one/no windows "
+        "staged, spans from event 37, a dead 512-event run, a live row not "
+        "staged; bulk copies, 4-byte cp.async on a misaligned buffer, device "
+        f"memory at K = 512); equal to the plain version except {edge} events "
+        f"at a mass/ΔR cut's edge; max |err| {max_err}")
+    return max_err, edge
+
+
 def check_predicate_eval(rng, device, names=None) -> tuple[float, int]:
     """``predicate_eval`` (one window) at ragged E and
     ``predicate_eval_batch`` at B in 3/16, against the plain versions."""
@@ -922,6 +1080,179 @@ def check_predicate_eval(rng, device, names=None) -> tuple[float, int]:
         f"plain version except {edge} events at a mass/ΔR cut's edge; "
         f"max |err| {max_err}")
     return max_err, edge
+
+
+# ---------------------------------------------------------------------------
+# the parent's cascade_stage kernel, kept as the baseline the redesigned one
+# is timed against in the same run: one thread an event reading its own
+# K-slot rows of dense (B, T, E, K) inputs from device memory (the kernel
+# of csrc/predicate_eval.cu before the staged-window redesign)
+# ---------------------------------------------------------------------------
+
+PARENT_STAGE_CU = r"""
+#include "predicate.cuh"
+namespace {
+constexpr int kTile = 512;
+constexpr int kWarps = kTile / 32;
+__global__ void cascade_stage_kernel(Program p, Inputs batch, int T,
+                                     uint32_t* __restrict__ packed,
+                                     const int* __restrict__ seg_ids, int nb,
+                                     int* __restrict__ out) {
+  __shared__ int warp_counts[kWarps];
+  const long long b = blockIdx.y;
+  const long long e = (long long)blockIdx.x * kTile + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool in_range = e < batch.E;
+  uint32_t* word = packed + b * (batch.E >> 5) + (e >> 5);
+  bool alive = in_range && ((*word >> lane) & 1u);
+  if (alive) alive = eval_event(p, e, window_inputs(batch, b, T, p.G));
+  const uint32_t ballot = __ballot_sync(0xffffffffu, alive);
+  int* row = out + b * (nb + 1);
+  if (lane == 0) {
+    warp_counts[warp] = __popc(ballot);
+    if (in_range) *word = ballot;
+  }
+  if (alive) {
+    const int s = seg_ids[b * batch.E + e];
+    if (s >= 0 && s < nb && row[s] == 0) atomicOr(row + s, 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < kWarps; ++w) total += warp_counts[w];
+    if (total) atomicAdd(row + nb, total);
+  }
+}
+}  // namespace
+extern "C" int parent_stage_launch(
+    const float* terms, const float* valid, const float* weights, int B,
+    int T, int G, long long E, int K, const int* groups, const int* term_ids,
+    const int* ops, const float* thrs, const float* cmp_thrs,
+    const int* rpn_op, const int* rpn_term, const float* rpn_const,
+    uint32_t* packed, const int* seg_ids, int nb, int* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      cudaMemsetAsync(out, 0, sizeof(int) * (size_t)B * (size_t)(nb + 1), s);
+  if (err != cudaSuccess) return (int)err;
+  Program p{groups, term_ids, ops, thrs, cmp_thrs, rpn_op, rpn_term, rpn_const, G};
+  Inputs batch{terms, valid, weights, E, K};
+  dim3 grid((unsigned)((E + kTile - 1) / kTile), (unsigned)B);
+  cascade_stage_kernel<<<grid, kTile, 0, s>>>(p, batch, T, packed, seg_ids, nb, out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_parent_build():
+    """Start ``nvcc`` on :data:`PARENT_STAGE_CU` (beside the package's
+    builds, which run at the same time); returns (process, library path)."""
+    import hashlib
+
+    from repro_torch.kernels import _build
+
+    digest = hashlib.sha256(PARENT_STAGE_CU.encode() + (
+        _build._CSRC / "predicate.cuh").read_bytes()).hexdigest()[:16]
+    lib = _build.build_dir() / f"parent_stage-{digest}.so"
+    if lib.exists():
+        return None, lib
+    _build.build_dir().mkdir(parents=True, exist_ok=True)
+    src = lib.with_suffix(".cu")
+    src.write_text(PARENT_STAGE_CU)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build._CSRC), "-o",
+           str(lib), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True), lib
+
+
+def finish_parent_build(proc, lib):
+    """Wait for :func:`start_parent_build`; returns
+    ``parent_stage(terms, valid, weights, packed, seg_ids, program, nb) ->
+    out`` (``packed`` updated in place)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import predicate_eval as pe
+
+    if proc is not None:
+        out, err = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed on the parent's kernel:\n{out}{err}")
+    fn = ctypes.CDLL(str(lib)).parent_stage_launch
+    pv, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [pv, pv, pv, i, i, i, ctypes.c_longlong, i, *([pv] * 8),
+                   pv, pv, i, pv, pv]
+    fn.restype = ctypes.c_int
+
+    def parent_stage(t, v, w, packed, seg, program, nb):
+        B, T, E, K = t.shape
+        out = torch.empty((B, nb + 1), dtype=torch.int32, device=t.device)
+        p = _build.ptr
+        rc = fn(p(t), p(v), p(w), B, T, program.n_groups, E, K,
+                *pe._program_args(program, t.device), p(packed), p(seg), nb, p(out),
+                _build.stream_of(t.device))
+        _build.check_launch("parent cascade_stage", rc)
+        return out
+
+    return parent_stage
+
+
+def count_uploads(step_name: str = "cascade_stage_step"):
+    """Count, until the returned ``restore()``, every host-to-device copy
+    made by ``Tensor.copy_`` or ``Tensor.to`` (any thread): copies, bytes
+    and how many came from pageable memory, in total and inside
+    ``ops.<step_name>`` (on its caller's thread), with that function's
+    calls.  Returns (counts, restore)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    counts = {"calls": 0, "uploads": 0, "bytes": 0, "pageable": 0,
+              "step_uploads": 0, "step_bytes": 0, "step_pageable": 0}
+    lock, local = threading.Lock(), threading.local()
+    step, copy_, to = getattr(ops, step_name), torch.Tensor.copy_, torch.Tensor.to
+
+    def note(src, dst_cuda):
+        if not dst_cuda or src.is_cuda:
+            return
+        nbytes, pageable = src.numel() * src.element_size(), not src.is_pinned()
+        with lock:
+            counts["uploads"] += 1
+            counts["bytes"] += nbytes
+            counts["pageable"] += pageable
+            if getattr(local, "in_step", False):
+                counts["step_uploads"] += 1
+                counts["step_bytes"] += nbytes
+                counts["step_pageable"] += pageable
+
+    def counting_copy(self, src, *a, **k):
+        if isinstance(src, torch.Tensor):
+            note(src, self.is_cuda)
+        return copy_(self, src, *a, **k)
+
+    def counting_to(self, *a, **k):
+        out = to(self, *a, **k)
+        if out is not self:
+            note(self, out.is_cuda)
+        return out
+
+    def counting_step(*a, **k):
+        with lock:
+            counts["calls"] += 1
+        local.in_step = True
+        try:
+            return step(*a, **k)
+        finally:
+            local.in_step = False
+
+    torch.Tensor.copy_, torch.Tensor.to = counting_copy, counting_to
+    setattr(ops, step_name, counting_step)
+
+    def restore():
+        torch.Tensor.copy_, torch.Tensor.to = copy_, to
+        setattr(ops, step_name, step)
+
+    return counts, restore
 
 
 # ---------------------------------------------------------------------------
@@ -1175,7 +1506,10 @@ def path_stage_cases(store, queries, device, batch: int = 16):
     """Every cascade stage's inputs for the batch of the first ``batch``
     windows of each query, as ``run_window_batch`` hands them to
     ``ops.cascade_stage_step`` (recorded on the way through, the carried
-    mask as it was before the stage)."""
+    mask as it was before the stage): (program, nb, the dense batch the
+    staged windows stand for (terms, valid, weights) on the card, packed,
+    seg_ids, and a dict of the staged form: ``planes`` and ``rows`` on the
+    card, ``host`` a copy of the staged buffer, ``shape``, ``n_groups``)."""
     import torch
 
     from repro_torch.core.engine import Breakdown
@@ -1188,11 +1522,16 @@ def path_stage_cases(store, queries, device, batch: int = 16):
     cases = []
     step = ops.cascade_stage_step
 
-    def record(terms, valid, weights, packed, seg_ids, program, nb, **kw):
+    def record(inputs, packed, seg_ids, program, nb, **kw):
+        host = inputs.host.clone()  # the staging buffer serves the next stage
+        planes, rows = inputs.views(host.to(device))
         cases.append((program, nb, [torch.from_numpy(x).to(device)
-                                    for x in (terms, valid, weights)],
-                      packed.clone(), seg_ids.clone()))
-        return step(terms, valid, weights, packed, seg_ids, program, nb, **kw)
+                                    for x in dense_batch(inputs)],
+                      packed.clone(), seg_ids.clone(),
+                      {"planes": planes, "rows": rows, "host": host,
+                       "shape": inputs.shape, "n_groups": inputs.n_groups,
+                       "row_list": inputs.rows.tolist()}))
+        return step(inputs, packed, seg_ids, program, nb, **kw)
 
     be = store.basket_events
     ops.cascade_stage_step = record
@@ -1271,18 +1610,21 @@ def _summary(rows) -> dict | None:
 def bounds(summary: dict) -> dict:
     return {k: summary[k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "by_dtype",
-                      "per_basket_ms", "round_ms", "window_ms")
+                      "per_basket_ms", "round_ms", "window_ms", "dense_ms", "parent_ms",
+                      "step_ms", "parent_step_ms", "staged_bytes", "dense_bytes")
             if k in summary}
 
 
 def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
-                 compact_cases=(), attn_cases=()) -> dict:
+                 compact_cases=(), attn_cases=(), parent_stage=None) -> dict:
     """Each kernel at the shapes its path gives it: its device time (CUDA
     graph replay), its time per call as the stream sees it from the host,
     the plain version's time per call, the bound (decoded values counted
     at each branch's own width) and, where one PyTorch call computes the
     same function, that call's time per call from the host
-    (``library_ms``).  Only the kernels given cases are timed."""
+    (``library_ms``).  ``cascade_stage`` is timed beside the parent's
+    kernel (``parent_stage``, from :func:`finish_parent_build`) on the same
+    inputs.  Only the kernels given cases are timed."""
     import torch
 
     from repro_torch.kernels import basket_decode as bd
@@ -1361,27 +1703,81 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         out["basket_decode"]["round_ms"] = sum(r["round_ms"] for r in rows) / len(rows)
 
     rows, single = [], []
-    for program, nb, (t, v, w), packed, seg in stage_cases:
+    for program, nb, (t, v, w), packed0, seg, st in stage_cases:
         B, T, E, K = t.shape
         G = v.shape[1]
-        # read terms, valid, weights, the carried mask and seg_ids once;
-        # write the mask and the (B, nb + 1) basket bits and counts once
-        nbytes = 4 * B * ((T + 2 * G) * E * K + E + 2 * E // 32 + nb + 1)
-        ops = B * E * K * (T + 4 * G)
-        t_bytes, t_ops = bound_times(nbytes, ops)
+        planes, stage_rows = st["planes"], st["rows"]
+        S = len(st["row_list"])
+        # the least the stage must move at this run's data: for each event
+        # live in the carried mask of a staged window, its K slots of every
+        # plane the program reads; the staged windows' mask words read and
+        # written, the live events' seg_ids, the (B, nb + 1) output
+        live = int(ref.unpack_bits(packed0[stage_rows.long()], E).sum())
+        n_read = bin(pe.planes_read(program)).count("1")
+        nbytes = 4 * (live * K * n_read + 2 * S * E // 32 + live + B * (nb + 1))
+        t_bytes, t_ops = bound_times(nbytes, live * K * (T + 4 * G))
+        pk = packed0.clone()
+
+        def restore():
+            return pk.copy_(packed0)
+
+        def kernel():  # the path's launch: the staged windows only
+            restore()
+            return pe.cascade_stage_windows(planes, stage_rows, pk, seg, program, nb)
+
+        def dense():  # the same kernel, every window of the batch staged
+            restore()
+            return pe.cascade_stage(t, v, w, pk, seg, program, nb)
+
+        def parent():  # the parent's kernel, dense inputs
+            restore()
+            return parent_stage(t, v, w, pk, seg, program, nb)
+
+        # the stage step from the host, as the path calls it: this tree's
+        # (one page-locked upload of the staged buffer, the launch, the
+        # summary back) against the parent's (three pageable uploads of the
+        # dense batch, its launch, the summary back)
+        inputs = kops.CascadeInputs(st["shape"], st["n_groups"], st["row_list"],
+                                    t.device)
+        inputs.host.copy_(st["host"])
+        dense_np = dense_batch(inputs)
+
+        def step():
+            restore()
+            kops.stage_summary_host(kops.cascade_stage_step(
+                inputs, pk, seg, program, nb, device=t.device)[1])
+
+        def parent_step():
+            restore()
+            up = [torch.as_tensor(x).to(t.device) for x in dense_np]
+            kops.stage_summary_host(parent_stage(*up, pk, seg, program, nb))
+
+        copy_ms = device_ms(restore)
+        copy_stream = stream_ms(restore)
         row = {
-            "ms": device_ms(lambda: pe.cascade_stage(t, v, w, packed, seg, program, nb)),
-            "stream_ms": stream_ms(
-                lambda: pe.cascade_stage(t, v, w, packed, seg, program, nb)),
-            "plain_ms": stream_ms(
-                lambda: ref.cascade_stage_ref(t, v, w, packed, seg, program, nb)),
+            "ms": device_ms(kernel) - copy_ms,
+            "dense_ms": device_ms(dense) - copy_ms,
+            "parent_ms": device_ms(parent) - copy_ms,
+            "stream_ms": stream_ms(kernel) - copy_stream,
+            "parent_stream_ms": stream_ms(parent) - copy_stream,
+            "plain_ms": stream_ms(lambda: (restore(), pe.cascade_stage_windows_plain(
+                planes, stage_rows, pk, seg, program, nb))) - copy_stream,
+            "step_ms": host_ms(step, calls=20),
+            "parent_step_ms": host_ms(parent_step, calls=20),
+            "staged_bytes": inputs.nbytes,
+            "dense_bytes": 4 * B * (T + 2 * G) * E * K,
             "t_bytes": t_bytes, "t_ops": t_ops,
         }
         rows.append(row)
-        log(f"  cascade_stage B={B} T={T} G={G} E={E} K={K} nb={nb}: kernel "
-            f"{row['ms']:.5f} ms on the device, {row['stream_ms']:.5f} ms per "
-            f"call from the host; plain {row['plain_ms']:.5f} ms; bound "
-            f"{max(t_bytes, t_ops):.7f} ms")
+        log(f"  cascade_stage B={B} staged {S} T={T} G={G} E={E} K={K} nb={nb}, "
+            f"{live} live events: kernel {row['ms']:.5f} ms on the device (every "
+            f"window staged {row['dense_ms']:.5f}; the parent's kernel "
+            f"{row['parent_ms']:.5f}), {row['stream_ms']:.5f} ms per call from the "
+            f"host (parent {row['parent_stream_ms']:.5f}); the step from the host "
+            f"{row['step_ms']:.5f} ms, {row['staged_bytes']} bytes in one pinned "
+            f"upload (parent {row['parent_step_ms']:.5f} ms, "
+            f"{row['dense_bytes']} bytes in three pageable uploads); plain "
+            f"{row['plain_ms']:.5f} ms; bound {max(t_bytes, t_ops):.7f} ms")
         # predicate_eval: window 0 of the same batch, the mask alone
         t0, v0, w0 = t[0], v[0], w[0]
         t_bytes, t_ops = bound_times(4 * ((T + 2 * G) * E * K + E), E * K * (T + 4 * G))
@@ -1396,6 +1792,10 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
             f"ms per call from the host; plain {single[-1]['plain_ms']:.5f} ms; "
             f"bound {max(t_bytes, t_ops):.7f} ms")
     out["predicate_eval_batch"] = _summary(rows)
+    if rows:
+        for key in ("dense_ms", "parent_ms", "parent_stream_ms", "step_ms",
+                    "parent_step_ms", "staged_bytes", "dense_bytes"):
+            out["predicate_eval_batch"][key] = sum(r[key] for r in rows) / len(rows)
     out["predicate_eval"] = _summary(single)
     rows = []
     for program, t, v, w, p in batch_cases:
@@ -1515,12 +1915,15 @@ def count_calls(store):
         part = bitpack_raw_parts(blob)
         return part["n"] > 0 and part["kind"] != 3
 
-    def counting_decode(blobs):
+    def counting_decode(calls):
+        # a round's calls, [(branch, blobs), ...] ({branch: blobs} before
+        # the round replayed the JAX package's calls)
+        pairs = calls.items() if isinstance(calls, dict) else calls
         if (store.codec == "bitpack" and store.resolved_decode_backend() == "device"
-                and any(on_card(b) for bs in blobs.values() for b in bs)):
+                and any(on_card(b) for _, bs in pairs for b in bs)):
             with lock:
                 counts["device_rounds"] += 1
-        return uncached(blobs)
+        return uncached(calls)
 
     def counting_window(*a, **k):
         with lock:
@@ -1629,6 +2032,7 @@ def run_batched_path(label, query, store, host_store, per_window, batch=16) -> d
     from repro_torch.kernels import ops
 
     counts, restore = count_calls(store)
+    uploads, restore_uploads = count_uploads()
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1637,6 +2041,7 @@ def run_batched_path(label, query, store, host_store, per_window, batch=16) -> d
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     restore()
+    restore_uploads()
 
     host = run_skim(host_store, query, device="cpu", device_batch=batch)
     preload = run_skim(host_store, query, device="cpu", cascade=False)
@@ -1658,6 +2063,18 @@ def run_batched_path(label, query, store, host_store, per_window, batch=16) -> d
           f"{label}: {launches['basket_decode']} decode launches for "
           f"{counts['device_rounds']} rounds with a bitpack miss")
     check(res.extras["device_batch"] == batch, f"{label}: device_batch not reported")
+    # launches also hold the warm-ups of shapes first seen in this run
+    check(0 < uploads["calls"] <= launches["cascade_stage"]
+          and uploads["step_uploads"] == uploads["calls"]
+          and uploads["step_pageable"] == 0,
+          f"{label}: {uploads['step_uploads']} host-to-device copies "
+          f"({uploads['step_pageable']} pageable) in {uploads['calls']} stage "
+          f"steps ({launches['cascade_stage']} launches): not one page-locked "
+          "copy a step")
+    log(f"  [{label}, device_batch={batch}] host-to-device: "
+        f"{uploads['step_uploads']} page-locked copies of {uploads['step_bytes']} "
+        f"bytes in {uploads['calls']} stage steps; {uploads['uploads']} copies of "
+        f"{uploads['bytes']} bytes in the whole run ({uploads['pageable']} pageable)")
     for ref_name, ref in (("staged reference", per_window["staged"]),
                           ("per-window card run", pw)):
         check(res.n_passed == ref.n_passed,
@@ -1680,7 +2097,7 @@ def run_batched_path(label, query, store, host_store, per_window, batch=16) -> d
     log(f"  [{label}, device_batch={batch}] stage times (s): "
         + json.dumps(res.breakdown.as_dict()))
     return {"wall_s": wall, "events_per_s": res.n_input / wall,
-            "n_passed": res.n_passed, "launches": launches,
+            "n_passed": res.n_passed, "launches": launches, "uploads": uploads,
             "device_dispatches": res.extras["device_dispatches"],
             "per_window_dispatches": pw.extras["device_dispatches"]}
 
@@ -1708,7 +2125,7 @@ def run_fused_batch_path(label, stage_case, device) -> dict:
 
     from repro_torch.kernels import ops, ref
 
-    program, _nb, (t, v, w), _packed, _seg = stage_case
+    program, _nb, (t, v, w), *_ = stage_case
     B, T, E, K = t.shape
     payload = torch.arange(E, dtype=torch.float32, device=device).repeat(B, 1)
     payload = payload[:, :, None].contiguous()
@@ -1877,16 +2294,21 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     from repro_torch.kernels import _build, ops
 
+    t0 = time.perf_counter()
+    parent_build = start_parent_build()
     build_s = _build.build_all()
     ops.load_kernels()
-    log(f"  kernels built in {build_s:.1f} s into {_build.build_dir()}")
+    parent_stage = finish_parent_build(*parent_build)
+    log(f"  kernels built in {build_s:.1f} s into {_build.build_dir()}; with the "
+        f"parent's cascade_stage (the timing baseline) {time.perf_counter() - t0:.1f} s")
     check_tensor_core_sass()
 
     log("== 2. kernels against their plain versions ==")
     rng = np.random.default_rng(0)
     decode_err = check_basket_decode(rng, device)
     skim_err, _ = check_skim_fused(rng, device)
-    stage_err, _ = check_cascade_stage(rng, device)
+    stage_err = max(check_cascade_stage(rng, device)[0],
+                    check_cascade_stage_windows(rng, device)[0])
     pred_err, _ = check_predicate_eval(rng, device)
     compact_err = check_stream_compact(rng, device)
     batch_err, _ = check_skim_fused_batch(rng, device)
@@ -1920,6 +2342,7 @@ def main() -> int:
         path_skim_cases(store, [q for _, q, *_ in cells[:2]], device),
         path_decode_cases(store, [(label, q) for label, q, *_ in cells[:2]], device),
         [c for cases in stage_cases.values() for c in cases],
+        parent_stage=parent_stage,
     )
 
     log("== 3. main path: run_skim with every default, on the card ==")
@@ -2011,7 +2434,9 @@ def main() -> int:
     log("batched path (device_batch=16): " + json.dumps(
         {k: {"wall_s": r["wall_s"], "events_per_s": r["events_per_s"],
              "n_passed": r["n_passed"], "device_dispatches": r["device_dispatches"],
-             "per_window_dispatches": r["per_window_dispatches"]}
+             "per_window_dispatches": r["per_window_dispatches"],
+             "stage_upload_bytes": r["uploads"]["step_bytes"],
+             "upload_bytes": r["uploads"]["bytes"]}
          for k, r in batched.items()}))
     log(card)
     log(json.dumps({"kernels": kernels}))

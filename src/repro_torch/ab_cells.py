@@ -1,6 +1,7 @@
 """Run the port's cells in one source tree and print what they measure.
 
     python3 src/repro_torch/ab_cells.py [--src DIR] [--label NAME] [--out FILE]
+                                        [--cells NAME,...]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is measured
 (default: this file's own tree), so one command can measure a parent
@@ -8,20 +9,24 @@ commit unpacked beside the change: run it on the parent, the change, the
 change and the parent, each in its own process, on one card.  The cells
 are ``chip_smoke.py``'s (taken from this file's tree): the quickstart and
 Z->ee queries on the 1,000,000-event NanoAOD-like store and the HT query
-on the conditions-era store, each per window and with ``device_batch=16``.
-Stores are built from their seeds once and saved under ``--stores``; the
-next process loads them.
+on the conditions-era store, each per window and with ``device_batch=16``
+(cells ``quickstart``, ``quickstart-batched``, ``zee``, ``zee-batched``,
+``era``, ``era-batched``; ``--cells`` runs only the ones it names, so a
+process can run one cell alone).  Stores are built from their seeds once
+and saved under ``--stores``; the next process loads them.
 
 Per cell it reports the medians of ``--reps`` runs' ``Breakdown`` stages
 (decompress, deserialize, filter, write) and wall, and the survivors;
 after every cell's timed runs, from one more run, untimed,
 ``ops.launch_counts()``, ``ops.dispatch_stats()``, the fetch rounds and
 (in a tree that decodes by rounds) the rounds that sent a bitpack miss to
-the card, and the host-to-device and device-to-host copies
-``torch.profiler`` saw in one run more.  Then the per-window skim's cost per call at window 0 of the
-quickstart query's first stage: ``neardata.fused_window_skim`` from
-decoded columns to survivor rows, the kernel wrapper alone, and the parts
-of the wrapper timed one at a time.  One JSON object per line goes to
+the card, the host-to-device copies and bytes of that run, in all and
+inside the cascade stage steps (``chip_smoke.count_uploads``), and the
+host-to-device and device-to-host copies ``torch.profiler`` saw in one
+run more.  When every cell runs, then the per-window skim's cost per
+call at window 0 of the quickstart query's first stage:
+``neardata.fused_window_skim`` from decoded columns to survivor rows, the
+kernel wrapper alone, and the parts of the wrapper timed one at a time.  One JSON object per line goes to
 ``--out``; needs one card.
 """
 
@@ -111,7 +116,9 @@ def ledger_cell(cs, query, store, **kw) -> dict:
     by_round = hasattr(store, "_decode_round_uncached")  # the parent has none
     if by_round:
         counts, restore = cs.count_calls(store)
+    uploads, restore_uploads = cs.count_uploads()
     run_skim(store, query, **kw)
+    restore_uploads()
     launches, dispatch = ops.launch_counts(), ops.dispatch_stats()
     del store.fetch_window
     rounds = {"fetch": fetch["rounds"],
@@ -119,7 +126,7 @@ def ledger_cell(cs, query, store, **kw) -> dict:
     if by_round:
         restore()
     return {"launches": {k: v for k, v in launches.items() if v},
-            "dispatch_stats": dispatch, "rounds": rounds,
+            "dispatch_stats": dispatch, "rounds": rounds, "uploads": uploads,
             "copies": copy_counts(lambda: run_skim(store, query, **kw))}
 
 
@@ -199,6 +206,8 @@ def main() -> int:
     ap.add_argument("--stores", default=str(ROOT / "_local" / "stores"))
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "ab_cells.jsonl"))
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--cells", default=None,
+                    help="comma-separated cells to run (default: all six)")
     args = ap.parse_args()
     here = str(Path(__file__).resolve().parent)
     sys.path[:] = [x for x in sys.path if x != here]
@@ -221,12 +230,20 @@ def main() -> int:
              ("era", cs.ERA_QUERY, era)]
     runs = [(label, query, store, kw) for label, query, store in cells
             for kw in ({}, {"device_batch": 16})]
+    if args.cells:
+        want = args.cells.split(",")
+        names = [label + ("-batched" if kw else "") for label, _q, _s, kw in runs]
+        unknown = set(want) - set(names)
+        if unknown:
+            ap.error(f"unknown cells {sorted(unknown)}: choose from {names}")
+        runs = [r for r, name in zip(runs, names) if name in want]
     # every timed run first: a profiler session (copy counts) or the
     # ledger's counting wrappers before a timed run can change its timing
     records = [{"cell": label, "path": "batched" if kw else "per-window",
                 **time_cell(query, store, args.reps, **kw)}
                for label, query, store, kw in runs]
-    records.append({"wrapper": wrapper_costs(cs, nano)})
+    if not args.cells:
+        records.append({"wrapper": wrapper_costs(cs, nano)})
     for rec, (_, query, store, kw) in zip(records, runs):
         rec.update(ledger_cell(cs, query, store, **kw))
     smi = subprocess.run(

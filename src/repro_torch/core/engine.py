@@ -232,15 +232,29 @@ def _decode_branches(
         else "decode"
     )
     dsid = tr.begin("decode", kind=dkind)
+    # the round replays the JAX package's decode calls in its order, so
+    # the decoded-basket LRU sees the same lookups: each branch's
+    # baskets, then, for a jagged basket that starts before `start`, the
+    # read of its leading counts (read_flat: one call per counts basket)
+    calls: list = []
+    first: dict[str, int] = {}  # branch -> its call
+    leads: dict = {}  # (branch, basket start) -> (first call, counts baskets)
+    for name in order:
+        first[name] = len(calls)
+        calls.append((name, [blob for _, blob in window[name]]))
+        br = store.branches[name]
+        for meta, _ in window[name] if br.jagged else ():
+            if meta.first_entry < start:
+                lead = store.fetch_range(br.counts_branch, meta.first_entry, start)
+                leads[(name, meta.first_entry)] = (len(calls), lead)
+                calls.extend((br.counts_branch, [blob]) for _, blob in lead)
     # the whole round decodes at once: one kernel launch on the card
     with _Timer(breakdown, "decompress"):
-        round_vals = store.decode_round(
-            {name: [blob for _, blob in window[name]] for name in order}
-        )
+        decoded_calls = store.decode_calls(calls)
     for name in order:
         blobs = window[name]
         parts = []
-        decoded = round_vals[name]
+        decoded = decoded_calls[first[name]]
         with _Timer(breakdown, "deserialize"):
             br = store.branches[name]
             for (meta, _), vals in zip(blobs, decoded):
@@ -255,12 +269,14 @@ def _decode_branches(
                     b1 = min(stop, meta.first_entry + meta.n_entries)
                     gc = counts[b0 - start : b1 - start].astype(np.int64)
                     # leading events of this basket that precede `start`
+                    lead = 0
                     if meta.first_entry < start:
-                        lead = store.read_flat(
-                            br.counts_branch, meta.first_entry, start
-                        ).astype(np.int64).sum()
-                    else:
-                        lead = 0
+                        c, lead_baskets = leads[(name, meta.first_entry)]
+                        for k, (m, _) in enumerate(lead_baskets):
+                            lo = max(meta.first_entry - m.first_entry, 0)
+                            hi = min(start - m.first_entry, m.n_entries)
+                            lead += int(decoded_calls[c + k][0][lo:hi]
+                                        .astype(np.int64).sum())
                     parts.append(vals[lead : lead + gc.sum()])
             data[name] = (
                 np.concatenate(parts)

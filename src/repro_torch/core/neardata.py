@@ -65,6 +65,7 @@ def build_padded_inputs(
     include_index: bool = False,
     to_device: bool = True,
     device=None,
+    out: tuple | None = None,
 ) -> PaddedBatch:
     """Build dense kernel inputs from columnar (host) data.
 
@@ -82,6 +83,8 @@ def build_padded_inputs(
 
     ``to_device=True`` returns tensors on ``device`` (the card unless the
     caller asks for the CPU); ``False`` keeps the numpy host buffers.
+    ``out`` gives zeroed (T, E, K), (G, E, K), (G, E, K) views to fill in
+    place of new arrays (the batched cascade's staging buffer).
     """
     flat_names = [n for n in data if not (store.branches.get(n) and store.branches[n].jagged)]
     n_events = len(data[flat_names[0]])
@@ -91,9 +94,12 @@ def build_padded_inputs(
     # preallocate and fill views in place: flat branches touch only slot 0
     # of their zero pages, jagged branches scatter exactly once — this is
     # the per-window hot path of the fused executor
-    terms = np.zeros((T, n_events, K), np.float32)
-    valid = np.zeros((G, n_events, K), np.float32)
-    weights = np.zeros((G, n_events, K), np.float32)
+    if out is None:
+        terms = np.zeros((T, n_events, K), np.float32)
+        valid = np.zeros((G, n_events, K), np.float32)
+        weights = np.zeros((G, n_events, K), np.float32)
+    else:
+        terms, valid, weights = out
 
     values_cache: dict[str, np.ndarray] = {}  # scatter each branch once
 

@@ -831,14 +831,16 @@ class CascadeExecutor:
         grow-only pow2 buckets).  The survivor masks live on the stage's
         device as bit-packed int32 words between stages, and each stage
         updates them in place (the JAX package donates the buffer
-        instead).  Per stage the staged ``terms``/``valid``/``weights`` go
-        up in one copy each, and one (B, nb + 1) buffer of basket-alive
-        bits and counts comes back — it drives the *next* stage's
-        alive-span fetch, so dead baskets are never re-staged.  The full
-        event masks cross back exactly once, at the window-ledger
-        boundary (batch end).  Fetch accounting is per window through
-        each entry's own stats + ledger, identical to the per-window
-        path.
+        instead).  Per stage only the windows with a live event are
+        staged (:class:`repro_torch.kernels.ops.CascadeInputs`: their
+        ``terms``/``valid``/``weights`` planes and a row table, in one
+        page-locked buffer on the card) and go up in one copy, and one
+        (B, nb + 1) buffer of basket-alive bits and counts comes back — it
+        drives the *next* stage's alive-span fetch, so dead baskets are
+        never re-staged.  The full event masks cross back exactly once, at
+        the window-ledger boundary (batch end).  Fetch accounting is per
+        window through each entry's own stats + ledger, identical to the
+        per-window path.
 
         Backends: ``"cuda"`` runs the CUDA kernel on the executor's
         device, ``"torch"`` its plain version there, ``"host"`` the plain
@@ -960,30 +962,31 @@ class CascadeExecutor:
             K_b = max(self._stage_K.get(si, 1), K_req)
             self._stage_K[si] = K_b
 
-            # -- stage the batch tensors (zeros outside alive spans) -----
-            T, G = stage.program.n_terms, stage.program.n_groups
-            terms = np.zeros((Bn, T, pad_E, K_b), np.float32)
-            valid = np.zeros((Bn, G, pad_E, K_b), np.float32)
-            weights = np.zeros((Bn, G, pad_E, K_b), np.float32)
-            for b in alive:
-                for off, n, sdata in staged[b]:
-                    pb = nd.build_padded_inputs(
-                        sdata, stage.program, store, K=K_b, to_device=False
-                    )
-                    terms[b, :, off : off + n, :] = pb.terms
-                    valid[b, :, off : off + n, :] = pb.valid
-                    weights[b, :, off : off + n, :] = pb.weights
-
             # warm the step per shape bucket OUTSIDE the stage timers:
             # measured filter time is steady-state dispatch
+            T, G = stage.program.n_terms, stage.program.n_groups
             ops.warm_cascade_stage(
                 stage.program, (Bn, T, pad_E, K_b), nb,
                 backend=backend, device=device,
             )
 
+            # -- stage the windows the stage runs, straight into the
+            # (page-locked, on the card) buffer the step uploads: a
+            # window's planes are zeroed, then its alive spans filled
+            inputs = ops.CascadeInputs((Bn, T, pad_E, K_b), G, alive, device)
+            for s, b in enumerate(alive):
+                inputs.planes[s] = 0.0
+                t_s, v_s, w_s = inputs.window(s)
+                for off, n, sdata in staged[b]:
+                    nd.build_padded_inputs(
+                        sdata, stage.program, store, K=K_b, to_device=False,
+                        out=(t_s[:, off : off + n], v_s[:, off : off + n],
+                             w_s[:, off : off + n]),
+                    )
+
             t0 = _time.perf_counter()
             packed, summary = ops.cascade_stage_step(
-                terms, valid, weights, packed, seg_ids,
+                inputs, packed, seg_ids,
                 stage.program, nb, backend=backend, device=device,
             )
             basket_bits, counts_new = ops.stage_summary_host(summary)

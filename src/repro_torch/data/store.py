@@ -700,33 +700,36 @@ class EventStore:
             self._decode_backend_resolved = backend
         return self._decode_backend_resolved
 
-    def _decode_round_uncached(self, blobs: dict) -> dict:
-        """Backend-dispatched decode of a round, ``{branch: [blob, ...]}``
-        (no cache).
+    def _decode_round_uncached(self, calls: list) -> list:
+        """Backend-dispatched decode of a round's calls, ``[(branch,
+        [blob, ...]), ...]`` (no cache); returns one list of arrays per call.
 
         The device tier covers the bitpack codec only, and decodes the
-        whole round in one call; other codecs fall back to the host
-        reference, counted in ``decode_fallbacks``.  An error of the
-        device decode itself is raised, never hidden behind the host path.
-        Both tiers are bit-identical by the codec contract."""
-        dtypes = {name: self.branches[name].np_dtype() for name in blobs}
-        n = sum(len(bs) for bs in blobs.values())
+        whole round in one call, noting each call's (codec kind) groups in
+        the dispatch ledger as the JAX package notes one ``decode_blobs``;
+        other codecs fall back to the host reference, counted in
+        ``decode_fallbacks``.  An error of the device decode itself is
+        raised, never hidden behind the host path.  Both tiers are
+        bit-identical by the codec contract."""
+        n = sum(len(bs) for _, bs in calls)
         backend = self.resolved_decode_backend()
         if backend == "device" and n:
             if self.codec == "bitpack":
                 vals = decode_basket_round(
-                    blobs, self.codec, dtypes, backend="device",
-                    device=self.resolved_device(),
+                    {c: bs for c, (_, bs) in enumerate(calls)}, self.codec,
+                    {c: self.branches[name].np_dtype()
+                     for c, (name, _) in enumerate(calls)},
+                    backend="device", device=self.resolved_device(),
                 )
                 with self._decode_lock:
                     self.decode_device_baskets += n
-                return vals
+                return [vals[c] for c in range(len(calls))]
             with self._decode_lock:
                 self.decode_fallbacks += n
         with self._decode_lock:
             self.decode_host_baskets += n
-        return {name: [decode_basket(blob, self.codec, dtypes[name]) for blob in bs]
-                for name, bs in blobs.items()}
+        return [[decode_basket(blob, self.codec, self.branches[name].np_dtype())
+                 for blob in bs] for name, bs in calls]
 
     def decode_blob(self, name: str, blob: bytes) -> np.ndarray:
         """Decode one basket blob, memoized through a small per-store LRU.
@@ -742,57 +745,72 @@ class EventStore:
 
     def decode_blobs(self, name: str, blobs: list) -> list:
         """Decode a list of basket blobs for one branch: a round of one
-        branch (:meth:`decode_round`)."""
-        return self.decode_round({name: blobs})[name]
+        call (:meth:`decode_calls`)."""
+        return self.decode_calls([(name, blobs)])[0]
 
     def decode_round(self, blobs: dict) -> dict:
-        """Decode a fetch round, ``{branch: [blob, ...]}``, through the
-        decoded-basket LRU; returns ``{branch: [array, ...]}``.
+        """Decode a fetch round, ``{branch: [blob, ...]}``, as one
+        :meth:`decode_calls` round of one call per branch, in the dict's
+        order; returns ``{branch: [array, ...]}``."""
+        return dict(zip(blobs, self.decode_calls(list(blobs.items()))))
 
-        The LRU sees exactly what one :meth:`decode_blobs`-style pass per
-        branch, in the round's order, would make it see — the same
-        lookups, hits, misses, byte counters, insertions, evictions and
-        freezing — but the misses of every branch decode together
-        (:meth:`_decode_round_uncached`), so a device-backed store pays one
-        kernel launch per fetch round instead of one per branch.  A miss
-        holds its slot with a placeholder until the round's values arrive;
-        another thread that meets the placeholder counts a miss and
+    def decode_calls(self, calls: list) -> list:
+        """Decode a fetch round given as a sequence of :meth:`decode_blobs`
+        calls, ``[(branch, [blob, ...]), ...]``, through the decoded-basket
+        LRU; returns one list of arrays per call.  A branch may come more
+        than once (the engine's read of a jagged basket's leading counts).
+
+        The LRU sees exactly what one :meth:`decode_blobs` per call, in
+        order, would make it see — the same lookups, hits, misses, byte
+        counters, insertions, evictions and freezing — but the misses of
+        every call decode together (:meth:`_decode_round_uncached`), so a
+        device-backed store pays one kernel launch per fetch round.  A
+        miss holds its slot with a placeholder until the round's values
+        arrive.  A later call of the same round that meets that
+        placeholder counts the hit the inserted values would have given,
+        and shares them; another thread that meets it counts a miss and
         decodes the basket itself, as it would have before the insert.
         """
         if self.decode_cache_baskets <= 0:
-            return self._decode_round_uncached({n: list(bs) for n, bs in blobs.items()})
-        out = {name: [None] * len(bs) for name, bs in blobs.items()}
-        misses: dict[str, list[int]] = {}
+            return self._decode_round_uncached([(n, list(bs)) for n, bs in calls])
+        out = [[None] * len(bs) for _, bs in calls]
+        misses: list[list[int]] = []
+        shared = []  # (call, index, key): hits on this round's placeholders
         pending = object()  # this round's placeholder
         with self._decode_lock:
-            for name, bs in blobs.items():
-                miss = misses[name] = []
+            for c, (name, bs) in enumerate(calls):
+                miss = []
                 for i, blob in enumerate(bs):
                     cached = self._decode_cache.get((name, blob))
-                    if isinstance(cached, np.ndarray):
+                    if cached is pending or isinstance(cached, np.ndarray):
                         self._decode_cache.move_to_end((name, blob))
                         self.decode_cache_hits += 1
-                        self.decode_cache_hit_bytes += cached.nbytes
-                        out[name][i] = cached
+                        if cached is pending:
+                            shared.append((c, i, (name, blob)))
+                        else:
+                            self.decode_cache_hit_bytes += cached.nbytes
+                            out[c][i] = cached
                     else:
                         self.decode_cache_misses += 1
                         miss.append(i)
+                misses.append(miss)
                 for i in miss:
                     self._decode_cache[(name, bs[i])] = pending
                     self._decode_cache.move_to_end((name, bs[i]))
                 while len(self._decode_cache) > self.decode_cache_baskets:
                     self._decode_cache.popitem(last=False)
-        todo = {name: [blobs[name][i] for i in miss]
-                for name, miss in misses.items() if miss}
+        todo = [(name, [bs[i] for i in miss]) for (name, bs), miss in zip(calls, misses)]
         decoded = None
         try:
-            decoded = self._decode_round_uncached(todo) if todo else {}
+            decoded = (self._decode_round_uncached(todo) if any(misses)
+                       else [[] for _ in calls])
         finally:
             with self._decode_lock:
-                for name, miss in misses.items():
-                    vals_list = None if decoded is None else decoded[name] if miss else []
+                values = {}  # key -> this round's decoded array
+                for (name, bs), miss, vals_list, o in zip(
+                        calls, misses, decoded or [None] * len(calls), out):
                     for j, i in enumerate(miss):
-                        key = (name, blobs[name][i])
+                        key = (name, bs[i])
                         if vals_list is None:  # the decode raised
                             if self._decode_cache.get(key) is pending:
                                 del self._decode_cache[key]
@@ -803,7 +821,11 @@ class EventStore:
                         self.decode_cache_miss_bytes += vals.nbytes
                         if self._decode_cache.get(key) is pending:
                             self._decode_cache[key] = vals
-                        out[name][i] = vals
+                        o[i] = values.setdefault(key, vals)
+                if decoded is not None:
+                    for c, i, key in shared:
+                        out[c][i] = values[key]
+                        self.decode_cache_hit_bytes += values[key].nbytes
         return out
 
     def decode_backend_stats(self) -> dict:

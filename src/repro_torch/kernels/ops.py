@@ -373,34 +373,101 @@ def _stage_device(backend: str, device) -> torch.device:
     return device
 
 
-def _cascade_stage(terms, valid, weights, packed, seg_ids, program, nb, backend):
-    stage = _pe.cascade_stage if backend == "cuda" else _pe.cascade_stage_plain
-    return stage(terms, valid, weights, packed, seg_ids, program, nb)
+class CascadeInputs:
+    """A cascade stage's inputs as the batched executor stages them: only
+    the windows the stage runs, one buffer for :func:`cascade_stage_step`
+    to upload in one copy.
+
+    ``shape`` is the dense batch the inputs stand for, (Bn, T, E, K);
+    ``rows`` the batch row of each staged window (distinct, in [0, Bn)).
+    The buffer holds the row table (int32, padded to 16 bytes), then each
+    staged window's T term planes and its G valid and G weights planes,
+    (E, K) float32 each: :attr:`planes` is its (S, T + 2G, E, K) numpy
+    view, :meth:`window` one window's three parts.  The planes come
+    uninitialised; the filler zeroes what it does not write.  For a stage
+    on the card the buffer is this thread's page-locked staging buffer,
+    so it stays valid until this thread's next ``CascadeInputs`` on that
+    device: stage, then step, in one thread (as the executor does).
+    """
+
+    def __init__(self, shape, n_groups: int, rows, device=None):
+        Bn, T, E, K = (int(x) for x in shape)
+        self.shape = (Bn, T, E, K)
+        self.n_groups = G = int(n_groups)
+        self.rows = np.asarray(rows, np.int32).reshape(-1)
+        S = len(self.rows)
+        if len(set(self.rows.tolist())) != S or (S and not (
+                0 <= self.rows.min() and self.rows.max() < Bn)):
+            raise ValueError(f"staged rows {self.rows.tolist()} are not distinct "
+                             f"rows of a batch of {Bn}")
+        self.head = (S + 3) & ~3  # the row table, padded to 16 bytes
+        n = self.head + S * (T + 2 * G) * E * K
+        device = torch.device("cpu" if device is None else device)
+        if device.type == "cuda":
+            self.host = _STAGING.buffer(device, "cascade in", n, torch.int32, pinned=True)
+        else:
+            self.host = torch.empty(n, dtype=torch.int32)
+        raw = self.host.numpy()
+        raw[:S] = self.rows
+        self.planes = raw[self.head:].view(np.float32).reshape(S, T + 2 * G, E, K)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes one upload moves: the row table and the staged planes."""
+        return 4 * self.host.numel()
+
+    def window(self, s: int):
+        """Staged window ``s``'s (terms (T,E,K), valid (G,E,K), weights
+        (G,E,K)) views into the buffer."""
+        T, G = self.shape[1], self.n_groups
+        w = self.planes[s]
+        return w[:T], w[T:T + G], w[T + G:]
+
+    def views(self, buf: torch.Tensor):
+        """(planes (S, T+2G, E, K) float32, rows (S,) int32) of ``buf``,
+        this staging's buffer or its copy on a device."""
+        S = len(self.rows)
+        planes = buf[self.head:].view(torch.float32).view(self.planes.shape)
+        return planes, buf[:S]
+
+
+def _stage_windows(backend: str):
+    """The stage over staged windows: the kernel for ``"cuda"``, the plain
+    version for the other backends."""
+    return (_pe.cascade_stage_windows if backend == "cuda"
+            else _pe.cascade_stage_windows_plain)
 
 
 def warm_cascade_stage(program: Program, shape, nb: int, backend="cuda",
                        device="cuda") -> bool:
-    """Run the cascade step once on zeros for one shape bucket.
+    """Run the cascade step once for one shape bucket, on one staged
+    window of zeros with no live event.
 
-    Called by the executor OUTSIDE its stage timers on the first sight of
-    a ``(program, batch shape)`` signature, so the library load and the
-    first launch stay out of the measured ``filter`` time.  Returns True
-    when a warm-up actually ran.
+    Called by the executor OUTSIDE its stage timers before every stage
+    step; it runs on the first sight of a ``(program, batch shape)``
+    signature, so the library load and the first launch stay out of the
+    measured ``filter`` time.  On the card it also puts the program's
+    descriptors there, on every call (a stage of a new plan may share a
+    signature seen before), so the step's one upload is its inputs'.
+    Returns True when a warm-up actually ran.
     """
+    device = _stage_device(backend, device)
+    if backend == "cuda":
+        index = torch.cuda.current_device() if device.index is None else device.index
+        _sf.program_descriptor(program, torch.device("cuda", index))
     sig = _cascade_sig(program, shape, nb, backend)
     if sig in _SEEN_SIGNATURES:
         return False
-    device = _stage_device(backend, device)
     Bn, T, E, K = shape
     G = program.n_groups
 
     def zeros(*s, dtype=torch.float32):
         return torch.zeros(s, dtype=dtype, device=device)
 
-    _cascade_stage(
-        zeros(Bn, T, E, K), zeros(Bn, G, E, K), zeros(Bn, G, E, K),
+    _stage_windows(backend)(
+        zeros(1, T + 2 * G, E, K), zeros(1, dtype=torch.int32),
         zeros(Bn, E // 32, dtype=torch.int32), zeros(Bn, E, dtype=torch.int32),
-        program, nb, backend,
+        program, nb,
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -408,28 +475,34 @@ def warm_cascade_stage(program: Program, shape, nb: int, backend="cuda",
     return True
 
 
-def cascade_stage_step(terms, valid, weights, packed, seg_ids, program: Program,
+def cascade_stage_step(inputs: CascadeInputs, packed, seg_ids, program: Program,
                        nb: int, backend="cuda", device="cuda"):
     """The batched cascade stage: one device dispatch per (stage,
-    window-batch).
+    window-batch), over the windows ``inputs`` stages.
 
-    ``terms`` (B,T,E,K) and ``valid``/``weights`` (B,G,E,K) are host
-    (numpy) staging buffers, each uploaded in one copy; ``packed``
-    (B, E/32) int32 and ``seg_ids`` (B, E) int32 already live on the
-    stage's device.  ``backend`` is ``"cuda"`` (the kernel), ``"torch"``
-    (its plain version on ``device``) or ``"host"`` (the plain version on
-    the CPU).  ``packed`` is updated in place.  Returns ``(packed, out)``
-    with ``out`` (B, nb + 1) int32: basket bits, then each window's count
-    (:func:`stage_summary_host` reads both in one copy).
+    ``packed`` (Bn, E/32) int32 and ``seg_ids`` (Bn, E) int32 already live
+    on the stage's device.  On the card the staged buffer goes up in one
+    copy (page-locked memory, ``non_blocking``); then ``backend``
+    ``"cuda"`` launches the kernel over the staged windows only
+    (:func:`repro_torch.kernels.predicate_eval.cascade_stage_windows`),
+    ``"torch"`` runs its plain version on ``device``, and ``"host"`` the
+    plain version on the CPU.  ``packed`` is updated in place; rows not
+    staged keep their words.  Returns ``(packed, out)`` with ``out`` (Bn, nb
+    + 1) int32: basket bits, then each window's count, zeros for rows not
+    staged (:func:`stage_summary_host` reads both in one copy).  The
+    dispatch ledger notes the dense batch's shape, as the JAX package
+    does, whatever number of windows is staged.
     """
     device = _stage_device(backend, device)
-    _note_dispatch(_cascade_sig(program, terms.shape, nb, backend))
-
-    def up(x):
-        return torch.as_tensor(x, dtype=torch.float32).to(device)
-
-    return _cascade_stage(up(terms), up(valid), up(weights), packed, seg_ids,
-                          program, nb, backend)
+    _note_dispatch(_cascade_sig(program, inputs.shape, nb, backend))
+    stage = _stage_windows(backend)
+    if device.type != "cuda":
+        return stage(*inputs.views(inputs.host), packed, seg_ids, program, nb)
+    dev = _STAGING.buffer(device, "cascade in, card", inputs.host.numel(), torch.int32)
+    dev.copy_(inputs.host, non_blocking=True)
+    result = stage(*inputs.views(dev), packed, seg_ids, program, nb)
+    _STAGING.wait(device)  # the staging buffer is free for this thread again
+    return result
 
 
 def stage_summary_host(out) -> tuple[np.ndarray, np.ndarray]:
@@ -539,6 +612,7 @@ def flash_attention(q, k, v, causal=True, sm_scale=None, device=None):
 
 
 __all__ = [
+    "CascadeInputs",
     "Program",
     "basket_decode_batch",
     "basket_decode_round",

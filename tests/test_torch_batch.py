@@ -190,10 +190,13 @@ def test_stage_step_updates_the_mask_in_place_and_reads_back_once(backend):
         *(torch.from_numpy(x) for x in (terms, valid, weights)),
         carried.clone(), seg_t, prog, nb,
     )
+    inputs = tops.CascadeInputs(terms.shape, prog.n_groups, range(3))
+    for s in range(3):
+        for part, dense in zip(inputs.window(s), (terms, valid, weights)):
+            part[...] = dense[s]
     tops.reset_dispatch_stats()
     out, summary = tops.cascade_stage_step(
-        terms, valid, weights, carried, seg_t, prog, nb, backend=backend,
-        device="cpu",
+        inputs, carried, seg_t, prog, nb, backend=backend, device="cpu",
     )
     assert out is carried and torch.equal(carried, want[0])
     assert summary.shape == (3, nb + 1) and summary.dtype == torch.int32
@@ -202,7 +205,7 @@ def test_stage_step_updates_the_mask_in_place_and_reads_back_once(backend):
     np.testing.assert_array_equal(host_counts, want[2].numpy())
     assert tops.dispatch_stats() == {"dispatches": 1, "compiles": 1, "warmups": 0}
     with pytest.raises(ValueError):
-        tops.cascade_stage_step(terms, valid, weights, carried, seg_t, prog, nb,
+        tops.cascade_stage_step(inputs, carried, seg_t, prog, nb,
                                 backend="pallas", device="cpu")
 
 

@@ -131,6 +131,68 @@ def test_cuda_cascade_stage_and_predicate_eval_match_plain(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_cascade_stage_windows_match_plain(cuda_device):
+    """The kernel over staged windows only, bit for bit: K = 1, 8, 16, 64,
+    ragged E, B up to 16 with a subset staged, dead tiles, every copy mode."""
+    names = ("count", "ht", "mass_pair", "expr")
+    assert chip_smoke.check_cascade_stage_windows(
+        np.random.default_rng(0), cuda_device, names) == (0.0, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_stage_step_is_one_pinned_upload(cuda_device):
+    """``ops.cascade_stage_step`` moves the staged buffer in one
+    page-locked copy and launches one kernel over the staged windows."""
+    prog = dict(chip_smoke.sweep_programs())["ht"]
+    staged, packed, seg, nb = chip_smoke.staged_batch(
+        np.random.default_rng(3), prog, 16, 4096, 64, 4096, (0, 4, 8, 12))
+    inputs = ops.CascadeInputs(staged.shape, prog.n_groups, staged.rows, cuda_device)
+    inputs.host.copy_(staged.host)
+    assert inputs.host.is_pinned()
+    carried = torch.from_numpy(packed).to(cuda_device)
+    seg_t = torch.from_numpy(seg).to(cuda_device)
+    want_p, want = pe.cascade_stage_windows_plain(
+        *staged.views(staged.host.to(cuda_device)), carried.clone(), seg_t, prog, nb)
+    # as the executor does: the warm-up (outside the step) loads the
+    # library and uploads the program's descriptors
+    ops.reset_dispatch_stats()
+    assert ops.warm_cascade_stage(prog, inputs.shape, nb, device=cuda_device)
+    uploads, restore = chip_smoke.count_uploads()
+    ops.reset_launch_counts()
+    try:
+        got_p, got = ops.cascade_stage_step(inputs, carried, seg_t, prog, nb,
+                                            device=cuda_device)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["cascade_stage"] == 1
+    assert (uploads["calls"], uploads["step_uploads"], uploads["step_pageable"]) == (1, 1, 0)
+    assert uploads["step_bytes"] == inputs.nbytes
+    assert torch.equal(got_p, want_p) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_stage_with_no_live_event_writes_nothing(cuda_device):
+    """Staged windows whose mask words are all zero: the kernel launches,
+    every tile returns before its copies, the words stay zero and a row no
+    window is staged to keeps its live words."""
+    prog = dict(chip_smoke.sweep_programs())["count"]
+    inputs, packed, seg, nb = chip_smoke.staged_batch(
+        np.random.default_rng(4), prog, 4, 2048, 8, 512, (0, 1, 3), keep=(2,))
+    words = torch.from_numpy(packed).to(cuda_device)
+    words[[0, 1, 3]] = 0
+    before = words.clone()
+    planes, rows = inputs.views(inputs.host.to(cuda_device))
+    ops.reset_launch_counts()
+    _, out = pe.cascade_stage_windows(planes, rows, words,
+                                      torch.from_numpy(seg).to(cuda_device), prog, nb)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["cascade_stage"] == 1
+    assert torch.equal(words, before) and before[2].any()
+    assert not out.any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,E", [(0, 512), (2, 0)])
 def test_cuda_cascade_stage_with_no_events_launches_nothing(cuda_device, B, E):
     prog = dict(chip_smoke.sweep_programs())["count"]
