@@ -7,8 +7,9 @@ Phases, in order; the first failure stops the run with a non-zero exit:
 
 1. Device: the card's name and power limit (``nvidia-smi``), the torch
    and CUDA versions, then the build of every kernel from ``src/`` and,
-   beside it, of the parent's ``cascade_stage`` kernel the script keeps
-   as a timing baseline (:data:`PARENT_STAGE_CU`), and the attention
+   beside it, of the earlier designs of ``cascade_stage``,
+   ``predicate_eval`` and ``stream_compact`` the script keeps as timing
+   baselines (:data:`PARENT_CU`), and the attention
    library's SASS (``cuobjdump``): its bf16 route must hold ``HGMMA``
    (wgmma) and its float32 route tf32 ``HMMA`` (mma.sync).
 2. Kernels against their plain PyTorch versions, on the card:
@@ -19,18 +20,22 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    many tiles, one launch a call), ``cascade_stage`` and
    ``predicate_eval`` over every op and group kind (``cascade_stage``
    also over staged windows only: K = 1/8/16/64, a short last tile,
-   subsets of a batch staged, dead tiles, every copy mode, bit for bit),
-   ``stream_compact``
-   bit for bit over every payload width (NaN payloads, -0.0, integers
-   past 2^24), ``skim_fused_batch`` over every op and group kind, and
+   subsets of a batch staged, dead tiles, every copy mode, bit for bit;
+   ``predicate_eval`` at ragged E, in every copy mode and at
+   bench_kernels' E = 2^17 and 2^20), ``stream_compact`` bit for bit
+   over every payload width (NaN payloads, -0.0, integers past 2^24),
+   rows of a multiple of 16 bytes and not, buffers off 16-byte
+   alignment, ``skim_fused_batch`` over every op and group kind, and
    ``flash_attention`` at the JAX tests' shapes and at its edges (ragged
    S, a padded D, many heads), 3e-5 in float32, a few ulps in bf16.
    Then each skim kernel's median time beside its plain version's and
    its bound, at the shapes the main path gives it (window 0's decode
    rounds and skim calls; the batch of the first 16 windows), with the
    host-to-host time of a whole decode round, of a window's skim and of a
-   cascade stage step; ``cascade_stage`` beside the parent's kernel on
-   the same inputs and the parent's step (three pageable uploads).
+   cascade stage step; ``cascade_stage`` and ``predicate_eval`` beside
+   their earlier designs on the same inputs, the stage's earlier step
+   (three pageable uploads), and ``predicate_eval`` also at
+   bench_kernels' shapes.
 3. The main path: ``run_skim`` with every default on two 1,000,000-event
    stores — NanoAOD-like (98 branches) for the quickstart query and the
    Z->ee mass/ΔR/expression query, and the conditions-era store of
@@ -43,15 +48,18 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    run, with one page-locked host-to-device copy per stage step
    (:func:`count_uploads`); and the device busy share of each
    (``torch.profiler``).
-   Then the ops entry points of the three kernels no skim calls, at full
+   Then the ops entry points of the four kernels no skim calls, at full
    size, each with the launch counts set to 0 before it and read after:
-   ``ops.fused_skim_batch`` on each cell's first cascade stage over its
-   first 16 windows (equal per window to ``ops.fused_skim``),
+   ``ops.predicate_eval`` on each window of each cell's first cascade
+   stage over its first 16 windows, ``ops.fused_skim_batch`` on the same
+   batches (equal per window to ``ops.fused_skim``),
    ``ops.stream_compact`` of eight float32 branches by the quickstart
    cell's 1,000,000-event survivor mask, and ``ops.flash_attention`` at
    StarCoder2-7B's head layout (1, 36, 2048, 128) in float32 and bf16;
    then their times, beside one PyTorch call each where there is one
-   (and the kernels ``torch.profiler`` saw that call run).
+   (and the kernels ``torch.profiler`` saw that call run);
+   ``stream_compact`` also beside its earlier design, at bench_kernels'
+   shapes, and step by step through its wrapper.
 4. One JSON line listing each kernel, then the device line last.
 
 It imports ``repro_torch`` only (never JAX or the JAX package), needs one
@@ -1046,9 +1054,53 @@ def check_cascade_stage_windows(rng, device, names=None) -> tuple[float, int]:
     return max_err, edge
 
 
+# (B, E, K, shift) of check_predicate_eval's dense batches: ragged E, the
+# three copy modes (bulk where E*K % 4 == 0 and the buffer is aligned,
+# 4-byte cp.async where E*K % 4 != 0 or the buffer is shifted by a float,
+# device memory where a tile of the planes passes 200 KiB at K = 512)
+PREDICATE_CASES = ((1, 1, 4, 0), (1, 300, 4, 0), (1, 4097, 4, 0), (3, 300, 4, 0),
+                   (16, 4097, 4, 0), (2, 4097, 1, 0), (2, 301, 3, 0), (3, 1000, 8, 1),
+                   (2, 40, 512, 0))
+# benchmarks/bench_kernels.py's predicate benchmark: E = 2^17, K = 8, one
+# COUNT group pt > 20 and |eta| < 2.4 (T = 2, G = 1); and the same at the
+# 1,000,000-event store's scale
+PREDICATE_BENCH_E = (1 << 17, 1 << 20)
+
+
+def bench_predicate(rng, E: int, device):
+    """bench_kernels.py's predicate program and inputs at E events, K = 8:
+    (program, terms (2, E, 8), valid (1, E, 8), weights (1, E, 8))."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.program import GROUP_COUNT, OP_IDS, Group, Program
+
+    K = 8
+    program = Program(
+        (Group(GROUP_COUNT, (0, 1), (OP_IDS[">"], OP_IDS["abs<"]), (20.0, 2.4)),),
+        ("pt", "eta"), ("X",), (None,))
+    terms = rng.normal(20, 15, (2, E, K)).astype(np.float32)
+    valid = (rng.random((1, E, K)) < 0.4).astype(np.float32)
+    return program, *(torch.from_numpy(x).to(device)
+                      for x in (terms, valid, np.zeros((1, E, K), np.float32)))
+
+
+def shifted(x, shift: int):
+    """A contiguous copy of ``x`` that starts ``shift`` elements into its
+    allocation (so 4 * shift bytes off 16-byte alignment for float32)."""
+    raw = x.new_empty(x.numel() + shift)
+    out = raw[shift:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def check_predicate_eval(rng, device, names=None) -> tuple[float, int]:
-    """``predicate_eval`` (one window) at ragged E and
-    ``predicate_eval_batch`` at B in 3/16, against the plain versions."""
+    """``predicate_eval`` (one window) and ``predicate_eval_batch`` against
+    the plain versions over every sweep program at
+    :data:`PREDICATE_CASES` (ragged E; bulk copies, 4-byte cp.async on a
+    misaligned plane stride or buffer, device memory), then
+    bench_kernels' program at E = 2^17 and 2^20.  Fails unless all three
+    copy modes ran."""
     import torch
 
     from repro_torch.kernels import predicate_eval as pe
@@ -1056,40 +1108,63 @@ def check_predicate_eval(rng, device, names=None) -> tuple[float, int]:
 
     cases = edge = 0
     max_err = 0.0
+    modes = set()
+
+    def one(program, t, v, w):
+        nonlocal cases, edge, max_err
+        B, T, E, K = t.shape
+        G = v.shape[1]
+        modes.add(pe.mask_plan((t, v, w), (T * E * K, G * E * K), E, K, program)[1])
+        if B == 1:
+            got = pe.predicate_eval(t[0], v[0], w[0], program)[None]
+        else:
+            got = pe.predicate_eval_batch(t, v, w, program)
+        want = ref.predicate_eval_batch_ref(t, v, w, program)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and got.shape == want.shape,
+              f"predicate_eval {program.term_branches}: {got.dtype} {tuple(got.shape)}")
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        cases += 1
+        if err:
+            edge += _mask_edges(program, t, v, got, want)
+
     for name, program in sweep_programs():
         if names and name not in names:
             continue
-        for B, E in ((1, 1), (1, 300), (1, 4097), (3, 300), (16, 4097)):
-            host = batch_inputs(rng, program, B, E, 4, 128)
-            t, v, w = (torch.from_numpy(x).to(device) for x in host[:3])
-            if B == 1:
-                got = pe.predicate_eval(t[0], v[0], w[0], program)[None]
-            else:
-                got = pe.predicate_eval_batch(t, v, w, program)
-            want = ref.predicate_eval_batch_ref(t, v, w, program)
-            torch.cuda.synchronize()
-            check(got.dtype == torch.int32 and got.shape == want.shape,
-                  f"predicate_eval {name}: {got.dtype} {tuple(got.shape)}")
-            err = float((got - want).abs().max())
-            max_err = max(max_err, err)
-            cases += 1
-            if err:
-                edge += _mask_edges(program, t, v, got, want)
-    log(f"  predicate_eval: {cases} cases (every sweep program, one window at "
-        "E = 1/300/4097, batches of 3 and 16 at E = 300/4097); equal to the "
-        f"plain version except {edge} events at a mass/ΔR cut's edge; "
-        f"max |err| {max_err}")
+        for B, E, K, shift in PREDICATE_CASES:
+            host = batch_inputs(rng, program, B, E, K, 128)
+            one(program, *(shifted(torch.from_numpy(x).to(device), shift)
+                           for x in host[:3]))
+    for E in PREDICATE_BENCH_E:
+        program, t, v, w = bench_predicate(rng, E, device)
+        one(program, t[None], v[None], w[None])
+    check(modes == {pe.MODE_BULK, pe.MODE_ASYNC4, pe.MODE_DIRECT},
+          f"predicate_eval: copy modes {sorted(modes)} run, not all three")
+    log(f"  predicate_eval: {cases} cases (every sweep program, one window and "
+        "batches of 2/3/16 at E = 1/40/300/301/1000/4097, K = 1/3/4/8/512: bulk "
+        "copies, 4-byte cp.async on a misaligned stride or a shifted buffer, device "
+        "memory; bench_kernels' program at E = 2^17 and 2^20, K = 8); equal to the "
+        f"plain version except {edge} events at a mass/ΔR cut's edge; max |err| "
+        f"{max_err}")
     return max_err, edge
 
 
 # ---------------------------------------------------------------------------
-# the parent's cascade_stage kernel, kept as the baseline the redesigned one
-# is timed against in the same run: one thread an event reading its own
-# K-slot rows of dense (B, T, E, K) inputs from device memory (the kernel
-# of csrc/predicate_eval.cu before the staged-window redesign)
+# the earlier designs of three kernels, kept as the baselines the redesigned
+# ones are timed against in the same run, each with a plain C interface:
+#  * parent_stage_launch: the cascade stage with one thread an event reading
+#    its own K-slot rows of dense (B, T, E, K) inputs from device memory
+#    (csrc/predicate_eval.cu before the staged-window redesign);
+#  * parent_mask_launch: the (B, E) mask the same way, one thread an event
+#    (predicate_eval_launch before it took the stage kernel's evaluator);
+#  * parent_compact_launch: stream_compact in two kernels, a ballot pass
+#    and a copy pass in which every block sums every tile's count and one
+#    thread copies its own row (csrc/stream_compact.cu before the
+#    single-pass redesign; its compact.cuh inlined here)
 # ---------------------------------------------------------------------------
 
-PARENT_STAGE_CU = r"""
+PARENT_CU = r"""
 #include "predicate.cuh"
 namespace {
 constexpr int kTile = 512;
@@ -1123,6 +1198,85 @@ __global__ void cascade_stage_kernel(Program p, Inputs batch, int T,
     if (total) atomicAdd(row + nb, total);
   }
 }
+__global__ void predicate_eval_kernel(Program p, Inputs batch, int T,
+                                      int* __restrict__ out) {
+  const long long b = blockIdx.y;
+  const long long e = (long long)blockIdx.x * kTile + threadIdx.x;
+  if (e >= batch.E) return;
+  out[b * batch.E + e] =
+      eval_event(p, e, window_inputs(batch, b, T, p.G)) ? 1 : 0;
+}
+template <typename M>
+__global__ void compact_mask_kernel(const M* __restrict__ mask, long long E,
+                                    uint32_t* words, int* tile_counts) {
+  __shared__ int warp_counts[kWarps];
+  const long long e = (long long)blockIdx.x * kTile + threadIdx.x;
+  const bool keep = e < E && mask[e] != M(0);
+  const uint32_t ballot = __ballot_sync(0xffffffffu, keep);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    warp_counts[warp] = __popc(ballot);
+    if (e < E) words[e >> 5] = ballot;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < kWarps; ++w) total += warp_counts[w];
+    tile_counts[blockIdx.x] = total;
+  }
+}
+__device__ __forceinline__ int block_sum(int v, int* scratch) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  int total = 0;
+  for (int w = 0; w < kWarps; ++w) total += scratch[w];
+  return total;
+}
+template <typename U>
+__global__ void compact_rows_kernel(const U* __restrict__ payload,
+                                    const uint32_t* __restrict__ words,
+                                    const int* __restrict__ tile_counts,
+                                    int n_tiles, long long E, int D,
+                                    U* __restrict__ out, int* total_out) {
+  __shared__ int scratch[kWarps];
+  __shared__ int warp_rank[kWarps];
+  const int tile = blockIdx.x;
+  int before = 0, all = 0;
+  for (int t = threadIdx.x; t < n_tiles; t += kTile) {
+    const int c = tile_counts[t];
+    all += c;
+    if (t < tile) before += c;
+  }
+  before = block_sum(before, scratch);
+  all = block_sum(all, scratch);
+  const long long e = (long long)tile * kTile + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t word = e < E ? words[e >> 5] : 0u;
+  if (lane == 0) warp_rank[warp] = __popc(word);
+  __syncthreads();
+  int rank = __popc(word & ((1u << lane) - 1u));
+  for (int w = 0; w < warp; ++w) rank += warp_rank[w];
+  if (e < E && ((word >> lane) & 1u)) {
+    const long long dst = (long long)(before + rank) * D;
+    for (int d = 0; d < D; ++d) out[dst + d] = payload[e * D + d];
+  }
+  if (e < E && e >= all) {
+    for (int d = 0; d < D; ++d) out[e * D + d] = U(0);
+  }
+  if (tile == 0 && threadIdx.x == 0) *total_out = all;
+}
+template <typename U>
+cudaError_t launch_rows(const void* payload, const uint32_t* words,
+                        const int* tile_counts, int n_tiles, long long E, int D,
+                        void* out, int* total, cudaStream_t s) {
+  compact_rows_kernel<U><<<n_tiles, kTile, 0, s>>>(
+      static_cast<const U*>(payload), words, tile_counts, n_tiles, E, D,
+      static_cast<U*>(out), total);
+  return cudaGetLastError();
+}
 }  // namespace
 extern "C" int parent_stage_launch(
     const float* terms, const float* valid, const float* weights, int B,
@@ -1140,24 +1294,60 @@ extern "C" int parent_stage_launch(
   cascade_stage_kernel<<<grid, kTile, 0, s>>>(p, batch, T, packed, seg_ids, nb, out);
   return (int)cudaGetLastError();
 }
+extern "C" int parent_mask_launch(
+    const float* terms, const float* valid, const float* weights, int B,
+    int T, int G, long long E, int K, const int* groups, const int* term_ids,
+    const int* ops, const float* thrs, const float* cmp_thrs,
+    const int* rpn_op, const int* rpn_term, const float* rpn_const, int* out,
+    void* stream) {
+  Program p{groups, term_ids, ops, thrs, cmp_thrs, rpn_op, rpn_term, rpn_const, G};
+  Inputs batch{terms, valid, weights, E, K};
+  const dim3 grid((unsigned)((E + kTile - 1) / kTile), (unsigned)B);
+  predicate_eval_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, batch, T, out);
+  return (int)cudaGetLastError();
+}
+extern "C" int parent_compact_launch(const void* payload, const void* mask,
+                                     int mask_bytes, long long E, int D,
+                                     int elem_bytes, uint32_t* words,
+                                     int* tile_counts, void* out, int* total,
+                                     void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (int)((E + kTile - 1) / kTile);
+  if (mask_bytes == 1) {
+    compact_mask_kernel<uint8_t><<<n_tiles, kTile, 0, s>>>(
+        static_cast<const uint8_t*>(mask), E, words, tile_counts);
+  } else {
+    compact_mask_kernel<int32_t><<<n_tiles, kTile, 0, s>>>(
+        static_cast<const int32_t*>(mask), E, words, tile_counts);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  switch (elem_bytes) {
+    case 1: return (int)launch_rows<uint8_t>(payload, words, tile_counts, n_tiles, E, D, out, total, s);
+    case 2: return (int)launch_rows<uint16_t>(payload, words, tile_counts, n_tiles, E, D, out, total, s);
+    case 4: return (int)launch_rows<uint32_t>(payload, words, tile_counts, n_tiles, E, D, out, total, s);
+    default: return (int)launch_rows<uint64_t>(payload, words, tile_counts, n_tiles, E, D, out, total, s);
+  }
+}
 """
 
 
 def start_parent_build():
-    """Start ``nvcc`` on :data:`PARENT_STAGE_CU` (beside the package's
-    builds, which run at the same time); returns (process, library path)."""
+    """Start ``nvcc`` on :data:`PARENT_CU` (beside the package's builds,
+    which run at the same time); returns (process, library path)."""
     import hashlib
 
     from repro_torch.kernels import _build
 
-    digest = hashlib.sha256(PARENT_STAGE_CU.encode() + (
+    digest = hashlib.sha256(PARENT_CU.encode() + (
         _build._CSRC / "predicate.cuh").read_bytes()).hexdigest()[:16]
-    lib = _build.build_dir() / f"parent_stage-{digest}.so"
+    lib = _build.build_dir() / f"parent-{digest}.so"
     if lib.exists():
         return None, lib
     _build.build_dir().mkdir(parents=True, exist_ok=True)
     src = lib.with_suffix(".cu")
-    src.write_text(PARENT_STAGE_CU)
+    src.write_text(PARENT_CU)
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build._CSRC), "-o",
            str(lib), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -1165,36 +1355,73 @@ def start_parent_build():
 
 
 def finish_parent_build(proc, lib):
-    """Wait for :func:`start_parent_build`; returns
-    ``parent_stage(terms, valid, weights, packed, seg_ids, program, nb) ->
-    out`` (``packed`` updated in place)."""
+    """Wait for :func:`start_parent_build`; returns the three baselines,
+    each called as the wrapper it stood behind was, wrapper work and all:
+    ``.stage(terms, valid, weights, packed, seg_ids, program, nb) -> out``
+    (``packed`` updated in place), ``.mask(terms, valid, weights, program)
+    -> (B, E) int32`` and ``.compact(payload, mask) -> (packed, count)``
+    (four allocations a call, as its wrapper made; its argument checks,
+    the same as today's, left out)."""
     import ctypes
+    from types import SimpleNamespace
 
     import torch
 
     from repro_torch.kernels import _build
     from repro_torch.kernels import predicate_eval as pe
+    from repro_torch.kernels.skim_fused import program_args
 
     if proc is not None:
         out, err = proc.communicate()
-        check(proc.returncode == 0, f"nvcc failed on the parent's kernel:\n{out}{err}")
-    fn = ctypes.CDLL(str(lib)).parent_stage_launch
-    pv, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [pv, pv, pv, i, i, i, ctypes.c_longlong, i, *([pv] * 8),
-                   pv, pv, i, pv, pv]
-    fn.restype = ctypes.c_int
+        check(proc.returncode == 0, f"nvcc failed on the parent's kernels:\n{out}{err}")
+    lib = ctypes.CDLL(str(lib))
+    pv, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    dense = [pv, pv, pv, i, i, i, ll, i, *([pv] * 8)]
+    lib.parent_stage_launch.argtypes = [*dense, pv, pv, i, pv, pv]
+    lib.parent_mask_launch.argtypes = [*dense, pv, pv]
+    lib.parent_compact_launch.argtypes = [pv, pv, i, ll, i, i, pv, pv, pv, pv, pv]
+    for fn in (lib.parent_stage_launch, lib.parent_mask_launch, lib.parent_compact_launch):
+        fn.restype = ctypes.c_int
+    p = _build.ptr
 
-    def parent_stage(t, v, w, packed, seg, program, nb):
+    def stream_of(device):  # as the earlier wrappers looked the stream up
+        return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+    def stage(t, v, w, packed, seg, program, nb):
         B, T, E, K = t.shape
         out = torch.empty((B, nb + 1), dtype=torch.int32, device=t.device)
-        p = _build.ptr
-        rc = fn(p(t), p(v), p(w), B, T, program.n_groups, E, K,
-                *pe._program_args(program, t.device), p(packed), p(seg), nb, p(out),
-                _build.stream_of(t.device))
+        rc = lib.parent_stage_launch(
+            p(t), p(v), p(w), B, T, program.n_groups, E, K,
+            *program_args(program, t.device), p(packed), p(seg), nb, p(out),
+            stream_of(t.device))
         _build.check_launch("parent cascade_stage", rc)
         return out
 
-    return parent_stage
+    def mask(t, v, w, program):
+        B, T, E, K = pe._check_inputs("predicate_eval", t, v, w, program)
+        out = torch.empty((B, E), dtype=torch.int32, device=t.device)
+        with torch.cuda.device(t.device):
+            rc = lib.parent_mask_launch(
+                p(t), p(v), p(w), B, T, program.n_groups, E, K,
+                *program_args(program, t.device), p(out), stream_of(t.device))
+        _build.check_launch("parent predicate_eval", rc)
+        return out
+
+    def compact(payload, keep):
+        device = payload.device
+        E, D = payload.shape
+        out = torch.empty_like(payload)
+        total = torch.empty(1, dtype=torch.int32, device=device)
+        words = torch.empty(-(-E // 32), dtype=torch.int32, device=device)
+        tile_counts = torch.empty(-(-E // 512), dtype=torch.int32, device=device)
+        with torch.cuda.device(device):
+            rc = lib.parent_compact_launch(
+                p(payload), p(keep), keep.element_size(), E, D, payload.element_size(),
+                p(words), p(tile_counts), p(out), p(total), stream_of(device))
+        _build.check_launch("parent stream_compact", rc)
+        return out, total[0]
+
+    return SimpleNamespace(stage=stage, mask=mask, compact=compact)
 
 
 def count_uploads(step_name: str = "cascade_stage_step"):
@@ -1303,9 +1530,12 @@ def compact_mask(rng, E: int, rate: float, as_int: bool):
 
 def check_stream_compact(rng, device, Es=(1, 300, 512, 4097, N_EVENTS)) -> float:
     """``stream_compact`` against its plain version, bit for bit: every E
-    of ``Es``, D in 1/3/16, rates 0/0.13/0.5/1, every payload kind of
-    :data:`COMPACT_KINDS`, bool and int32 masks.  Returns the largest
-    :func:`bit_err` seen."""
+    of ``Es``, D in 1/3/4/8/16 (rows of a multiple of 16 bytes, copied in
+    16-byte units, and of others, copied by the element), rates
+    0/0.13/0.5/1, every payload kind of :data:`COMPACT_KINDS`, bool and
+    int32 masks; then payloads and masks shifted off 16-byte alignment
+    (:func:`shifted`), which take the element-wise paths.  Returns the
+    largest :func:`bit_err` seen."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1313,28 +1543,40 @@ def check_stream_compact(rng, device, Es=(1, 300, 512, 4097, N_EVENTS)) -> float
 
     cases = 0
     max_err = 0.0
+
+    def one(payload, mask, what):
+        nonlocal cases, max_err
+        got, count = sc.stream_compact(payload, mask)
+        want, want_count = ref.stream_compact_ref(payload, mask)
+        torch.cuda.synchronize()
+        err = bit_err(got, want)
+        max_err = max(max_err, err)
+        cases += 1
+        check(int(count) == int(want_count) == int((mask != 0).sum()),
+              f"stream_compact {what}: count {int(count)} vs {int(want_count)}")
+        check(err == 0.0, f"stream_compact {what}: rows differ from the plain "
+              f"version (max |bits| {err})")
+
     for E in Es:
-        for D in (1, 3, 16):
+        for D in (1, 3, 4, 8, 16):
             for kind in COMPACT_KINDS:
                 payload = compact_payload(rng, kind, E, D).to(device)
                 for i, rate in enumerate((0.0, 0.13, 0.5, 1.0)):
                     mask = compact_mask(rng, E, rate, as_int=bool(i % 2)).to(device)
-                    got, count = sc.stream_compact(payload, mask)
-                    want, want_count = ref.stream_compact_ref(payload, mask)
-                    torch.cuda.synchronize()
-                    err = bit_err(got, want)
-                    max_err = max(max_err, err)
-                    cases += 1
-                    check(int(count) == int(want_count) == int((mask != 0).sum()),
-                          f"stream_compact E={E} D={D} {kind} rate={rate}: count "
-                          f"{int(count)} vs {int(want_count)}")
-                    check(err == 0.0,
-                          f"stream_compact E={E} D={D} {kind} rate={rate}: rows "
-                          f"differ from the plain version (max |bits| {err})")
+                    one(payload, mask, f"E={E} D={D} {kind} rate={rate}")
+    for E in (300, 4097, 70_000):
+        for D, kind in ((4, "float32"), (8, "bfloat16"), (2, "int64"), (3, "int32")):
+            payload = compact_payload(rng, kind, E, D).to(device)
+            for as_int in (False, True):
+                mask = compact_mask(rng, E, 0.3, as_int).to(device)
+                for p_shift, m_shift in ((1, 0), (0, 1), (1, 3)):
+                    one(shifted(payload, p_shift), shifted(mask, m_shift),
+                        f"E={E} D={D} {kind} shifted by {p_shift}/{m_shift}")
     log(f"  stream_compact: {cases} cases bit-identical to the plain version "
-        f"(E in {'/'.join(map(str, Es))}, D in 1/3/16, rates 0/0.13/0.5/1, "
+        f"(E in {'/'.join(map(str, Es))}, D in 1/3/4/8/16, rates 0/0.13/0.5/1, "
         "float32 and bf16 with NaN payloads and -0.0, int32 at and above 2^24, "
-        f"int64, bool; bool and int32 masks); max |bits| {max_err}")
+        "int64, bool; bool and int32 masks; payloads and masks off 16-byte "
+        f"alignment at E = 300/4097/70000); max |bits| {max_err}")
     return max_err
 
 
@@ -1611,20 +1853,133 @@ def bounds(summary: dict) -> dict:
     return {k: summary[k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "by_dtype",
                       "per_basket_ms", "round_ms", "window_ms", "dense_ms", "parent_ms",
-                      "step_ms", "parent_step_ms", "staged_bytes", "dense_bytes")
+                      "step_ms", "parent_step_ms", "staged_bytes", "dense_bytes",
+                      "parent_stream_ms", "shapes", "wrapper_us")
             if k in summary}
 
 
+def time_predicate(program, t, v, w, parent) -> dict:
+    """``predicate_eval`` on one window (T, E, K) beside its earlier design
+    (``parent.mask``) and its plain version.  The bound reads the K slots
+    of the planes the program reads (``predicate_eval.planes_read``) once
+    and writes the (E,) mask once."""
+    from repro_torch.kernels import predicate_eval as pe
+    from repro_torch.kernels import ref
+
+    T, E, K = t.shape
+    G = v.shape[0]
+    n_read = bin(pe.planes_read(program) & ((1 << (T + 2 * G)) - 1)).count("1")
+    t_bytes, t_ops = bound_times(4 * (n_read * E * K + E), E * K * (T + 4 * G))
+    tb, vb, wb = t[None], v[None], w[None]
+    row = {
+        "E": E, "K": K,
+        "ms": device_ms(lambda: pe.predicate_eval(t, v, w, program)),
+        "stream_ms": stream_ms(lambda: pe.predicate_eval(t, v, w, program)),
+        "parent_ms": device_ms(lambda: parent.mask(tb, vb, wb, program)),
+        "parent_stream_ms": stream_ms(lambda: parent.mask(tb, vb, wb, program)),
+        "plain_ms": stream_ms(lambda: ref.predicate_mask(program, t, v, w), calls=5),
+        "t_bytes": t_bytes, "t_ops": t_ops,
+    }
+    log(f"  predicate_eval T={T} G={G} E={E} K={K}, {n_read} planes read: kernel "
+        f"{row['ms']:.5f} ms on the device (earlier design {row['parent_ms']:.5f}), "
+        f"{row['stream_ms']:.5f} ms per call from the host (earlier design "
+        f"{row['parent_stream_ms']:.5f}); plain {row['plain_ms']:.5f} ms; bound "
+        f"{max(t_bytes, t_ops):.7f} ms")
+    return row
+
+
+def compact_wrapper_steps(payload, mask, calls: int = 2000) -> dict:
+    """Host microseconds a call of each step of ``stream_compact``'s wrapper
+    on the card, each timed alone over ``calls`` calls: its argument
+    checks, the two allocations (packed rows, count), the current stream's
+    raw handle, the workspace's status words and epoch, the ``ctypes``
+    call that launches the kernel (with a fresh epoch each, the
+    workspace's time subtracted), the launch counter; the whole wrapper;
+    and two steps the earlier wrapper took on every call: the current
+    stream as a Stream object, and entering the device context (this one
+    enters it only where another card is current)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import stream_compact as sc
+    from repro_torch.kernels.skim_fused import Workspace
+
+    device = payload.device
+    E, D = payload.shape
+    n_status = -(-E // sc.EVENT_TILE)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    out = torch.empty_like(payload)
+    total = torch.empty((), dtype=torch.int32, device=device)
+    fn, p, lock = sc._fn(), _build.ptr, threading.Lock()
+    n = [0]
+
+    def checks():
+        return (mask.dtype in sc.MASK_DTYPES and payload.dim() == 2 and mask.dim() == 1
+                and mask.shape[0] == payload.shape[0] and payload.is_cuda
+                and mask.device == device and payload.is_contiguous()
+                and mask.is_contiguous() and payload.element_size())
+
+    def reserve():
+        return Workspace.reserve(device, stream, n_status, 1)
+
+    def launch():
+        status, ticket, epoch = reserve()
+        return fn(p(payload), p(mask), mask.element_size(), E, D, payload.element_size(),
+                  p(status), p(ticket), epoch, p(out), p(total), ctypes.c_void_p(stream))
+
+    def context():
+        with torch.cuda.device(device):
+            pass
+
+    def count():
+        with lock:
+            n[0] += 1
+
+    def each(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    steps = {
+        "checks": each(checks),
+        "alloc_out": each(lambda: torch.empty_like(payload)),
+        "alloc_count": each(lambda: torch.empty((), dtype=torch.int32, device=device)),
+        "current_stream": each(lambda: _build.stream_id(device)),
+        "current_stream_object": each(lambda: torch.cuda.current_stream(device).cuda_stream),
+        "workspace": each(reserve),
+        "pointers": each(lambda: (p(payload), p(mask), p(out), p(total))),
+        "launch_and_workspace": each(launch),
+        "count": each(count),
+        "whole_wrapper": each(lambda: sc.stream_compact(payload, mask)),
+        "device_context": each(context),
+    }
+    steps["launch"] = steps["launch_and_workspace"] - steps["workspace"]
+    log("  stream_compact's wrapper, host us a call by step: " + json.dumps(
+        {k: round(v, 3) for k, v in steps.items()}))
+    return steps
+
+
 def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
-                 compact_cases=(), attn_cases=(), parent_stage=None) -> dict:
+                 compact_cases=(), attn_cases=(), pred_cases=(), parent=None) -> dict:
     """Each kernel at the shapes its path gives it: its device time (CUDA
     graph replay), its time per call as the stream sees it from the host,
     the plain version's time per call, the bound (decoded values counted
     at each branch's own width) and, where one PyTorch call computes the
     same function, that call's time per call from the host
-    (``library_ms``).  ``cascade_stage`` is timed beside the parent's
-    kernel (``parent_stage``, from :func:`finish_parent_build`) on the same
-    inputs.  Only the kernels given cases are timed."""
+    (``library_ms``).  ``cascade_stage``, ``predicate_eval`` and
+    ``stream_compact`` are timed beside their earlier designs (``parent``,
+    from :func:`finish_parent_build`) on the same inputs.
+    ``predicate_eval`` also at ``pred_cases`` (program, terms, valid,
+    weights: bench_kernels' shapes) and ``stream_compact`` at every case
+    (label, payload, mask), the mean over those labelled "path" as its
+    row; each shape is listed under ``shapes``.  Only the kernels given
+    cases are timed."""
     import torch
 
     from repro_torch.kernels import basket_decode as bd
@@ -1729,9 +2084,9 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
             restore()
             return pe.cascade_stage(t, v, w, pk, seg, program, nb)
 
-        def parent():  # the parent's kernel, dense inputs
+        def parent_kernel():  # the earlier design, dense inputs
             restore()
-            return parent_stage(t, v, w, pk, seg, program, nb)
+            return parent.stage(t, v, w, pk, seg, program, nb)
 
         # the stage step from the host, as the path calls it: this tree's
         # (one page-locked upload of the staged buffer, the launch, the
@@ -1750,16 +2105,16 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         def parent_step():
             restore()
             up = [torch.as_tensor(x).to(t.device) for x in dense_np]
-            kops.stage_summary_host(parent_stage(*up, pk, seg, program, nb))
+            kops.stage_summary_host(parent.stage(*up, pk, seg, program, nb))
 
         copy_ms = device_ms(restore)
         copy_stream = stream_ms(restore)
         row = {
             "ms": device_ms(kernel) - copy_ms,
             "dense_ms": device_ms(dense) - copy_ms,
-            "parent_ms": device_ms(parent) - copy_ms,
+            "parent_ms": device_ms(parent_kernel) - copy_ms,
             "stream_ms": stream_ms(kernel) - copy_stream,
-            "parent_stream_ms": stream_ms(parent) - copy_stream,
+            "parent_stream_ms": stream_ms(parent_kernel) - copy_stream,
             "plain_ms": stream_ms(lambda: (restore(), pe.cascade_stage_windows_plain(
                 planes, stage_rows, pk, seg, program, nb))) - copy_stream,
             "step_ms": host_ms(step, calls=20),
@@ -1779,24 +2134,21 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
             f"{row['dense_bytes']} bytes in three pageable uploads); plain "
             f"{row['plain_ms']:.5f} ms; bound {max(t_bytes, t_ops):.7f} ms")
         # predicate_eval: window 0 of the same batch, the mask alone
-        t0, v0, w0 = t[0], v[0], w[0]
-        t_bytes, t_ops = bound_times(4 * ((T + 2 * G) * E * K + E), E * K * (T + 4 * G))
-        single.append({
-            "ms": device_ms(lambda: pe.predicate_eval(t0, v0, w0, program)),
-            "stream_ms": stream_ms(lambda: pe.predicate_eval(t0, v0, w0, program)),
-            "plain_ms": stream_ms(lambda: ref.predicate_mask(program, t0, v0, w0)),
-            "t_bytes": t_bytes, "t_ops": t_ops,
-        })
-        log(f"  predicate_eval T={T} G={G} E={E} K={K}: kernel "
-            f"{single[-1]['ms']:.5f} ms on the device, {single[-1]['stream_ms']:.5f} "
-            f"ms per call from the host; plain {single[-1]['plain_ms']:.5f} ms; "
-            f"bound {max(t_bytes, t_ops):.7f} ms")
+        single.append(time_predicate(program, t[0], v[0], w[0], parent))
     out["predicate_eval_batch"] = _summary(rows)
     if rows:
         for key in ("dense_ms", "parent_ms", "parent_stream_ms", "step_ms",
                     "parent_step_ms", "staged_bytes", "dense_bytes"):
             out["predicate_eval_batch"][key] = sum(r[key] for r in rows) / len(rows)
     out["predicate_eval"] = _summary(single)
+    if single:
+        for key in ("parent_ms", "parent_stream_ms"):
+            out["predicate_eval"][key] = sum(r[key] for r in single) / len(single)
+        out["predicate_eval"]["shapes"] = [  # bench_kernels' program
+            {k: r[k] for k in ("E", "K", "ms", "stream_ms", "parent_ms", "parent_stream_ms",
+                               "plain_ms")}
+            | {"bound_ms": max(r["t_bytes"], r["t_ops"])}
+            for r in (time_predicate(*case, parent) for case in pred_cases)]
     rows = []
     for program, t, v, w, p in batch_cases:
         B, T, E, K = t.shape
@@ -1818,7 +2170,7 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
             f"{max(t_bytes, t_ops):.7f} ms")
     out["skim_fused_batch"] = _summary(rows)
     rows = []
-    for payload, mask in compact_cases:
+    for label, payload, mask in compact_cases:
         E, D = payload.shape
         # read the mask once and the survivors' rows once; write the
         # packed rows, the zero tail and the count once; one test of the
@@ -1828,19 +2180,32 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         nbytes = E * mask.element_size() + survivors * row_bytes + E * row_bytes + 4
         t_bytes, t_ops = bound_times(nbytes, E)
         row = {
+            "label": label, "E": E, "D": D, "kept": survivors,
             "ms": device_ms(lambda: sc.stream_compact(payload, mask)),
             "stream_ms": stream_ms(lambda: sc.stream_compact(payload, mask)),
+            "parent_ms": device_ms(lambda: parent.compact(payload, mask)),
+            "parent_stream_ms": stream_ms(lambda: parent.compact(payload, mask)),
             "plain_ms": stream_ms(lambda: ref.stream_compact_ref(payload, mask)),
             # the same survivors in the same order, without the zero tail
             "library_ms": stream_ms(lambda: payload[mask]),
             "t_bytes": t_bytes, "t_ops": t_ops,
         }
         rows.append(row)
-        log(f"  stream_compact E={E} D={D} {payload.dtype}: kernel {row['ms']:.5f} "
-            f"ms on the device, {row['stream_ms']:.5f} ms per call from the host; "
-            f"plain {row['plain_ms']:.5f} ms; payload[mask] {row['library_ms']:.5f} "
-            f"ms (no zero tail); bound {max(t_bytes, t_ops):.7f} ms")
-    out["stream_compact"] = _summary(rows)
+        log(f"  stream_compact {label} E={E} D={D} {payload.dtype}, {survivors} kept: "
+            f"kernel {row['ms']:.5f} ms on the device (earlier design "
+            f"{row['parent_ms']:.5f}), {row['stream_ms']:.5f} ms per call from the "
+            f"host (earlier design {row['parent_stream_ms']:.5f}); plain "
+            f"{row['plain_ms']:.5f} ms; payload[mask] {row['library_ms']:.5f} ms (no "
+            f"zero tail); bound {max(t_bytes, t_ops):.7f} ms")
+    if rows:
+        path = [r for r in rows if r["label"] == "path"]
+        out["stream_compact"] = _summary(path)
+        out["stream_compact"]["parent_ms"] = sum(r["parent_ms"] for r in path) / len(path)
+        out["stream_compact"]["wrapper_us"] = compact_wrapper_steps(*compact_cases[0][1:])
+        out["stream_compact"]["shapes"] = [
+            {k: r[k] for k in ("label", "E", "D", "kept", "ms", "stream_ms", "parent_ms",
+                               "parent_stream_ms", "plain_ms", "library_ms")}
+            | {"bound_ms": max(r["t_bytes"], r["t_ops"])} for r in rows]
     rows = []
     for q, k, v in attn_cases:
         B, H, S, D = q.shape
@@ -2198,7 +2563,41 @@ def run_compact_path(store, host_store, n_passed: int, device) -> dict:
     log(f"  [quickstart] stream_compact of {payload_host.shape} float32 "
         f"({', '.join(COMPACT_BRANCHES)}) by the survivor mask: {n} rows, equal "
         f"to the survivors' rows bit for bit, tail zero; launches {launches}")
-    return {"launches": launches, "case": (payload, mask)}
+    return {"launches": launches, "case": ("path", payload, mask)}
+
+
+def bench_compact(rng, E: int, device):
+    """benchmarks/bench_kernels.py's compaction: (E, 16) float32 rows, 5%
+    kept by a bool mask."""
+    import torch
+
+    payload = torch.from_numpy(rng.normal(size=(E, 16)).astype("float32")).to(device)
+    return payload, torch.from_numpy(rng.random(E) < 0.05).to(device)
+
+
+def run_predicate_path(label, stage_case, device) -> dict:
+    """``ops.predicate_eval`` on each window of a cell's first cascade stage
+    over its first 16 windows (as ``run_window_batch`` stages them), one
+    call a window, held against the plain version: bit for bit but for
+    events at a mass/ΔR cut's edge (:func:`_mask_edges`)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    program, _nb, (t, v, w), *_ = stage_case
+    B, T, E, K = t.shape
+    ops.reset_launch_counts()
+    got = torch.stack([ops.predicate_eval(t[b], v[b], w[b], program) for b in range(B)])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["predicate_eval"]
+    check(launches == B, f"{label}: {launches} predicate_eval launches for {B} windows")
+    want = ref.predicate_eval_batch_ref(t, v, w, program)
+    err = float((got - want).abs().max())
+    edge = _mask_edges(program, t, v, got, want) if err else 0
+    log(f"  [{label}] predicate_eval on each of the first stage's {B} windows (T={T} "
+        f"E={E} K={K}): {int(got.sum())} events pass, equal to the plain version but "
+        f"for {edge} events at a mass/ΔR cut's edge; launches {launches}")
+    return {"launches": launches, "max_abs_err": err}
 
 
 def run_attention_path(rng, device) -> dict:
@@ -2298,9 +2697,9 @@ def main() -> int:
     parent_build = start_parent_build()
     build_s = _build.build_all()
     ops.load_kernels()
-    parent_stage = finish_parent_build(*parent_build)
+    parent = finish_parent_build(*parent_build)
     log(f"  kernels built in {build_s:.1f} s into {_build.build_dir()}; with the "
-        f"parent's cascade_stage (the timing baseline) {time.perf_counter() - t0:.1f} s")
+        f"earlier designs (the timing baselines) {time.perf_counter() - t0:.1f} s")
     check_tensor_core_sass()
 
     log("== 2. kernels against their plain versions ==")
@@ -2342,7 +2741,8 @@ def main() -> int:
         path_skim_cases(store, [q for _, q, *_ in cells[:2]], device),
         path_decode_cases(store, [(label, q) for label, q, *_ in cells[:2]], device),
         [c for cases in stage_cases.values() for c in cases],
-        parent_stage=parent_stage,
+        pred_cases=[bench_predicate(rng, E, device) for E in PREDICATE_BENCH_E],
+        parent=parent,
     )
 
     log("== 3. main path: run_skim with every default, on the card ==")
@@ -2367,20 +2767,27 @@ def main() -> int:
         device_busy(f"{label}, device_batch=16", query, st, device_batch=16)
 
     log("== 3c. the entry points no skim calls, at full size: "
-        "ops.fused_skim_batch, ops.stream_compact, ops.flash_attention ==")
-    log(f"  launches of the three kernels on the run_skim paths above: "
-        f"skim_fused_batch {totals['skim_fused_batch']}, stream_compact "
-        f"{totals['stream_compact']}, flash_attention {totals['flash_attention']}")
+        "ops.predicate_eval, ops.fused_skim_batch, ops.stream_compact, "
+        "ops.flash_attention ==")
+    log(f"  launches of the four kernels on the run_skim paths above: "
+        f"predicate_eval {totals['predicate_eval']}, skim_fused_batch "
+        f"{totals['skim_fused_batch']}, stream_compact {totals['stream_compact']}, "
+        f"flash_attention {totals['flash_attention']}")
+    predicate = {label: run_predicate_path(label, stage_cases[label][0], device)
+                 for label, *_ in cells}
     fused_batch = {label: run_fused_batch_path(label, stage_cases[label][0], device)
                    for label, *_ in cells}
     compact = run_compact_path(store, host_store, results["quickstart"]["n_passed"],
                                device)
     attention = run_attention_path(rng, device)
-    log("== 3d. timing of the three at their paths' shapes ==")
+    log("== 3d. timing of the three at their paths' shapes (stream_compact also "
+        "at bench_kernels' shapes) ==")
     timing.update(time_kernels(
         batch_cases=[r["case"] for r in fused_batch.values()],
-        compact_cases=[compact["case"]],
+        compact_cases=[compact["case"]] + [
+            (f"bench E={E}", *bench_compact(rng, E, device)) for E in PREDICATE_BENCH_E],
         attn_cases=attention["cases"],
+        parent=parent,
     ))
 
     kernels = [
@@ -2400,13 +2807,14 @@ def main() -> int:
          "launches": totals["cascade_stage"] + totals["predicate_eval_batch"],
          "max_abs_err": max(stage_err, pred_err),
          **bounds(timing["predicate_eval_batch"])},
+        # the four below have no caller in run_skim: their launches are
+        # those of their own path, the ops entry points of phase 3c
         {"name": "predicate_eval", "route": "cuda",
          "source": "src/repro_torch/csrc/predicate_eval.cu",
          "replaces": "src/repro/kernels/predicate_eval.py:304",
-         "launches": totals["predicate_eval"], "max_abs_err": pred_err,
+         "launches": sum(r["launches"] for r in predicate.values()),
+         "max_abs_err": max([pred_err] + [r["max_abs_err"] for r in predicate.values()]),
          **bounds(timing["predicate_eval"])},
-        # the three below have no caller in run_skim: their launches are
-        # those of their own path, the ops entry points of phase 3c
         {"name": "skim_fused_batch", "route": "cuda",
          "source": "src/repro_torch/csrc/skim_fused.cu",
          "replaces": "src/repro/kernels/skim_fused.py:119",

@@ -1,21 +1,32 @@
-// compact.cuh: stable stream compaction by warp ballot and popcount.
+// compact.cuh: single-pass stable stream compaction by decoupled look-back
+// (Merrill & Garland, "Single-pass Parallel Prefix Scan with Decoupled
+// Look-back", 2016), shared by skim_fused.cu and stream_compact.cu.
 //
-// The whole of stream_compact.cu.  (skim_fused.cu compacts in one pass,
-// by decoupled look-back, and no longer uses it.)
+// A tile of events learns where its survivors go (the survivors of every
+// tile before it) in the same launch that finds them:
+//  * take_ticket: a tile takes its ordinal in its window from an
+//    atomicAdd ticket, not from blockIdx.x, so every tile it waits on has
+//    been scheduled already and the look-back cannot deadlock.  The tile
+//    that takes the last ticket sets the counter back to 0.
+//  * look_back (the tile's first warp): publish the tile's survivor count
+//    as a flagged 64-bit status word (flag A), then read the predecessors'
+//    words 32 at a time, summing aggregates back to the nearest inclusive
+//    prefix (flag P), and publish the tile's own inclusive prefix.
+//    Release stores and acquire loads at GPU scope order each tile's
+//    earlier writes before what a later tile does after reading its word.
+//  * Status words carry the call's epoch in their high bits: a word left
+//    by an earlier call reads as "not published", so nothing is cleared
+//    between calls (the host's workspace hands out the epochs,
+//    repro_torch/kernels/skim_fused.py `Workspace`).
 //
-// Two passes over tiles of kTile events, one thread per event:
-//  * pass 1 (ballot_tile, at the end of the caller's own kernel): the
-//    warp ballots its 32 keep bits into one word (bit j of word w is
-//    event w*32+j) and the block writes its tile's survivor count;
-//  * pass 2 (compact_tile): each block sums the counts of the tiles
-//    before its own, each survivor adds the popcounts of the words
-//    before its bit, and the row is copied to that rank as raw bits of
-//    the element's width U, so every payload value (NaN payloads, -0.0,
-//    integers of any size) comes through exact.  Rows at or past the
-//    total are zeroed.
-//
-// The TPU kernel instead moves each tile through a float32 one-hot
-// matmul; nothing here passes a payload value through a float op.
+// The zero tail needs no second pass either: each tile zeroes its own
+// range of output rows before it publishes.  A survivor lands at a row no
+// later than its own event, so a row of tile t's range is only ever
+// written by tile t or a later one, and a later one writes only after
+// acquiring a prefix that covers t: a chain of release/acquire pairs back
+// to t's publish, which the zeroes precede (same CTA, __syncthreads).
+// Rows below the window's total are thus zeroed, then overwritten by
+// exactly one survivor each.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,77 +34,66 @@
 
 namespace {
 
-constexpr int kTile = 512;  // events per block
-constexpr int kWarps = kTile / 32;
+// status word: epoch << 34 | flag << 32 | count
+constexpr int kEpochShift = 34;
+constexpr unsigned long long kFlagAggregate = 1ull << 32;
+constexpr unsigned long long kFlagPrefix = 2ull << 32;
 
-// pass 1's epilogue: every thread of the block calls it with its own
-// event's keep bit (false past E).  `words` and `tile_count` are the
-// window's ballot words and this tile's count slot.
-__device__ __forceinline__ void ballot_tile(bool keep, long long e, long long E,
-                                            uint32_t* __restrict__ words,
-                                            int* __restrict__ tile_count,
-                                            int* warp_counts) {
-  const uint32_t ballot = __ballot_sync(0xffffffffu, keep);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    warp_counts[warp] = __popc(ballot);
-    if (e < E) words[e >> 5] = ballot;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int w = 0; w < kWarps; ++w) total += warp_counts[w];
-    *tile_count = total;
-  }
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(reinterpret_cast<uint64_t>(p)),
+               "l"(v) : "memory");
 }
 
-// sum of v over the block (every thread gets it)
-__device__ __forceinline__ int block_sum(int v, int* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  int total = 0;
-  for (int w = 0; w < kWarps; ++w) total += scratch[w];
-  return total;
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(reinterpret_cast<uint64_t>(p)) : "memory");
+  return v;
 }
 
-// pass 2 for tile blockIdx.x of one window: place each survivor's row at
-// (survivors of the tiles before) + (rank in the tile); zero every row at
-// or past the window's total, which tile 0 writes to *total_out.
-template <typename U>
-__device__ __forceinline__ void compact_tile(const U* __restrict__ payload,
-                                             const uint32_t* __restrict__ words,
-                                             const int* __restrict__ tile_counts,
-                                             int n_tiles, long long E, int D,
-                                             U* __restrict__ out,
-                                             int* __restrict__ total_out,
-                                             int* scratch, int* warp_rank) {
-  const int tile = blockIdx.x;
-  int before = 0, all = 0;
-  for (int t = threadIdx.x; t < n_tiles; t += kTile) {
-    const int c = tile_counts[t];
-    all += c;
-    if (t < tile) before += c;
+// this tile's ordinal in its window (one counter a window)
+__device__ __forceinline__ int take_ticket(unsigned* ticket, int n_tiles) {
+  const unsigned t = atomicAdd(ticket, 1u);
+  if (t == (unsigned)n_tiles - 1u) atomicExch(ticket, 0u);
+  return (int)t;
+}
+
+// Every lane of one warp calls it, after the block's writes that must
+// precede the publish (a __syncthreads between).  `st` holds the window's
+// status words, one a tile; `total` is this tile's survivor count.
+// Returns the survivors of the tiles before this one, in every lane.
+__device__ __forceinline__ int look_back(unsigned long long* st, int tile, int total,
+                                         unsigned epoch) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long tag = (unsigned long long)epoch << kEpochShift;
+  if (tile == 0) {
+    if (lane == 0) store_release(st, tag | kFlagPrefix | (unsigned)total);
+    return 0;
   }
-  before = block_sum(before, scratch);
-  all = block_sum(all, scratch);
-  const long long e = (long long)tile * kTile + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const uint32_t word = e < E ? words[e >> 5] : 0u;
-  if (lane == 0) warp_rank[warp] = __popc(word);
-  __syncthreads();
-  int rank = __popc(word & ((1u << lane) - 1u));
-  for (int w = 0; w < warp; ++w) rank += warp_rank[w];
-  if (e < E && ((word >> lane) & 1u)) {
-    const long long dst = (long long)(before + rank) * D;
-    for (int d = 0; d < D; ++d) out[dst + d] = payload[e * D + d];
+  if (lane == 0) store_release(st + tile, tag | kFlagAggregate | (unsigned)total);
+  int excl = 0;
+  for (int j = tile - 1;; j -= 32) {  // j: the nearest tile not yet summed
+    const int k = j - lane;
+    unsigned long long s = 0;
+    unsigned flag = 0;
+    if (k >= 0) {
+      do {
+        s = load_acquire(st + k);
+        flag = (s >> kEpochShift) == epoch ? (unsigned)(s >> 32) & 3u : 0u;
+      } while (flag == 0);
+    }
+    const unsigned prefixes = __ballot_sync(0xffffffffu, flag == 2u);
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+    int v = (k >= 0 && lane <= stop) ? (int)(s & 0xffffffffu) : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    excl += v;
+    if (prefixes) break;  // tile 0 always publishes a prefix
   }
-  if (e < E && e >= all) {
-    for (int d = 0; d < D; ++d) out[e * D + d] = U(0);
-  }
-  if (tile == 0 && threadIdx.x == 0) *total_out = all;
+  if (lane == 0) store_release(st + tile, tag | kFlagPrefix | (unsigned)(excl + total));
+  return excl;
 }
 
 }  // namespace

@@ -2,8 +2,11 @@
 //
 // The device half of src/repro/kernels/ref.py::predicate_mask, the body
 // every Pallas predicate kernel of the JAX package shares.  Both kernel
-// sources include it (skim_fused.cu, predicate_eval.cu), so the card has
-// one predicate, as the reference has one predicate_mask.
+// sources include it (skim_fused.cu, predicate_eval.cu) for the program's
+// layout and its scalar operations; skim_fused.cu evaluates an event with
+// eval_event (one thread an event, its rows read from device memory),
+// predicate_eval.cu with its own evaluator over the same operations
+// (lanes over the slots, the tile in shared memory).
 //
 // The program reaches the card as data: the host flattens the frozen
 // Program into small int32/float32 descriptor arrays

@@ -7,7 +7,7 @@
 // (src/repro/kernels/ops.py), and `predicate_eval` of the same file
 // (body `_predicate_kernel`) as its B = 1 case.
 //
-// What it computes:
+// What it computes, by one kernel (stage_kernel) with two epilogues:
 //  * cascade_stage_launch, the batched cascade's stage step, over the
 //    windows the stage runs ("staged"): for staged window s, its batch row
 //    b = rows[s] (s itself when rows is null) and event e, alive = bit e
@@ -20,33 +20,44 @@
 //    staged window maps to keep their packed words and get zero rows in
 //    `out`.  Only that (B, nb+1) buffer has to cross back to the host per
 //    stage; the event mask stays on the card.
-//  * predicate_eval_launch: the (B, E) int32 mask alone, one thread an
-//    event (eval_event, predicate.cuh), dense (B, T, E, K) inputs.
+//  * predicate_eval_launch: the program alone over a dense (B, T, E, K)
+//    batch, every window staged (rows null, strides T*E*K and G*E*K) and
+//    every event live: the (B, E) int32 mask.  Any E.
 //
 // What bounds it on an H100: bytes.  Each input element is read once and
 // feeds a few float32 compares, far below the card's compute/bandwidth
-// ratio, so the least time is the bytes of the live events' slots, their
-// mask words and seg_ids, and the outputs, over 3.35 TB/s.
+// ratio, so the least time is the bytes the program needs over 3.35 TB/s:
+// the K slots of every plane it reads (for the stage, of the live events
+// only, with their mask words and seg_ids), and the outputs.
 //
-// Design of the cascade stage:
-//  * The host stages only the windows the stage runs, each window's
-//    planes back to back, so a tile of `tile` events of one plane is one
-//    contiguous run of tile*K floats.  A block takes one staged window
-//    and one tile (grid: tiles x staged windows, 256 threads).
-//  * It first reads the tile's carried mask words.  With no live event
-//    it returns: no copy is issued and nothing is written (the row in
-//    `out` is the launch's memset zero, the words stay zero).
-//  * Otherwise the planes the program reads (every term plane, the valid
-//    planes of COUNT/HT/MASS/ΔR groups, the weights planes of HT groups)
-//    come into shared memory by one 1-D bulk copy each (cp.async.bulk,
-//    completing on one mbarrier), when every plane is 16-byte aligned;
-//    by 4-byte cp.async otherwise.  The host picks the tile by K so that
-//    the (T + 2G) planes of a tile fit its shared-memory budget (mode 0 or
-//    1, kernels/predicate_eval.py `stage_plan`); where even 32 events do
-//    not fit (mode 2), the block reads its planes from device memory in
-//    the same coalesced order.
-//  * Lanes go over the K slots: an event takes L = min(K, 32) lanes (32/L
-//    events a warp at once), each lane its slots k = lane%L, +L, ...  A
+// Design:
+//  * A block takes one window and one tile of `tile` events (grid: tiles
+//    x windows, 256 threads).  The host stages the stage's windows each
+//    window's planes back to back, and a dense batch is that layout, so a
+//    tile of one plane is one contiguous run of n*K floats.
+//  * The stage reads the tile's carried mask words first.  With no live
+//    event it returns: no copy is issued and nothing is written (the row in
+//    `out` is the launch's memset zero, the words stay zero).  The mask
+//    launch has no carried mask: every event is live.
+//  * The planes the program reads (every term plane, the valid planes of
+//    COUNT/HT/MASS/ΔR groups, the weights planes of HT groups) come into
+//    shared memory by one 1-D bulk copy each (cp.async.bulk, completing on
+//    one mbarrier), when every plane is 16-byte aligned and E*K a multiple
+//    of 4 (so a ragged last tile is whole 16-byte units too); by 4-byte
+//    cp.async otherwise.  The host picks the tile by K so that the (T + 2G)
+//    planes of a tile fit its shared-memory budget (mode 0 or 1,
+//    kernels/predicate_eval.py `stage_plan`); where even 32 events do not
+//    fit (mode 2), the block reads its planes from device memory in the
+//    same coalesced order.  The mask launch also reads device memory for
+//    a program with an ANY, EXPR or pair group, which reads a slot or two
+//    of most of its planes (kernels/predicate_eval.py `mask_plan`).  Each
+//    epilogue's kernel opts in once to the most dynamic shared memory the
+//    host may ask for.
+//  * Lanes go over the K slots: an event takes L lanes (32/L events a
+//    warp at once), each lane its slots k = lane%L, +L, ...: the stage
+//    L = min(K, 32), the mask about 8 slots a lane (L = 1 up to K = 8),
+//    where every event is live and a lane's share of an event's scalar
+//    work costs more than its slots.  A
 //    warp's 32 lanes read 32 consecutive words of a plane: no bank
 //    conflicts.  Per-object flags are computed in parallel and a count is
 //    __popc of the flags' ballot.  Sums in slot order (HT's w[k]*obj,
@@ -54,20 +65,23 @@
 //    every lane of the event: the reference's float32 order, with no tree.
 //    A pair group's leading slot is the same ordered scan.  Built with
 //    --fmad=false, every product and sum rounds as the reference's.
-//    A program with a mass or ΔR group at K <= 8 takes L = 1 instead (an
-//    event a lane, the same code, a tile of at least 256 events so every
-//    warp has events): its per-event four-vectors and trig would otherwise
-//    run once in every lane of the event, and its slot reads conflict at
-//    most K-way.
-//  * Epilogue as before: one thread an event, the warp ballots its 32
+//    In the stage, a program with a mass or ΔR group at K <= 8 takes L = 1
+//    instead (an event a lane, the same code, a tile of at least 256
+//    events so every warp has events): its per-event four-vectors and trig
+//    would otherwise run once in every lane of the event, and its slot
+//    reads conflict at most K-way.
+//  * The stage's epilogue: one thread an event, the warp ballots its 32
 //    survivor bits into one word and popcounts it, the block sums the warps
 //    and adds its total to the window's count with one atomicAdd; a
 //    surviving event sets its basket bit with atomicOr, skipped when the
 //    bit is already visibly set.  Integer atomics are exact and commute, so
 //    the outputs do not depend on the order blocks run in.  The launch
-//    zeroes `out` with cudaMemsetAsync on the same stream first.
-//  * E % 32 == 0 (whole mask words; the wrapper checks); the last tile of
-//    a window may be short.
+//    zeroes `out` with cudaMemsetAsync on the same stream first.  The
+//    stage takes E % 32 == 0 (whole mask words; the wrapper checks); the
+//    last tile of a window may be short.
+//  * The mask epilogue: one thread an event writes its 0/1 int32, 256
+//    consecutive words a block step; the ragged last tile (and its last
+//    warp) stop at E.  No memset, no atomics.
 #include "predicate.cuh"
 
 namespace {
@@ -326,9 +340,12 @@ __device__ bool eval_lanes(const Program& p, const Tile& t, int i, const Lanes& 
   return all;
 }
 
+// kMask: the mask launch (every event live; out is the (B, E) int32
+// mask; packed and seg_ids unused); otherwise the cascade stage
+template <bool kMask>
 __global__ void __launch_bounds__(kThreads)
-cascade_stage_kernel(Program p, Stage st, uint32_t* __restrict__ packed,
-                     const int* __restrict__ seg_ids, int nb, int* __restrict__ out) {
+stage_kernel(Program p, Stage st, uint32_t* __restrict__ packed,
+             const int* __restrict__ seg_ids, int nb, int* __restrict__ out) {
   extern __shared__ __align__(128) float planes[];
   __shared__ uint32_t carried[kMaxTile / 32];
   __shared__ uint8_t flags[kMaxTile];
@@ -338,23 +355,26 @@ cascade_stage_kernel(Program p, Stage st, uint32_t* __restrict__ packed,
   const long long s = blockIdx.y;
   const long long b = st.rows ? st.rows[s] : s;
   const long long e0 = (long long)blockIdx.x * st.tile;
-  const int n = (int)min((long long)st.tile, st.E - e0);  // a multiple of 32
-  uint32_t* words = packed + b * (st.E >> 5) + (e0 >> 5);
-  uint32_t word = 0;
-  if (threadIdx.x < (n >> 5)) {
-    word = words[threadIdx.x];
-    carried[threadIdx.x] = word;
-  }
-  if (!__syncthreads_or(word != 0u)) return;  // no live event: no copy, no write
-
-  // the seg ids of this thread's events in the epilogue, for the ones
-  // live now (only they can survive): loaded while the planes arrive
-  const long long seg0 = b * st.E + e0;
+  const int n = (int)min((long long)st.tile, st.E - e0);  // stage: a multiple of 32
+  uint32_t* words = nullptr;
   int seg[kMaxTile / kThreads];
+  if constexpr (!kMask) {
+    words = packed + b * (st.E >> 5) + (e0 >> 5);
+    uint32_t word = 0;
+    if (threadIdx.x < (n >> 5)) {
+      word = words[threadIdx.x];
+      carried[threadIdx.x] = word;
+    }
+    if (!__syncthreads_or(word != 0u)) return;  // no live event: no copy, no write
+
+    // the seg ids of this thread's events in the epilogue, for the ones
+    // live now (only they can survive): loaded while the planes arrive
+    const long long seg0 = b * st.E + e0;
 #pragma unroll
-  for (int m = 0; m < kMaxTile / kThreads; ++m) {
-    const int i = threadIdx.x + m * kThreads;
-    seg[m] = (i < n && ((carried[i >> 5] >> (i & 31)) & 1u)) ? seg_ids[seg0 + i] : -1;
+    for (int m = 0; m < kMaxTile / kThreads; ++m) {
+      const int i = threadIdx.x + m * kThreads;
+      seg[m] = (i < n && ((carried[i >> 5] >> (i & 31)) & 1u)) ? seg_ids[seg0 + i] : -1;
+    }
   }
 
   const int P = st.T + 2 * p.G;
@@ -418,13 +438,18 @@ cascade_stage_kernel(Program p, Stage st, uint32_t* __restrict__ packed,
     const int i = first + lane / ln.L;
     const bool here = lane < per_warp * ln.L && i < n;
     const int row = here ? i : first;  // idle lanes read a row of the tile
-    bool live = here && ((carried[row >> 5] >> (row & 31)) & 1u);
+    bool live = here && (kMask || ((carried[row >> 5] >> (row & 31)) & 1u));
     if (__any_sync(kFull, live)) live = eval_lanes(p, tile, row, ln) && live;
     if (here && ln.sub == 0) flags[i] = live;
   }
   __syncthreads();
 
-  // the epilogue: one thread an event
+  if constexpr (kMask) {  // the mask: one thread an event, up to E
+    int* mask_row = out + b * st.E + e0;
+    for (int i = threadIdx.x; i < n; i += kThreads) mask_row[i] = flags[i];
+    return;
+  }
+  // the stage's epilogue: one thread an event
   int* out_row = out + b * (nb + 1);
   int total = 0;
 #pragma unroll
@@ -449,13 +474,24 @@ cascade_stage_kernel(Program p, Stage st, uint32_t* __restrict__ packed,
   }
 }
 
-__global__ void predicate_eval_kernel(Program p, Inputs batch, int T,
-                                      int* __restrict__ out) {
-  const long long b = blockIdx.y;
-  const long long e = (long long)blockIdx.x * kMaxTile + threadIdx.x;
-  if (e >= batch.E) return;
-  out[b * batch.E + e] =
-      eval_event(p, e, window_inputs(batch, b, T, p.G)) ? 1 : 0;
+// The planes' shared memory a launch may ask for at most (the host's
+// SMEM_MAX; kernels/predicate_eval.py)
+constexpr int kSmemMax = 200 * 1024;
+
+template <bool kMask>
+cudaError_t launch_stage(const Program& p, const Stage& st, int S, int smem_bytes,
+                         uint32_t* packed, const int* seg_ids, int nb, int* out,
+                         cudaStream_t cs) {
+  // each instantiation's own opt-in to dynamic shared memory past 48 KiB
+  // (static + dynamic may not pass 48 KiB by default), made once, to the
+  // most any launch asks for
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      stage_kernel<kMask>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (allowed != cudaSuccess) return allowed;
+  if (smem_bytes > kSmemMax) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((st.E + st.tile - 1) / st.tile), (unsigned)S);
+  stage_kernel<kMask><<<grid, kThreads, smem_bytes, cs>>>(p, st, packed, seg_ids, nb, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -478,34 +514,26 @@ extern "C" int cascade_stage_launch(
   cudaError_t err =
       cudaMemsetAsync(out, 0, sizeof(int) * (size_t)B * (size_t)(nb + 1), cs);
   if (err != cudaSuccess || S == 0 || E == 0) return (int)err;
-  // the kernel's dynamic shared memory limit, raised to the largest size
-  // asked for (by default static + dynamic may not pass 48 KiB)
-  static int smem_allowed = -1;
-  if (smem_bytes > smem_allowed) {
-    err = cudaFuncSetAttribute(cascade_stage_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    smem_allowed = smem_bytes;
-  }
   Program p{groups, term_ids, ops, thrs, cmp_thrs, rpn_op, rpn_term, rpn_const, G};
   Stage st{terms, valid, weights, t_stride, g_stride, rows, E, T, K, tile, mode, lanes,
            planes_read};
-  const dim3 grid((unsigned)((E + tile - 1) / tile), (unsigned)S);
-  cascade_stage_kernel<<<grid, kThreads, smem_bytes, cs>>>(p, st, packed, seg_ids,
-                                                           nb, out);
-  return (int)cudaGetLastError();
+  return (int)launch_stage<false>(p, st, S, smem_bytes, packed, seg_ids, nb, out, cs);
 }
 
+// The (B, E) int32 mask of a dense batch: window b's term planes at
+// terms + b*t_stride, its valid and weights planes at valid / weights +
+// b*g_stride; tile, mode, smem_bytes and lanes as for the stage.
 extern "C" int predicate_eval_launch(
-    const float* terms, const float* valid, const float* weights, int B,
-    int T, int G, long long E, int K, const int* groups, const int* term_ids,
-    const int* ops, const float* thrs, const float* cmp_thrs,
-    const int* rpn_op, const int* rpn_term, const float* rpn_const, int* out,
-    void* stream) {
+    const float* terms, const float* valid, const float* weights,
+    long long t_stride, long long g_stride, int B, int T, int G, long long E, int K,
+    int tile, int mode, int smem_bytes, int lanes, unsigned long long planes_read,
+    const int* groups, const int* term_ids, const int* ops, const float* thrs,
+    const float* cmp_thrs, const int* rpn_op, const int* rpn_term,
+    const float* rpn_const, int* out, void* stream) {
+  if (B == 0 || E == 0) return (int)cudaSuccess;
   Program p{groups, term_ids, ops, thrs, cmp_thrs, rpn_op, rpn_term, rpn_const, G};
-  Inputs batch{terms, valid, weights, E, K};
-  const dim3 grid((unsigned)((E + kMaxTile - 1) / kMaxTile), (unsigned)B);
-  predicate_eval_kernel<<<grid, kMaxTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, batch, T, out);
-  return (int)cudaGetLastError();
+  Stage st{terms, valid, weights, t_stride, g_stride, nullptr, E, T, K, tile, mode, lanes,
+           planes_read};
+  return (int)launch_stage<true>(p, st, B, smem_bytes, nullptr, nullptr, 0, out,
+                                 static_cast<cudaStream_t>(stream));
 }

@@ -26,72 +26,33 @@
 //    cascade stage and every padded E.  The reference instead specializes
 //    its kernel per program.
 //  * One thread per event, a (ceil(E/512), B) grid of 512-thread tiles:
-//    blockIdx.y is the window.  Each thread runs eval_event, the
-//    predicate this kernel shares with predicate_eval.cu (predicate.cuh).
-//  * Single-pass stable compaction by decoupled look-back (Merrill &
-//    Garland, "Single-pass Parallel Prefix Scan with Decoupled
-//    Look-back", 2016).  A tile takes its ordinal in its window from an
-//    atomicAdd ticket, not from blockIdx.x, so every tile it waits on has
-//    been scheduled already.  It ballots its keep bits, publishes its
-//    survivor count as a flagged 64-bit status word (flag A), and its
-//    first warp looks back over its predecessors 32 at a time: aggregates
-//    are summed until the nearest inclusive prefix (flag P).  It then
-//    publishes its own inclusive prefix and copies its survivors' rows to
-//    (exclusive prefix + rank in the tile) as raw 32-bit words, so the
-//    f32 event index in payload column 0 comes through exact.
-//  * Status words and tickets live in a per-(device, stream) grow-only
-//    workspace.  Status words carry the call's epoch in their high bits:
-//    a word of another call reads as "not published", so nothing is
-//    cleared between calls; the last tile to take a window's ticket sets
-//    its counter back to 0.
-//  * The zero tail, in the kernel: each tile zeroes its own range of
-//    output rows before it publishes its status.  A survivor lands at a
-//    row no later than its own event, so a row of tile t's range is only
-//    ever written by tile t or a later one, and a later one writes only
-//    after acquiring a prefix that covers t: a chain of release/acquire
-//    pairs back to t's publish, which the zeroes precede (same CTA,
-//    __syncthreads).  Rows below the window's total are thus zeroed,
-//    then overwritten by exactly one survivor each.  (A cudaMemsetAsync
-//    before the kernel does the same as one more device operation a
-//    call, and measured slower on the card.)  The window's last tile
-//    writes its total.
+//    blockIdx.y is the window.  Each thread runs eval_event
+//    (predicate.cuh), the predicate for one event read from device
+//    memory; predicate_eval.cu evaluates the same program from shared
+//    memory with lanes over the slots instead.
+//  * Single-pass stable compaction by decoupled look-back, the one copy in
+//    compact.cuh (stream_compact.cu runs it too): a tile takes its
+//    ordinal from a ticket, zeroes its own output rows, ballots its keep
+//    bits, and its first warp publishes its count and looks back for the
+//    survivors before it; its survivors' rows then go to (exclusive
+//    prefix + rank in the tile) as raw 32-bit words, so the f32 event
+//    index in payload column 0 comes through exact.  The window's last
+//    tile writes its total.  compact.cuh argues why zeroing before the
+//    publish leaves every row below the total written once by a survivor.
+//  * Status words and tickets live in the per-(device, stream) grow-only
+//    workspace both compaction kernels share; each window has its own
+//    ticket counter and its own run of status words.  (A cudaMemsetAsync
+//    for the zero tail is one more device operation a call, and measured
+//    slower on the card.)
 //  * No tile constraint on E: the reference asserts E % tile == 0; here
 //    each window's ragged last tile is masked.
-//  * The two-pass compaction (compact.cuh) stays for stream_compact.cu.
+#include "compact.cuh"
 #include "predicate.cuh"
 
 namespace {
 
 constexpr int kTile = 512;  // events per tile
 constexpr int kWarps = kTile / 32;
-
-// status word: epoch << 34 | flag << 32 | count
-constexpr int kEpochShift = 34;
-constexpr unsigned long long kFlagAggregate = 1ull << 32;
-constexpr unsigned long long kFlagPrefix = 2ull << 32;
-
-__device__ __forceinline__ void store_release(unsigned long long* p,
-                                              unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(reinterpret_cast<uint64_t>(p)),
-               "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long load_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
-               : "=l"(v) : "l"(reinterpret_cast<uint64_t>(p)) : "memory");
-  return v;
-}
-
-// this tile's ordinal in its window.  The tile that takes the window's
-// last ticket sets the counter back to 0 for the next launch: every
-// other tile of the window has taken its ticket by then.
-__device__ __forceinline__ int take_ticket(unsigned* ticket, int n_tiles) {
-  const unsigned t = atomicAdd(ticket, 1u);
-  if (t == (unsigned)n_tiles - 1u) atomicExch(ticket, 0u);
-  return (int)t;
-}
 
 __global__ void __launch_bounds__(kTile)
 skim_fused_kernel(Program p, Inputs batch, int T,
@@ -124,35 +85,8 @@ skim_fused_kernel(Program p, Inputs batch, int T,
     total += c;
   }
 
-  unsigned long long* st = status + b * n_tiles;
-  const unsigned long long tag = (unsigned long long)epoch << kEpochShift;
-  if (warp == 0) {
-    int excl = 0;
-    if (tile == 0) {
-      if (lane == 0) store_release(st, tag | kFlagPrefix | (unsigned)total);
-    } else {
-      if (lane == 0) store_release(st + tile, tag | kFlagAggregate | (unsigned)total);
-      for (int j = tile - 1;; j -= 32) {  // j: the nearest tile not yet summed
-        const int k = j - lane;
-        unsigned long long s = 0;
-        unsigned flag = 0;
-        if (k >= 0) {
-          do {
-            s = load_acquire(st + k);
-            flag = (s >> kEpochShift) == epoch ? (unsigned)(s >> 32) & 3u : 0u;
-          } while (flag == 0);
-        }
-        const unsigned prefixes = __ballot_sync(0xffffffffu, flag == 2u);
-        const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
-        int v = (k >= 0 && lane <= stop) ? (int)(s & 0xffffffffu) : 0;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-        excl += v;
-        if (prefixes) break;
-      }
-      if (lane == 0)
-        store_release(st + tile, tag | kFlagPrefix | (unsigned)(excl + total));
-    }
+  if (warp == 0) {  // the zeroes and the ballots precede the publish
+    const int excl = look_back(status + b * n_tiles, tile, total, epoch);
     if (lane == 0) s_excl = excl;
   }
   __syncthreads();

@@ -118,10 +118,30 @@ def ptr(tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(tensor.data_ptr())
 
 
-def stream_of(device) -> ctypes.c_void_p:
+def stream_id(device) -> int:
+    """The raw handle of ``device``'s current stream: the value of
+    ``torch.cuda.current_stream(device).cuda_stream`` without building the
+    Stream object, which costs microseconds a call."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def stream_of(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(stream_id(device))
+
+
+def call_on(device, fn, *args) -> int:
+    """``fn(*args)`` with ``device`` the current card: the device context
+    is entered only where another card is current (entering it costs
+    microseconds a call)."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def check_launch(name: str, rc: int) -> None:

@@ -11,8 +11,15 @@ Four wrappers over one CUDA source, three launch counters:
   rows of counts and bits.
 * :func:`cascade_stage` — the same over a dense batch, every window
   staged (the same kernel and counter).
-* :func:`predicate_eval_batch` — the (B, E) int32 mask alone.
+* :func:`predicate_eval_batch` — the (B, E) int32 mask alone: the same
+  kernel with its mask epilogue, over a dense batch (every window
+  staged, every event live), any E.
 * :func:`predicate_eval` — its B = 1 case, (E,) int32.
+
+Both epilogues share the stage kernel's evaluator: the planes the
+program reads come into shared memory (:func:`launch_plan` picks the
+tile and the copy mode; :func:`mask_plan` for the mask) and an event's
+lanes go over its K slots.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version in :mod:`repro_torch.kernels.ref`.  The program reaches the
@@ -35,7 +42,7 @@ from repro_torch.kernels.program import (
     GROUP_MASS,
     Program,
 )
-from repro_torch.kernels.skim_fused import program_descriptor
+from repro_torch.kernels.skim_fused import program_args
 
 MAX_WINDOWS = 65535  # the grid's y dimension (one window per row)
 
@@ -55,9 +62,10 @@ def _fn(name: str, argtypes: list):
 
 
 def _mask_fn():
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return _fn("predicate_eval_launch",
-               [p, p, p, i, i, i, ctypes.c_longlong, i, *([p] * _PROGRAM_ARGS), p, p])
+               [p, p, p, ll, ll, i, i, i, ll, i, i, i, i, i, ctypes.c_ulonglong,
+                *([p] * _PROGRAM_ARGS), p, p])
 
 
 def _stage_fn():
@@ -72,7 +80,7 @@ def _stage_fn():
 # few blocks share an SM; a shape that does not fit even at 32 events
 # within SMEM_MAX reads device memory instead.
 SMEM_BUDGET = 48 * 1024
-SMEM_MAX = 200 * 1024
+SMEM_MAX = 200 * 1024  # csrc/predicate_eval.cu kSmemMax
 MODE_BULK, MODE_ASYNC4, MODE_DIRECT = 0, 1, 2  # csrc/predicate_eval.cu kMode*
 MAX_TILE = 512
 
@@ -84,7 +92,19 @@ def event_lanes(program: Program, K: int) -> int:
     whose per-event four-vectors and trig every lane of the event would
     otherwise repeat."""
     pair = any(g.kind in (GROUP_MASS, GROUP_DR) for g in program.groups)
-    return 1 if pair and K <= 8 else min(K, 32)
+    return 1 if pair and K <= 8 else max(1, min(K, 32))
+
+
+def mask_lanes(K: int) -> int:
+    """Lanes an event takes in the mask launch: about 8 slots a lane (1 up
+    to K = 8, then K / 8 rounded up to a power of two, at most 32).  There
+    every event is live and a batch is large, so each lane's share of the
+    event's scalar work (the program's walk, ballots, shuffles) costs more
+    than the slots it reads one after another."""
+    lanes = 1
+    while lanes < 32 and lanes * 8 < K:
+        lanes *= 2
+    return lanes
 
 
 def planes_read(program: Program) -> int:
@@ -106,14 +126,27 @@ def stage_plan(n_planes: int, K: int, lanes: int, aligned: bool) -> tuple[int, i
     two of events up to 512 whose planes fit ``SMEM_BUDGET``, but enough
     events for each of the block's 8 warps (256 / ``lanes``, at least 32);
     bulk copies where every plane is 16-byte aligned, 4-byte ``cp.async``
-    where not, device memory where the planes exceed ``SMEM_MAX``."""
+    where not, device memory where the planes exceed ``SMEM_MAX`` (or
+    there is nothing to copy: no plane or no slot)."""
     tile, least = MAX_TILE, max(32, 256 // lanes)
     while tile > least and n_planes * tile * K * 4 > SMEM_BUDGET:
         tile //= 2
     smem = n_planes * tile * K * 4
-    if smem > SMEM_MAX:
+    if smem > SMEM_MAX or smem == 0:
         return tile, MODE_DIRECT, 0
     return tile, MODE_BULK if aligned else MODE_ASYNC4, smem
+
+
+def launch_plan(planes, strides, E: int, K: int, program: Program, lanes: int):
+    """(tile, mode, shared bytes) of a launch over ``planes``, the (terms,
+    valid, weights) base tensors, with ``strides`` the floats between two
+    windows' term and group planes and ``lanes`` an event: bulk copies need
+    every base 16-byte aligned and every stride and plane (E*K floats) a
+    multiple of 16 bytes, which also makes a ragged last tile's slice of a
+    plane whole 16-byte units."""
+    aligned = all(x.data_ptr() % 16 == 0 for x in planes) and all(
+        4 * n % 16 == 0 for n in (*strides, E * K))
+    return stage_plan(program.n_terms + 2 * program.n_groups, K, lanes, aligned)
 
 
 def _count(name: str) -> None:
@@ -121,19 +154,36 @@ def _count(name: str) -> None:
         launches[name] += 1
 
 
-def _check_inputs(who: str, terms, valid, weights, program: Program):
-    """(B, T, E, K) of a batch the kernel takes, or raises."""
-    if terms.dim() != 4:
-        raise ValueError(f"{who}: terms must be (B, T, E, K), got {tuple(terms.shape)}")
-    B, T, E, K = terms.shape
+def mask_plan(planes, strides, E: int, K: int, program: Program):
+    """(tile, mode, shared bytes, lanes) of the mask launch over a dense
+    batch: :func:`mask_lanes` lanes an event, and the stage's plan
+    (:func:`launch_plan`) where the program reads every slot of the planes
+    it reads (COUNT and HT groups only); device memory otherwise, where
+    ANY, EXPR and pair groups read a slot or two of most of their planes
+    and a copy of the whole tile would bring the rest in for nothing."""
+    lanes = mask_lanes(K)
+    tile, mode, smem = launch_plan(planes, strides, E, K, program, lanes)
+    if any(g.kind not in (GROUP_COUNT, GROUP_HT) for g in program.groups):
+        mode, smem = MODE_DIRECT, 0
+    return tile, mode, smem, lanes
+
+
+def _check_inputs(who: str, terms, valid, weights, program: Program, window=False):
+    """(B, T, E, K) of a batch the kernel takes, or raises; with ``window``
+    the inputs are one window, (T, E, K) and (G, E, K), and B is 1."""
+    if terms.dim() != 4 - window:
+        raise ValueError(f"{who}: terms must be {'(' if window else '(B, '}T, E, K), "
+                         f"got {tuple(terms.shape)}")
+    B, T, E, K = (1, *terms.shape) if window else terms.shape
     G = program.n_groups
     if T != program.n_terms:
         raise ValueError(f"{who}: {T} term planes for {program.n_terms} terms")
     if B > MAX_WINDOWS:
         raise ValueError(f"{who}: {B} windows exceed the grid's {MAX_WINDOWS}")
-    for name, x, shape in (("terms", terms, (B, T, E, K)),
-                           ("valid", valid, (B, G, E, K)),
-                           ("weights", weights, (B, G, E, K))):
+    lead = () if window else (B,)
+    for name, x, shape in (("terms", terms, (*lead, T, E, K)),
+                           ("valid", valid, (*lead, G, E, K)),
+                           ("weights", weights, (*lead, G, E, K))):
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"{who}: {name} must be contiguous float32")
         if tuple(x.shape) != shape or x.device != terms.device:
@@ -144,30 +194,22 @@ def _check_inputs(who: str, terms, valid, weights, program: Program):
     return B, T, E, K
 
 
-def _program_args(program: Program, device):
-    ints, floats, off = program_descriptor(program, device)
-
-    def at(base, name):
-        return ctypes.c_void_p(base.data_ptr() + 4 * off[name])
-
-    return (at(ints, "groups"), at(ints, "term_ids"), at(ints, "ops"),
-            at(floats, "thrs"), at(floats, "cmp_thrs"), at(ints, "rpn_op"),
-            at(ints, "rpn_term"), at(floats, "rpn_const"))
-
-
-def _mask(terms, valid, weights, program: Program) -> torch.Tensor:
-    """Launch ``predicate_eval_launch``: (B, E) int32 on the card."""
-    B, T, E, K = _check_inputs("predicate_eval", terms, valid, weights, program)
+def _mask(terms, valid, weights, program: Program, window: bool) -> torch.Tensor:
+    """Launch ``predicate_eval_launch`` (the stage kernel, mask epilogue):
+    (B, E) int32 on the card, or (E,) for one ``window``."""
+    B, T, E, K = _check_inputs("predicate_eval", terms, valid, weights, program, window)
     device = terms.device
-    out = torch.empty((B, E), dtype=torch.int32, device=device)
+    out = torch.empty((E,) if window else (B, E), dtype=torch.int32, device=device)
     if B == 0 or E == 0:
         return out
+    G = program.n_groups
+    planes, strides = (terms, valid, weights), (T * E * K, G * E * K)
+    tile, mode, smem, lanes = mask_plan(planes, strides, E, K, program)
     p = _build.ptr
-    with torch.cuda.device(device):
-        rc = _mask_fn()(
-            p(terms), p(valid), p(weights), B, T, program.n_groups, E, K,
-            *_program_args(program, device), p(out), _build.stream_of(device),
-        )
+    rc = _build.call_on(
+        device, _mask_fn(), *(p(x) for x in planes), *strides, B, T, G, E, K,
+        tile, mode, smem, lanes, planes_read(program),
+        *program_args(program, device), p(out), _build.stream_of(device))
     _build.check_launch("predicate_eval", rc)
     return out
 
@@ -177,7 +219,7 @@ def predicate_eval_batch(terms, valid, weights, program: Program) -> torch.Tenso
     valid/weights (B, G, E, K) float32 -> (B, E) int32 mask.  Any E."""
     if not terms.is_cuda:
         return _ref.predicate_eval_batch_ref(terms, valid, weights, program)
-    out = _mask(terms, valid, weights, program)
+    out = _mask(terms, valid, weights, program, window=False)
     _count("predicate_eval_batch")
     return out
 
@@ -187,7 +229,7 @@ def predicate_eval(terms, valid, weights, program: Program) -> torch.Tensor:
     int32 mask; the B = 1 case of :func:`predicate_eval_batch`."""
     if not terms.is_cuda:
         return _ref.predicate_mask(program, terms, valid, weights).to(torch.int32)
-    out = _mask(terms[None], valid[None], weights[None], program)[0]
+    out = _mask(terms, valid, weights, program, window=True)
     _count("predicate_eval")
     return out
 
@@ -221,20 +263,15 @@ def _launch_stage(planes, strides, rows, S: int, T: int, E: int, K: int,
     device = packed.device
     B = packed.shape[0]
     out = torch.empty((B, nb + 1), dtype=torch.int32, device=device)
-    n_planes = T + 2 * program.n_groups
-    aligned = all(x.data_ptr() % 16 == 0 for x in planes) and all(
-        4 * n % 16 == 0 for n in (*strides, E * K))
     lanes = event_lanes(program, K)
-    tile, mode, smem = stage_plan(n_planes, K, lanes, aligned)
+    tile, mode, smem = launch_plan(planes, strides, E, K, program, lanes)
     p = _build.ptr
-    with torch.cuda.device(device):
-        rc = _stage_fn()(
-            *(p(x) for x in planes), *strides,
-            None if rows is None else p(rows), S, T, program.n_groups, E, K,
-            tile, mode, smem, lanes, planes_read(program),
-            *_program_args(program, device), p(packed),
-            p(seg_ids), nb, p(out), B, _build.stream_of(device),
-        )
+    rc = _build.call_on(
+        device, _stage_fn(), *(p(x) for x in planes), *strides,
+        None if rows is None else p(rows), S, T, program.n_groups, E, K,
+        tile, mode, smem, lanes, planes_read(program),
+        *program_args(program, device), p(packed),
+        p(seg_ids), nb, p(out), B, _build.stream_of(device))
     _build.check_launch("cascade_stage", rc)
     # the launch zeroes `out` first, then runs the kernel if S and E
     if S and E:
@@ -332,6 +369,9 @@ __all__ = [
     "cascade_stage_windows",
     "cascade_stage_windows_plain",
     "event_lanes",
+    "launch_plan",
+    "mask_lanes",
+    "mask_plan",
     "planes_read",
     "launches",
     "predicate_eval",

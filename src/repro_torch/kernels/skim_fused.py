@@ -20,7 +20,7 @@ uploaded once per (program, device) and cached by the program's
 identity for as long as the program lives, so one build serves every
 cascade stage and a call hashes nothing.  The look-back's status words
 live in a grow-only workspace per (device, stream), tagged with a
-per-call epoch (:class:`_Workspace`).
+per-call epoch (:class:`Workspace`, which ``stream_compact`` shares).
 """
 
 from __future__ import annotations
@@ -114,6 +114,12 @@ def program_descriptor(program: Program, device: torch.device):
     return _descriptor_entry(program, device)[0]
 
 
+def program_args(program: Program, device: torch.device):
+    """The program's eight descriptor pointers on ``device``, as the
+    kernels take them (cached with the descriptors)."""
+    return _descriptor_entry(program, device)[1]
+
+
 def _descriptor_entry(program: Program, device: torch.device):
     """((ints, floats, offsets), the eight kernel pointer arguments),
     cached by ``id(program)`` while the program lives."""
@@ -136,14 +142,16 @@ def _descriptor_entry(program: Program, device: torch.device):
     return entry
 
 
-class _Workspace:
-    """The look-back's status words (one per tile) and ticket counters
-    (one per window) on one (device, stream), grow-only, and the epoch of
-    its last launch.  Launches on one stream run in order, so one
-    workspace never serves two kernels at once.  Status words of earlier
-    epochs read as "not published"; at the epoch limit they are zeroed on
-    the stream and the epochs start again.  Each launch leaves its
-    counters at 0."""
+class Workspace:
+    """The look-back's status words and ticket counters on one (device,
+    stream), grow-only, and the epoch of its last launch: one workspace
+    for both compaction kernels (``skim_fused`` takes a status word a tile
+    and a ticket a window, ``stream_compact`` a word a tile and one
+    ticket), so one counter owns a stream's epochs.  Launches on one
+    stream run in order, so a workspace never serves two kernels at once.
+    Status words of earlier epochs read as "not published"; at the epoch
+    limit they are zeroed on the stream and the epochs start again.  Each
+    launch leaves its counters at 0."""
 
     _all: dict = {}
     _lock = threading.Lock()
@@ -224,19 +232,15 @@ def launch(who, terms, valid, weights, payload, program: Program):
     if B == 0 or E == 0:
         buf.zero_()
         return buf
-    _, args = _descriptor_entry(program, device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    status, tickets, epoch = _Workspace.reserve(
+    args = program_args(program, device)
+    stream = _build.stream_id(device)
+    status, tickets, epoch = Workspace.reserve(
         device, stream, B * -(-E // EVENT_TILE), B)
     p = _build.ptr
-    call = (p(terms), p(valid), p(weights), p(payload), B, T, G, E, K, D, *args,
-            p(status), p(tickets), epoch, ctypes.c_void_p(buf.data_ptr() + 4 * hdr),
-            p(buf), ctypes.c_void_p(stream))
-    if device.index is None or device.index == torch.cuda.current_device():
-        rc = _lib().skim_fused_launch(*call)
-    else:
-        with torch.cuda.device(device):
-            rc = _lib().skim_fused_launch(*call)
+    rc = _build.call_on(
+        device, _lib().skim_fused_launch, p(terms), p(valid), p(weights), p(payload),
+        B, T, G, E, K, D, *args, p(status), p(tickets), epoch,
+        ctypes.c_void_p(buf.data_ptr() + 4 * hdr), p(buf), ctypes.c_void_p(stream))
     _build.check_launch(who, rc)
     with _LAUNCHES_LOCK:
         launches[who] += KERNELS_PER_CALL
@@ -296,10 +300,12 @@ __all__ = [
     "EVENT_TILE",
     "KERNELS_PER_CALL",
     "MAX_WINDOWS",
+    "Workspace",
     "flatten_program",
     "header_words",
     "launch",
     "launches",
+    "program_args",
     "program_descriptor",
     "skim_fused",
     "skim_fused_batch",

@@ -1,10 +1,13 @@
 """The stream-compaction kernel (``csrc/stream_compact.cu``).
 
 Packs the rows of a payload where a mask is set to the front, in order,
-zeroes the rest and counts them.  The rows move as raw bits of their
+zeroes the rest and counts them, in one single-pass launch (decoupled
+look-back, ``csrc/compact.cuh``).  The rows move as raw bits of their
 element width, so every dtype of 1, 2, 4 or 8 bytes comes through exact
 (the JAX package's Pallas kernel routes them through a float32 matmul;
-ROADMAP C records where the two differ).
+ROADMAP C records where the two differ).  The look-back's status words
+and ticket come from the workspace ``skim_fused`` uses on the same
+stream (:class:`repro_torch.kernels.skim_fused.Workspace`).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version, :func:`repro_torch.kernels.ref.stream_compact_ref`.
@@ -19,12 +22,13 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.skim_fused import Workspace
 
-EVENT_TILE = 512  # rows per block (csrc/compact.cuh kTile)
+EVENT_TILE = 2048  # events per block (csrc/stream_compact.cu kTile)
 MASK_DTYPES = (torch.bool, torch.int32)
 
 launches = 0  # kernel launches through stream_compact(); never reset here
-KERNELS_PER_CALL = 2  # the ballot pass and the copy pass
+KERNELS_PER_CALL = 1  # single pass: one kernel a call
 _LAUNCHES_LOCK = threading.Lock()
 
 
@@ -32,7 +36,7 @@ def _fn():
     fn = _build.load("stream_compact").stream_compact_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, ctypes.c_longlong, i, i, p, p, p, p, p]
+        fn.argtypes = [p, p, i, ctypes.c_longlong, i, i, p, p, ctypes.c_uint, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -63,19 +67,17 @@ def stream_compact(payload: torch.Tensor, mask: torch.Tensor):
     out = torch.empty_like(payload)
     if E == 0:
         return out, torch.zeros((), dtype=torch.int32, device=device)
-    total = torch.empty(1, dtype=torch.int32, device=device)
-    words = torch.empty(-(-E // 32), dtype=torch.int32, device=device)
-    tile_counts = torch.empty(-(-E // EVENT_TILE), dtype=torch.int32, device=device)
+    total = torch.empty((), dtype=torch.int32, device=device)
+    stream = _build.stream_id(device)
+    status, ticket, epoch = Workspace.reserve(device, stream, -(-E // EVENT_TILE), 1)
     p = _build.ptr
-    with torch.cuda.device(device):
-        rc = _fn()(
-            p(payload), p(mask), mask.element_size(), E, D, width, p(words),
-            p(tile_counts), p(out), p(total), _build.stream_of(device),
-        )
+    rc = _build.call_on(device, _fn(), p(payload), p(mask), mask.element_size(), E, D,
+                        width, p(status), p(ticket), epoch, p(out), p(total),
+                        ctypes.c_void_p(stream))
     _build.check_launch("stream_compact", rc)
     with _LAUNCHES_LOCK:
         launches += KERNELS_PER_CALL
-    return out, total[0]
+    return out, total
 
 
 __all__ = ["EVENT_TILE", "KERNELS_PER_CALL", "MASK_DTYPES", "stream_compact"]

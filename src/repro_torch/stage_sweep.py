@@ -5,8 +5,8 @@
 On one card, for every cascade stage of the first 16-window batch of
 ``chip_smoke.py``'s three cells (quickstart and Z->ee on the NanoAOD-like
 store, the HT query on the conditions-era store), as ``run_window_batch``
-stages it: the device time of the parent's kernel
-(``chip_smoke.PARENT_STAGE_CU``, dense inputs), of the kernel with every
+stages it: the device time of the kernel's earlier design
+(``parent_stage_launch`` of ``chip_smoke.PARENT_CU``, dense inputs), of the kernel with every
 event of the staged windows dead (the launch's fixed cost: the zeroing of
 the summary, the launch, the mask read), and of the kernel under each
 shared-memory budget (``--budgets``, KiB: the tile ``stage_plan`` picks)
@@ -48,7 +48,7 @@ def main() -> int:
     device = torch.device("cuda")
     build = cs.start_parent_build()
     _build.build_all()
-    parent_stage = cs.finish_parent_build(*build)
+    parent = cs.finish_parent_build(*build)
     nano = make_nanoaod_like(cs.N_EVENTS, n_hlt=64, n_filler=8, seed=0)
     era = cs.make_era_store(cs.N_EVENTS)
     cases = []
@@ -76,7 +76,7 @@ def main() -> int:
     lanes, budget = pe.event_lanes, pe.SMEM_BUDGET
     records = [
         {"shapes": [[*c[2][0].shape, len(c[5]["row_list"])] for c in cases]},
-        sweep("parent", lambda c, pk: parent_stage(*c[2], pk, c[4], c[0], c[1])),
+        sweep("parent", lambda c, pk: parent.stage(*c[2], pk, c[4], c[0], c[1])),
         sweep("all dead", staged, dead=True),
     ]
     try:

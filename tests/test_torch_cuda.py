@@ -353,3 +353,106 @@ def test_cuda_two_threads_decode_rounds_at_once(cuda_device):
     for th in threads:
         th.join()
     assert not errors
+
+
+@pytest.mark.cuda
+def test_cuda_stream_compact_is_one_launch_per_call(cuda_device):
+    rng = np.random.default_rng(6)
+    payload = chip_smoke.compact_payload(rng, "float32", 100_000, 8).to(cuda_device)
+    mask = chip_smoke.compact_mask(rng, 100_000, 0.03, as_int=False).to(cuda_device)
+    want, n = ref.stream_compact_ref(payload, mask)
+    ops.reset_launch_counts()
+    for _ in range(5):
+        got, count = sc.stream_compact(payload, mask)
+    torch.cuda.synchronize()
+    assert sc.KERNELS_PER_CALL == 1
+    assert ops.launch_counts()["stream_compact"] == 5
+    assert int(count) == int(n) and chip_smoke.bit_err(got, want) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_two_streams_compact_at_once(cuda_device):
+    """Two threads, each on its own stream (so each with its own look-back
+    workspace), compacting at once: every result bit for bit the plain
+    version's."""
+    rng = np.random.default_rng(7)
+    work = []
+    for E, D, kind in ((300_000, 8, "float32"), (200_001, 3, "int64")):
+        payload = chip_smoke.compact_payload(rng, kind, E, D).to(cuda_device)
+        mask = chip_smoke.compact_mask(rng, E, 0.2, as_int=kind == "int64").to(cuda_device)
+        work.append((payload, mask, *ref.stream_compact_ref(payload, mask)))
+    torch.cuda.synchronize()
+    errors = []
+
+    def run(payload, mask, want, n):
+        stream = torch.cuda.Stream(cuda_device)
+        with torch.cuda.stream(stream):
+            for _ in range(30):
+                got, count = sc.stream_compact(payload, mask)
+                stream.synchronize()
+                if int(count) != int(n) or chip_smoke.bit_err(got, want) != 0.0:
+                    errors.append(tuple(payload.shape))
+
+    threads = [threading.Thread(target=run, args=w, name=f"compact-{i}")
+               for i, w in enumerate(work)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors
+
+
+@pytest.mark.cuda
+def test_cuda_skim_fused_and_stream_compact_share_one_workspace(cuda_device):
+    """Launches of the two compaction kernels interleaved on one stream
+    draw their epochs from one workspace; each stays bit for bit its plain
+    version (``skim_fused`` with the look-back now in compact.cuh)."""
+    rng = np.random.default_rng(8)
+    prog = dict(chip_smoke.sweep_programs())["ht"]
+    host = chip_smoke.sweep_inputs(rng, prog, 70_000, 4, 2)
+    t = [torch.from_numpy(x).to(cuda_device) for x in host]
+    skim_want, skim_n = ref.skim_fused_ref(*t, prog)
+    payload = chip_smoke.compact_payload(rng, "int32", 70_000, 4).to(cuda_device)
+    mask = chip_smoke.compact_mask(rng, 70_000, 0.5, as_int=True).to(cuda_device)
+    comp_want, comp_n = ref.stream_compact_ref(payload, mask)
+    key = (payload.device, torch.cuda.current_stream(cuda_device).cuda_stream)
+    epochs = []
+    for _ in range(10):
+        got, n = sf.skim_fused(*t, prog)
+        packed, count = sc.stream_compact(payload, mask)
+        epochs.append(sf.Workspace._all[key].epoch)
+        torch.cuda.synchronize()
+        assert int(n) == int(skim_n) and chip_smoke.bit_err(got, skim_want) == 0.0
+        assert int(count) == int(comp_n) and chip_smoke.bit_err(packed, comp_want) == 0.0
+    assert all(b - a == 2 for a, b in zip(epochs, epochs[1:]))
+
+
+@pytest.mark.cuda
+def test_cuda_predicate_eval_in_every_copy_mode(cuda_device):
+    """The mask launch at ragged E in its three copy modes: bulk copies
+    (bench_kernels' program, E*K % 4 == 0), 4-byte cp.async (E*K % 4 != 0;
+    a buffer one float off 16 bytes) and device memory (K = 512; a program
+    with a pair group), each equal to the plain version."""
+    rng = np.random.default_rng(9)
+    bench, *bench_planes = chip_smoke.bench_predicate(rng, 4096 + 37, cuda_device)
+    cases = [(bench, [x[None] for x in bench_planes], pe.MODE_BULK)]
+    for name, B, E, K, shift, mode in (("count", 2, 4097, 1, 0, pe.MODE_ASYNC4),
+                                       ("ht", 3, 1000, 8, 1, pe.MODE_ASYNC4),
+                                       ("count", 2, 40, 512, 0, pe.MODE_DIRECT),
+                                       ("dr_pair", 2, 301, 3, 0, pe.MODE_DIRECT)):
+        prog = dict(chip_smoke.sweep_programs())[name]
+        host = chip_smoke.batch_inputs(rng, prog, B, E, K, 128)
+        cases.append((prog, [chip_smoke.shifted(torch.from_numpy(x).to(cuda_device), shift)
+                             for x in host[:3]], mode))
+    for prog, (t, v, w), mode in cases:
+        B, T, E, K = t.shape
+        plan = pe.mask_plan((t, v, w), (T * E * K, v.shape[1] * E * K), E, K, prog)
+        assert plan[1] == mode
+        ops.reset_launch_counts()
+        got = pe.predicate_eval_batch(t, v, w, prog)
+        one = pe.predicate_eval(t[0], v[0], w[0], prog)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["predicate_eval_batch"] == 1
+        assert ops.launch_counts()["predicate_eval"] == 1
+        want = ref.predicate_eval_batch_ref(t, v, w, prog)
+        assert torch.equal(got, want) and torch.equal(one, want[0])
