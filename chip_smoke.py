@@ -60,7 +60,23 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    (and the kernels ``torch.profiler`` saw that call run);
    ``stream_compact`` also beside its earlier design, at bench_kernels'
    shapes, and step by step through its wrapper.
-4. One JSON line listing each kernel, then the device line last.
+   Then phase 3d, the serving plane, on the NanoAOD-like store, each step
+   with the launch counts set to 0 before it and read after: the shared
+   scan (``SharedScanEngine``) of the tenants quickstart, Z->ee and
+   quickstart, per window and with ``device_batch=16``, each tenant equal
+   in survivors and output bytes to its solo card run of phase 3, the
+   shared and per-tenant ledgers equal to the port's host run of the same
+   shared scan, with one ``basket_decode`` launch per decode round that
+   sends a bitpack miss to the card, one ``skim_fused`` launch per window
+   skim and one page-locked upload per stage step; the job service
+   (three tenants batched, columns equal to the solo runs, a job
+   cancelled after its first window keeping a prefix, the Chrome trace's
+   span kinds, a journaled service stopped and recovered streaming the
+   same partials); the cluster (4 nodes with replicas, serially and from
+   pool threads, a failed node served by its replica, then the same with
+   ``device_batch=16`` nodes, and a job through ``ClusterBackend``).
+4. One JSON line listing each kernel (its launches those of every main
+   path, the serving plane's included), then the device line last.
 
 It imports ``repro_torch`` only (never JAX or the JAX package), needs one
 card, and exits non-zero without a result where there is no card or no
@@ -2627,6 +2643,359 @@ def run_attention_path(rng, device) -> dict:
     return {"launches": launches, "cases": cases, "max_abs_err": max(errs.values())}
 
 
+# ---------------------------------------------------------------------------
+# phase 3d: the serving plane (shared scan, job service, cluster)
+# ---------------------------------------------------------------------------
+
+
+def output_columns(out) -> dict:
+    """Every branch of an output store as one array (jagged: its values)."""
+    return {name: (out.read_jagged(name)[0] if br.jagged else out.read_flat(name))
+            for name, br in out.branches.items()}
+
+
+def same_output(got, want) -> bool:
+    """Every output basket byte equal (the manifest hashes every blob)."""
+    return (got.manifest_hash() == want.manifest_hash()
+            and got._blobs == want._blobs)
+
+
+def same_columns(cols: dict, want: dict) -> bool:
+    return (sorted(cols) == sorted(want)
+            and all(cols[k].dtype == want[k].dtype
+                    and cols[k].tobytes() == want[k].tobytes() for k in want))
+
+
+def count_staging_allocs():
+    """Count, until the returned ``restore()``, the buffers the kernels'
+    per-thread staging (``ops._Staging``) allocates anew, on any thread,
+    how many are page-locked, and the seconds those allocations take.
+    Returns (counts, restore)."""
+    from repro_torch.kernels import ops
+
+    counts = {"allocs": 0, "pinned": 0, "seconds": 0.0}
+    lock, buffer = threading.Lock(), ops._Staging.buffer
+
+    def counting(self, device, name, n, dtype, pinned=False):
+        before = self.buffers.get((device, name))
+        t0 = time.perf_counter()
+        out = buffer(self, device, name, n, dtype, pinned)
+        if self.buffers.get((device, name)) is not before:
+            with lock:
+                counts["allocs"] += 1
+                counts["pinned"] += pinned
+                counts["seconds"] += time.perf_counter() - t0
+        return out
+
+    ops._Staging.buffer = counting
+
+    def restore():
+        ops._Staging.buffer = buffer
+
+    return counts, restore
+
+
+class Launches:
+    """The launch counts and the dispatch ledger of one step: set to 0 on
+    entry, read on exit (``.launches``, ``.dispatches``)."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import ops
+
+        self._ops = ops
+        self._d0 = ops.dispatch_stats()["dispatches"]
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.synchronize()
+        self.wall_s = time.perf_counter() - self._t0
+        self.launches = self._ops.launch_counts()
+        self.dispatches = self._ops.dispatch_stats()["dispatches"] - self._d0
+        return False
+
+
+def shared_scan_step(label, store, host_store, tenants, solo, batch=None,
+                     per_window=None) -> dict:
+    """``SharedScanEngine(store).run_batch(tenants)`` on the card: each
+    tenant's survivors and output bytes held against its solo card run
+    (phase 3), the shared ledger and each tenant's ledgers against the
+    port's host run of the same shared scan; one ``basket_decode`` launch
+    per decode round with a bitpack miss and, per window, one
+    ``skim_fused`` launch per window skim; with ``batch``, stage steps of
+    one page-locked upload each, and outputs equal to the per-window
+    shared scan."""
+    from repro_torch.serve import SharedScanEngine
+
+    queries = [q for _, q in tenants]
+    stats0 = store.decode_backend_stats()
+    counts, restore = count_calls(store)
+    uploads, restore_uploads = count_uploads()
+    try:
+        with Launches() as step:
+            res = SharedScanEngine(store, device_batch=batch).run_batch(queries)
+    finally:
+        restore()
+        restore_uploads()
+    dec = store.decode_backend_stats()
+    t0 = time.perf_counter()
+    host = SharedScanEngine(host_store, device="cpu",
+                            device_batch=batch).run_batch(queries)
+    host_s = time.perf_counter() - t0
+    launches, name = step.launches, f"shared scan, {label}"
+    n_events = store.n_events * len(tenants)
+    log(f"  [{name}] {[r.n_passed for r in res.results]} survivors of "
+        f"{store.n_events:,} events x {len(tenants)} tenants in "
+        f"{step.wall_s:.3f} s wall ({n_events / step.wall_s:,.0f} tenant-events/s); "
+        f"amortization {res.amortization:.4f}, saved {res.saved_bytes} B "
+        f"(shared {res.shared_stats.bytes_fetched} B, naive "
+        f"{res.naive_phase1_bytes} B); launches {launches}; device_dispatches "
+        f"{step.dispatches}; decode rounds with a bitpack miss "
+        f"{counts['device_rounds']}, window skims {counts['window_skims']}; "
+        f"the host run {host_s:.3f} s")
+    check(launches["basket_decode"] > 0, f"{name}: basket_decode never launched")
+    check(launches["basket_decode"] == counts["device_rounds"],
+          f"{name}: {launches['basket_decode']} decode launches for "
+          f"{counts['device_rounds']} rounds with a bitpack miss")
+    check(launches["skim_fused"] == counts["window_skims"],
+          f"{name}: {launches['skim_fused']} skim_fused launches for "
+          f"{counts['window_skims']} calls")
+    check(dec["fallbacks"] == stats0["fallbacks"],
+          f"{name}: {dec['fallbacks'] - stats0['fallbacks']} decode fallbacks")
+    if batch:
+        check(launches["cascade_stage"] > 0, f"{name}: cascade_stage never launched")
+        check(0 < uploads["calls"] <= launches["cascade_stage"]
+              and uploads["step_uploads"] == uploads["calls"]
+              and uploads["step_pageable"] == 0,
+              f"{name}: {uploads['step_uploads']} host-to-device copies "
+              f"({uploads['step_pageable']} pageable) in {uploads['calls']} "
+              "stage steps: not one page-locked copy a step")
+    else:
+        check(launches["skim_fused"] > 0, f"{name}: skim_fused never launched")
+    check(res.amortization > 1, f"{name}: amortization {res.amortization} <= 1")
+    check(fetch_row(res.shared_stats) == fetch_row(host.shared_stats),
+          f"{name}: shared_stats differ from the host shared scan")
+    for i, ((tenant, _), got, ref_) in enumerate(zip(tenants, res.results, host.results)):
+        want = solo[tenant]
+        check(got.n_passed == want.n_passed,
+              f"{name}: tenant {i} ({tenant}) {got.n_passed} survivors vs "
+              f"{want.n_passed} solo")
+        check(same_output(got.output, want.output),
+              f"{name}: tenant {i} ({tenant}) output differs from its solo card run")
+        check(fetch_row(got.stats) == fetch_row(ref_.stats),
+              f"{name}: tenant {i} FetchStats differ from the host shared scan")
+        for key in ("cascade_stages", "cascade_order"):
+            check(got.extras.get(key) == ref_.extras.get(key),
+                  f"{name}: tenant {i} {key} differs from the host shared scan")
+        if per_window is not None:
+            check(same_output(got.output, per_window.results[i].output),
+                  f"{name}: tenant {i} output differs from the per-window shared scan")
+    log(f"  [{name}] every tenant's survivors and output bytes equal its solo card "
+        "run; shared_stats, each tenant's FetchStats and cascade ledgers equal "
+        "the host shared scan")
+    return {"wall_s": step.wall_s, "tenant_events_per_s": n_events / step.wall_s,
+            "amortization": res.amortization, "saved_bytes": res.saved_bytes,
+            "launches": launches, "device_dispatches": step.dispatches,
+            "host_s": host_s, "res": res}
+
+
+def service_step(store, tenants, solo) -> dict:
+    """The job service on the card: three tenants batched into one shared
+    pass, every job DONE with the solo card run's columns; a fourth job
+    cancelled after its first window keeps a prefix of the stream; the
+    Chrome trace holds the lifecycle and engine spans; a journaled
+    service stopped mid-run and recovered streams the same partials as
+    one that ran through."""
+    from repro_torch.obs import trace_json
+    from repro_torch.serve import (
+        EngineBackend,
+        JobJournal,
+        ManualClock,
+        SkimService,
+        union_columns,
+    )
+
+    with Launches() as step:
+        svc = SkimService(EngineBackend(store), clock=ManualClock(), batching=True,
+                          tracing=True, calibrate=True)
+        jobs = [svc.submit(q, tenant=f"t{i}") for i, (_, q) in enumerate(tenants)]
+        svc.run_until_idle()
+    quanta = svc.executor.quanta
+    for i, ((tenant, _), job) in enumerate(zip(tenants, jobs)):
+        check(job.state == "DONE", f"service: job {job.job_id} ended {job.state}")
+        cols, _ = union_columns(job)
+        check(same_columns(cols, solo[tenant + "_cols"]),
+              f"service: job {job.job_id} ({tenant}) columns differ from its solo "
+              "card run")
+        check(same_output(job.result.output, solo[tenant].output),
+              f"service: job {job.job_id} ({tenant}) output differs from its solo "
+              "card run")
+
+    # cancelled after its first streamed window: a prefix of the stream
+    first = jobs[0]
+    late = svc.submit(tenants[0][1], tenant="late")
+    stream = svc.stream(late.job_id)
+    next(stream)
+    svc.cancel(late.job_id)
+    rest = list(stream)
+    check(late.state == "CANCELLED" and not rest and len(late.partials) == 1,
+          f"service: the cancelled job ended {late.state} with "
+          f"{len(late.partials)} partials")
+    for got, want in zip(late.partials, first.partials):
+        check((got.start, got.stop, got.n_passed) == (want.start, want.stop,
+                                                     want.n_passed)
+              and same_columns(got.cols, want.cols),
+              "service: the cancelled job's partials are not a prefix of the "
+              "solo run's windows")
+
+    doc = json.loads(trace_json(svc.export_trace()))
+    kinds = {e.get("cat") for e in doc["traceEvents"]}
+    need = {"job", "admission", "queue", "query", "window", "fetch"}
+    check(need <= kinds, f"service: the trace lacks span kinds {sorted(need - kinds)}")
+    # a decode span names its tier: "decode_device" where the card decodes
+    check("decode_device" in kinds,
+          f"service: the trace holds no card decode span: {sorted(kinds - {None})}")
+
+    # stop a journaled service after two windows, recover it, compare
+    query = tenants[1][1]
+    ref_svc = SkimService(EngineBackend(store), clock=ManualClock(),
+                          journal=JobJournal())
+    ref_job = ref_svc.result(ref_svc.submit(query, tenant="r").job_id)
+    journal = JobJournal()
+    crashed = SkimService(EngineBackend(store), clock=ManualClock(), journal=journal)
+    job = crashed.submit(query, tenant="r")
+    while len(job.partials) < 2:
+        check(crashed.step(), "service: stalled before the crash point")
+    recovered = SkimService.recover(journal, EngineBackend(store), clock=ManualClock())
+    done = recovered.result(job.job_id)
+    check(done.state == "DONE" and done.resume_skip == 2,
+          f"service: the recovered job ended {done.state}, skip {done.resume_skip}")
+    check(done.windows_streamed() == ref_job.windows_streamed()[2:]
+          and all(a.n_passed == b.n_passed and same_columns(a.cols, b.cols)
+                  for a, b in zip(done.partials, ref_job.partials[2:]))
+          and same_output(done.result.output, ref_job.result.output),
+          "service: the recovered stream differs from the uninterrupted one")
+    log(f"  [service] {len(jobs)} batched jobs DONE in {step.wall_s:.3f} s wall "
+        f"({store.n_events * len(jobs) / step.wall_s:,.0f} tenant-events/s), "
+        f"{quanta} quanta; launches {step.launches}; device_dispatches "
+        f"{step.dispatches}; columns equal the solo card runs; the cancelled job "
+        f"kept {len(late.partials)} partial (a prefix); the trace holds "
+        f"{sorted(kinds - {None})}; the recovered job streamed "
+        f"{len(done.partials)} partials equal to the uninterrupted run's suffix")
+    return {"wall_s": step.wall_s, "quanta": quanta, "launches": step.launches,
+            "device_dispatches": step.dispatches,
+            "tenant_events_per_s": store.n_events * len(jobs) / step.wall_s}
+
+
+def cluster_step(store, tenants, solo, batch=None, shards=None) -> dict:
+    """A 4-node cluster with replicas on the card: ``build_cluster(store,
+    4, replication=True, concurrency="threads")`` (or, with ``batch``,
+    nodes over the same ``shards`` that batch ``batch`` windows a cascade
+    stage); the merged output of each query equal to its solo card run,
+    from pool threads and serially (a serial coordinator over the same
+    nodes), then with node 1 failed (the replica serves, the retry
+    ledgered), then one job through ``SkimService(ClusterBackend(...))``.
+    The build's launches (re-basketing the shards reads every basket) are
+    counted apart from the runs'."""
+    from repro_torch.cluster import ClusterCoordinator, StorageNode, build_cluster
+    from repro_torch.serve import ClusterBackend, ManualClock, SkimService
+
+    name = "cluster" + (f", device_batch={batch}" if batch else "")
+    queries = dict(tenants)
+    with Launches() as build:
+        if shards is None:
+            coord = build_cluster(store, 4, replication=True, concurrency="threads")
+        else:
+            n = len(shards)
+            coord = ClusterCoordinator(
+                [StorageNode(sh, device_batch=batch) for sh in shards],
+                replicas={sh.shard_id: StorageNode(sh, node_id=n + sh.shard_id,
+                                                   device_batch=batch)
+                          for sh in shards},
+                concurrency="threads", basket_events=store.basket_events,
+                codec=store.codec)
+    serial = ClusterCoordinator(coord.nodes, replicas=coord.replicas,
+                                concurrency="serial",
+                                basket_events=store.basket_events, codec=store.codec)
+    walls, allocs = {}, {}
+    with Launches() as step:
+        for conc, c in (("serial", serial), ("threads", coord)):
+            allocs[conc], restore = count_staging_allocs()
+            t0 = time.perf_counter()
+            try:
+                for tenant, q in queries.items():
+                    res = c.run(q)
+                    check(res.n_passed == solo[tenant].n_passed
+                          and same_output(res.output, solo[tenant].output),
+                          f"{name} ({conc}): {tenant} output differs from its "
+                          "solo card run")
+            finally:
+                restore()
+            walls[conc] = time.perf_counter() - t0
+        coord.nodes[1].inject_fault("fail")
+        failed = coord.run(queries["quickstart"])
+        check(same_output(failed.output, solo["quickstart"].output),
+              f"{name}: output with node 1 failed differs from the solo card run")
+        check(failed.retries and failed.retries[0][0] == 1
+              and failed.extras["retry_attempts"] >= 1,
+              f"{name}: the replica retry is not ledgered: {failed.retries}, "
+              f"{failed.extras.get('retry_attempts')}")
+        svc = SkimService(ClusterBackend(coord), clock=ManualClock())
+        job = svc.submit(queries["zee"], tenant="c")
+        svc.run_until_idle()
+        check(job.state == "DONE" and same_output(job.result.output,
+                                                  solo["zee"].output),
+              f"{name}: the service job over the cluster ended {job.state}")
+    launches = step.launches
+    # batched nodes run every stage of an all-cascade query as cascade_stage
+    kernels = ("basket_decode", "cascade_stage") if batch else (
+        "basket_decode", "skim_fused")
+    for kernel in kernels:
+        check(launches[kernel] > 0, f"{name}: {kernel} never launched")
+    log(f"  [{name}] built in {build.wall_s:.3f} s (launches {build.launches}); "
+        f"4 nodes + 4 replicas: both queries equal their solo card runs, from "
+        f"pool threads in {walls['threads']:.3f} s and serially in "
+        f"{walls['serial']:.3f} s wall (staging buffers allocated: threads "
+        f"{allocs['threads']}, serial {allocs['serial']}); node 1 failed: retries "
+        f"{failed.retries}, "
+        f"retry_attempts {failed.extras['retry_attempts']}, output equal; a service "
+        f"job over the cluster DONE; launches {launches}; device_dispatches "
+        f"{step.dispatches} (threads add to one process-wide ledger)")
+    total = {k: launches[k] + build.launches[k] for k in launches}
+    return {"serial_s": walls["serial"], "threads_s": walls["threads"],
+            "build_s": build.wall_s, "wall_s": step.wall_s, "launches": total,
+            "staging_allocs": allocs,
+            "build_launches": build.launches, "device_dispatches": step.dispatches,
+            "shards": [node.shard for node in coord.nodes]}
+
+
+def run_serving_plane(store, host_store, results) -> dict:
+    """Phase 3d at full size on the NanoAOD-like store: tenants quickstart,
+    Z->ee and quickstart again, each held against its solo card run of
+    phase 3 (itself held there against the staged reference)."""
+    tenants = [("quickstart", QUICKSTART_QUERY), ("zee", zee_query(store.n_events)),
+               ("quickstart", QUICKSTART_QUERY)]
+    solo = {}
+    for label in ("quickstart", "zee"):
+        solo[label] = results[label]["res"]
+        solo[label + "_cols"] = output_columns(solo[label].output)
+    out = {"shared": shared_scan_step("per window", store, host_store, tenants, solo)}
+    out["shared_batched"] = shared_scan_step(
+        "device_batch=16", store, host_store, tenants, solo, batch=16,
+        per_window=out["shared"]["res"])
+    out["service"] = service_step(store, tenants, solo)
+    out["cluster"] = cluster_step(store, tenants, solo)
+    out["cluster_batched"] = cluster_step(store, tenants, solo, batch=16,
+                                          shards=out["cluster"]["shards"])
+    return out
+
+
 def device_busy(label, query, store, **kw) -> None:
     """One more run of the main path under ``torch.profiler``: the device
     time of every kernel over the run's wall time, and the kernels that
@@ -2780,7 +3149,7 @@ def main() -> int:
     compact = run_compact_path(store, host_store, results["quickstart"]["n_passed"],
                                device)
     attention = run_attention_path(rng, device)
-    log("== 3d. timing of the three at their paths' shapes (stream_compact also "
+    log("== 3c. timing of the three at their paths' shapes (stream_compact also "
         "at bench_kernels' shapes) ==")
     timing.update(time_kernels(
         batch_cases=[r["case"] for r in fused_batch.values()],
@@ -2789,6 +3158,16 @@ def main() -> int:
         attn_cases=attention["cases"],
         parent=parent,
     ))
+
+    log("== 3d. the serving plane: shared scan, job service, cluster, on the "
+        f"{N_EVENTS:,}-event NanoAOD-like store ==")
+    t0 = time.perf_counter()
+    serving = run_serving_plane(store, host_store, results)
+    serving_s = time.perf_counter() - t0
+    for step in serving.values():
+        for k, v in step["launches"].items():
+            totals[k] += v
+    log(f"  phase 3d took {serving_s:.1f} s ({card})")
 
     kernels = [
         {"name": "skim_fused", "route": "cuda",
@@ -2846,6 +3225,9 @@ def main() -> int:
              "stage_upload_bytes": r["uploads"]["step_bytes"],
              "upload_bytes": r["uploads"]["bytes"]}
          for k, r in batched.items()}))
+    log("serving plane (" + card + "): " + json.dumps(
+        {k: {f: v for f, v in r.items() if f not in ("res", "shards")}
+         for k, r in serving.items()}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,15 @@
-"""Observability: span tracing and the versioned result report schema
-(DESIGN.md §13).  Everything is off (no-op tracer) unless a caller opts
-in."""
+"""Observability: span tracing, metrics, and the versioned result
+report schema (DESIGN.md §13).  Everything is off (no-op tracer) unless
+a caller opts in."""
 
+from repro_torch.obs.metrics import (
+    MetricsRegistry,
+    collect_cache_metrics,
+    observed_phase2_bytes,
+    observed_stage_bytes,
+    priced_stage_bytes,
+    unified_cache_report,
+)
 from repro_torch.obs.schema import KNOWN_EXTRAS, SCHEMA_VERSION, SkimReport, make_extras
 from repro_torch.obs.trace import (
     NULL_TRACER,
@@ -15,6 +23,7 @@ from repro_torch.obs.trace import (
 
 __all__ = [
     "KNOWN_EXTRAS",
+    "MetricsRegistry",
     "NULL_TRACER",
     "NullTracer",
     "SCHEMA_VERSION",
@@ -22,7 +31,12 @@ __all__ = [
     "Span",
     "Tracer",
     "chrome_trace",
+    "collect_cache_metrics",
     "dump_chrome_trace",
     "make_extras",
+    "observed_phase2_bytes",
+    "observed_stage_bytes",
+    "priced_stage_bytes",
     "trace_json",
+    "unified_cache_report",
 ]

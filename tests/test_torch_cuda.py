@@ -456,3 +456,60 @@ def test_cuda_predicate_eval_in_every_copy_mode(cuda_device):
         assert ops.launch_counts()["predicate_eval"] == 1
         want = ref.predicate_eval_batch_ref(t, v, w, prog)
         assert torch.equal(got, want) and torch.equal(one, want[0])
+
+
+# ---------------------------------------------------------------------------
+# the serving plane on the card: shared scan and cluster
+# ---------------------------------------------------------------------------
+
+
+def _serving_stores():
+    store = make_nanoaod_like(20_000, n_hlt=16, n_filler=4)
+    host = make_nanoaod_like(20_000, n_hlt=16, n_filler=4, device="cpu")
+    return store, host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_batch", [None, 3])
+def test_cuda_shared_scan_matches_the_host(cuda_device, device_batch):
+    from repro_torch.serve import SharedScanEngine
+
+    store, host = _serving_stores()
+    tenants = [chip_smoke.QUICKSTART_QUERY, chip_smoke.zee_query(20_000)]
+    ops.reset_launch_counts()
+    got = SharedScanEngine(store, device_batch=device_batch).run_batch(tenants)
+    launches = ops.launch_counts()
+    want = SharedScanEngine(host, device="cpu",
+                            device_batch=device_batch).run_batch(tenants)
+    assert launches["basket_decode"] > 0
+    if device_batch:
+        assert launches["cascade_stage"] > 0 and launches["skim_fused"] == 0
+    else:
+        assert launches["skim_fused"] > 0
+    assert chip_smoke.fetch_row(got.shared_stats) == chip_smoke.fetch_row(
+        want.shared_stats)
+    assert got.amortization == want.amortization > 1
+    for res, ref_ in zip(got.results, want.results):
+        assert res.n_passed == ref_.n_passed > 0
+        assert res.output._blobs == ref_.output._blobs
+        assert chip_smoke.fetch_row(res.stats) == chip_smoke.fetch_row(ref_.stats)
+        for key in ("cascade_stages", "cascade_order"):
+            assert res.extras[key] == ref_.extras[key], key
+
+
+@pytest.mark.cuda
+def test_cuda_threaded_cluster_matches_the_host(cuda_device):
+    """Three nodes' skims run from pool threads onto one card."""
+    from repro_torch.cluster import build_cluster
+
+    store, host = _serving_stores()
+    q = chip_smoke.QUICKSTART_QUERY
+    ops.reset_launch_counts()
+    got = build_cluster(store, 3, concurrency="threads").run(q)
+    launches = ops.launch_counts()
+    want = build_cluster(host, 3, device="cpu").run(q)
+    assert launches["skim_fused"] > 0 and launches["basket_decode"] > 0
+    assert got.n_passed == want.n_passed > 0
+    assert got.output.manifest_hash() == want.output.manifest_hash()
+    assert got.output._blobs == want.output._blobs
+    assert chip_smoke.fetch_row(got.stats) == chip_smoke.fetch_row(want.stats)

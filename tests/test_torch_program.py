@@ -188,6 +188,17 @@ GUARD = textwrap.dedent(
     assert 0 < res.n_passed < 3000, res.n_passed
     batched = run_skim(store, q, device="cpu", fused_backend="torch", device_batch=3)
     assert batched.n_passed == res.n_passed and batched.extras["device_batch"] == 3
+    from repro_torch.cluster import build_cluster
+    from repro_torch.serve import EngineBackend, ManualClock, SkimService
+    svc = SkimService(EngineBackend(store, device="cpu"), clock=ManualClock(),
+                      tracing=True)
+    job = svc.submit(q, tenant="t")
+    svc.run_until_idle()
+    assert job.state == "DONE" and job.n_passed == res.n_passed, job.state
+    assert svc.export_trace()["traceEvents"]
+    merged = build_cluster(store, 2, device="cpu", concurrency="threads").run(q)
+    assert merged.n_passed == res.n_passed
+    assert merged.output.manifest_hash() == res.output.manifest_hash()
     import numpy as np
     from repro_torch.kernels import ops
     rng = np.random.default_rng(0)
