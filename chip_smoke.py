@@ -75,8 +75,22 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    same partials); the cluster (4 nodes with replicas, serially and from
    pool threads, a failed node served by its replica, then the same with
    ``device_batch=16`` nodes, and a job through ``ClusterBackend``).
+   Then phase 3e, the mesh skim (``neardata.sharded_skim``) on the whole
+   NanoAOD-like store, padded at the K that truncates no object, for the
+   quickstart and Z->ee queries: (a) NCCL at world size 1, mesh (1, 1, 1)
+   (``pod``, ``data``, ``model``), the group started from a ``HashStore``:
+   the total equals phase 3's survivors, the mask and the packed rows equal
+   the plain versions on the same tensors bit for bit, one
+   ``predicate_eval`` and one ``stream_compact`` launch a call; then the
+   step's host-to-host time, each kernel's device time beside its bound
+   and the ``all_reduce``'s time; (b) four ranks on the one card over gloo
+   (NCCL takes one rank a card), mesh (2, 2, 1), spawned and met through a
+   ``FileStore``, each mapping (a)'s saved arrays and reading only its
+   block: each block equals the plain compaction of its slice of (a)'s
+   mask, each total (a)'s, one launch of each kernel a rank.
 4. One JSON line listing each kernel (its launches those of every main
-   path, the serving plane's included), then the device line last.
+   path, the serving plane's and the mesh skim's included), then the
+   device line last.
 
 It imports ``repro_torch`` only (never JAX or the JAX package), needs one
 card, and exits non-zero without a result where there is no card or no
@@ -2996,6 +3010,293 @@ def run_serving_plane(store, host_store, results) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3e: the mesh skim (sharded_skim over torch.distributed)
+# ---------------------------------------------------------------------------
+
+MESH_NAMES = ("pod", "data", "model")
+MESH_RANKS = (2, 2, 1)  # four ranks on the one card, over gloo
+MESH_ARRAYS = ("terms", "valid", "weights", "payload")
+MESH_RANK_TIMEOUT_S = 300
+
+
+def mesh_inputs(query, host_store):
+    """The whole store's padded inputs for ``query``'s filter branches (host
+    numpy), at the K that truncates no object (``window_pad_K``), the
+    payload the event index and ``MET_pt``."""
+    from repro_torch.core import parse_query
+    from repro_torch.core.neardata import build_padded_inputs, compile_query, window_pad_K
+
+    q = parse_query(query)
+    program = compile_query(q)
+    data = {}
+    for b in sorted(set(q.filter_branches())):
+        br = host_store.branches.get(b)
+        if br is None:
+            continue  # an absent trigger branch: the zero page
+        if br.jagged:
+            data[b], data[br.counts_branch] = host_store.read_jagged(b)
+        else:
+            data[b] = host_store.read_flat(b)
+    K = window_pad_K(data, program, host_store)
+    pb = build_padded_inputs(data, program, host_store, K=K, include_index=True,
+                             payload_branches=["MET_pt"], to_device=False)
+    return program, pb
+
+
+def mesh_shard(mesh, names, axes=("pod", "data")) -> tuple[int, int]:
+    """(this rank's shard, the number of shards): row-major over the data
+    axes of the mesh, the first outermost (``sharded_skim``'s layout)."""
+    shard, n = 0, 1
+    for d, a in enumerate(names):
+        if a in axes:
+            shard = shard * mesh.size(d) + mesh.get_local_rank(d)
+            n *= mesh.size(d)
+    return shard, n
+
+
+def run_mesh_world1(cases, results, device, tmp) -> dict:
+    """Phase 3e (a): ``sharded_skim`` at world size 1, mesh (1, 1, 1), NCCL
+    (gloo for a CPU rehearsal), the group started from a ``HashStore``: no
+    port is opened.  Per query: the total equals phase 3's survivors, the
+    mask and the packed rows equal the plain versions on the same tensors
+    bit for bit, one ``predicate_eval`` and one ``stream_compact`` launch a
+    call; then the step's host-to-host time, each kernel's device time at
+    the shard's shapes beside its bound, and the all_reduce's time.  Saves
+    each query's arrays and mask to ``tmp`` for (b)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.neardata import sharded_skim
+    from repro_torch.kernels import predicate_eval as pe
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stream_compact as sc
+
+    if device.type == "cuda":
+        torch.cuda.set_device(device.index or 0)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = init_device_mesh(device.type, (1, 1, 1), mesh_dim_names=MESH_NAMES)
+        for label, program, pb in cases:
+            arrays = [getattr(pb, name) for name in MESH_ARRAYS]
+            (T, E, K), G, D = pb.terms.shape, pb.valid.shape[0], pb.payload.shape[1]
+            fn = sharded_skim(mesh, program)
+            with Launches() as step:
+                packed, mask, total = fn(*arrays)
+            n = int(total)
+            launches = {k: v for k, v in step.launches.items() if v}
+            check(n == results[label]["n_passed"],
+                  f"mesh skim [{label}]: total {n}, phase 3 passed "
+                  f"{results[label]['n_passed']}")
+            check(launches == {"predicate_eval": 1, "stream_compact": 1},
+                  f"mesh skim [{label}]: launches {launches}, not one predicate_eval "
+                  "and one stream_compact")
+            t, v, w, p = (torch.from_numpy(x).to(device) for x in arrays)
+            want = ref.predicate_eval_ref(t, v, w, program)
+            want_packed, want_n = ref.stream_compact_ref(p, want)
+            mask_err = float((mask - want.to(torch.int32)).abs().max())
+            check(mask_err == 0 and mask.dtype == torch.int32,
+                  f"mesh skim [{label}]: the mask differs from predicate_eval_ref")
+            check(int(want_n) == n and torch.equal(packed.view(torch.int32),
+                                                   want_packed.view(torch.int32)),
+                  f"mesh skim [{label}]: packed rows differ from stream_compact_ref")
+            check(packed[:n, 0].to(torch.int64).equal(torch.nonzero(want).squeeze(1)),
+                  f"mesh skim [{label}]: the packed event indices are not the survivors")
+            (tmp / label).mkdir()
+            for name, x in zip(MESH_ARRAYS, arrays):
+                np.save(tmp / label / f"{name}.npy", x)
+            np.save(tmp / label / "mask.npy", mask.cpu().numpy())
+
+            def call():
+                return int(fn(*arrays)[2])
+
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                call()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            fn_ms = sorted(walls)[len(walls) // 2]
+            keep = mask != 0
+            n_read = bin(pe.planes_read(program) & ((1 << (T + 2 * G)) - 1)).count("1")
+            pe_bound = bound_times(4 * (n_read * E * K + E), E * K * (T + 4 * G))
+            row_bytes = 4 * D
+            sc_bound = bound_times(E * keep.element_size() + n * row_bytes
+                                   + E * row_bytes + 4, E)
+            count = torch.zeros((), dtype=torch.int32, device=device)
+            group = mesh.get_group(MESH_NAMES.index("data"))
+
+            def reduce():
+                dist.all_reduce(count, group=group)
+                torch.cuda.synchronize()
+
+            row = {
+                "T": T, "G": G, "E": E, "K": K, "D": D, "total": n,
+                "launches": launches, "mask_err": mask_err,
+                "fn_ms": fn_ms, "fn_walls_ms": walls,
+                "predicate_eval_ms": device_ms(lambda: pe.predicate_eval(t, v, w, program)),
+                "predicate_eval_bound_ms": max(pe_bound),
+                "stream_compact_ms": device_ms(lambda: sc.stream_compact(p, keep)),
+                "stream_compact_bound_ms": max(sc_bound),
+                "all_reduce_ms": host_ms(reduce, calls=50),
+            }
+            out[label] = row
+            log(f"  [{label}] (a) world size 1, mesh (1, 1, 1) {MESH_NAMES}, "
+                f"{dist.get_backend()}: T={T} G={G} E={E} K={K} D={D}; total {n} "
+                f"(phase 3: {results[label]['n_passed']}); mask and packed rows equal "
+                f"predicate_eval_ref and stream_compact_ref on the same tensors bit "
+                f"for bit; launches {launches}")
+            log(f"  [{label}] (a) fn host to host {fn_ms:.3f} ms (median of 5: numpy "
+                f"in, the shard uploaded, the total read back; {[round(x, 3) for x in walls]}); "
+                f"predicate_eval {row['predicate_eval_ms']:.5f} ms on the device (bound "
+                f"{row['predicate_eval_bound_ms']:.5f}: {n_read} planes read); "
+                f"stream_compact {row['stream_compact_ms']:.5f} ms (bound "
+                f"{row['stream_compact_bound_ms']:.5f}); all_reduce of the count "
+                f"{row['all_reduce_ms']:.5f} ms host to host")
+            del t, v, w, p, want, want_packed, packed, mask, keep
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def mesh_rank(rank, n, tmp, cases, device_type, shape) -> None:
+    """One rank of phase 3e (b), spawned: the group over gloo from a
+    ``FileStore`` in ``tmp``, ``sharded_skim`` over ``shape`` on each
+    query's arrays mapped from (a)'s files (only this rank's block is
+    read).  Writes ``rank<r>.json``: its launches, whether its block equals
+    the plain compaction of its slice of (a)'s mask, its total."""
+    import datetime
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import parse_query
+    from repro_torch.core.neardata import compile_query, sharded_skim
+    from repro_torch.kernels import ops, ref
+
+    tmp = Path(tmp)
+    on_card = device_type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "rendezvous"), n),
+                            rank=rank, world_size=n,
+                            timeout=datetime.timedelta(seconds=MESH_RANK_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh(device_type, shape, mesh_dim_names=MESH_NAMES)
+        shard, n_shards = mesh_shard(mesh, MESH_NAMES)
+        device = torch.device("cuda", 0) if on_card else torch.device("cpu")
+        report = {"rank": rank, "shard": shard, "n_shards": n_shards}
+        for label, query in cases:
+            program = compile_query(parse_query(query))
+            arrays = [np.load(tmp / label / f"{name}.npy", mmap_mode="r")
+                      for name in MESH_ARRAYS]
+            fn = sharded_skim(mesh, program)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            packed, mask, total = fn(*arrays)
+            if on_card:
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+            size = arrays[3].shape[0] // n_shards
+            rows = slice(shard * size, (shard + 1) * size)
+            want_mask = torch.from_numpy(
+                np.load(tmp / label / "mask.npy", mmap_mode="r")[rows].copy()).to(device)
+            payload = torch.from_numpy(np.array(arrays[3][rows])).to(device)
+            want, want_n = ref.stream_compact_ref(payload, want_mask)
+            report[label] = {
+                "launches": launches, "total": int(total), "wall_ms": wall_ms,
+                "rows": [rows.start, rows.stop], "kept": int(want_n),
+                "mask_equal": bool(torch.equal(mask, want_mask)),
+                "packed_equal": bool(torch.equal(packed.view(torch.int32),
+                                                 want.view(torch.int32))),
+            }
+        (tmp / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_ranks(cases, world1, device, tmp) -> dict:
+    """Phase 3e (b): four ranks on one card over gloo (NCCL refuses two
+    ranks on one GPU), mesh (2, 2, 1), spawned with ``torch.multiprocessing``
+    and met through a ``FileStore``; each rank's block must equal the plain
+    compaction of its slice of (a)'s mask, its total (a)'s, with one launch
+    of each kernel a call.  A rank that fails, or does not end within
+    :data:`MESH_RANK_TIMEOUT_S`, fails the phase; every rank is stopped."""
+    import torch.multiprocessing as mp
+
+    n = MESH_RANKS[0] * MESH_RANKS[1] * MESH_RANKS[2]
+    ctx = mp.start_processes(
+        mesh_rank, args=(n, str(tmp), [(label, query) for label, query in cases],
+                         device.type, MESH_RANKS),
+        nprocs=n, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"mesh skim (b): the ranks did not end within {MESH_RANK_TIMEOUT_S} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as exc:
+        raise SmokeFailure(f"mesh skim (b): a rank failed: {exc}") from exc
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(10)
+    reports = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(n)]
+    shards = sorted(r["shard"] for r in reports)
+    check(shards == list(range(4)) and all(r["n_shards"] == 4 for r in reports),
+          f"mesh skim (b): shards {shards}")
+    launches = dict.fromkeys(("predicate_eval", "stream_compact"), 0)
+    for label, _ in cases:
+        for r in reports:
+            got = r[label]
+            check(got["launches"] == {"predicate_eval": 1, "stream_compact": 1},
+                  f"mesh skim (b) [{label}] rank {r['rank']}: launches {got['launches']}")
+            check(got["mask_equal"] and got["packed_equal"],
+                  f"mesh skim (b) [{label}] rank {r['rank']}: its block differs from "
+                  "the plain compaction of its slice of (a)'s mask")
+            check(got["total"] == world1[label]["total"],
+                  f"mesh skim (b) [{label}] rank {r['rank']}: total {got['total']}, "
+                  f"(a) {world1[label]['total']}")
+            for k in launches:
+                launches[k] += got["launches"].get(k, 0)
+        kept = {r["shard"]: r[label]["kept"] for r in reports}
+        check(sum(kept.values()) == world1[label]["total"],
+              f"mesh skim (b) [{label}]: the shards keep {kept}")
+        log(f"  [{label}] (b) 4 ranks on one card over gloo, mesh {MESH_RANKS}: every "
+            f"rank's total {world1[label]['total']} equals (a)'s; each block equals the "
+            f"plain compaction of its slice of (a)'s mask bit for bit; kept per shard "
+            f"{[kept[s] for s in sorted(kept)]}; one launch of each kernel a rank; "
+            f"first-call walls {[round(r[label]['wall_ms'], 1) for r in reports]} ms")
+    return {"launches": launches, "reports": reports}
+
+
+def run_mesh_skim(host_store, results, device) -> dict:
+    """Phase 3e: the mesh skim on the whole NanoAOD-like store, for the
+    quickstart and Z->ee queries: (a) at world size 1, then (b) four ranks."""
+    import tempfile
+
+    queries = [("quickstart", QUICKSTART_QUERY), ("zee", zee_query(host_store.n_events))]
+    with tempfile.TemporaryDirectory(prefix="mesh_skim_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        cases = [(label, *mesh_inputs(query, host_store)) for label, query in queries]
+        log(f"  the store read and padded for both queries in "
+            f"{time.perf_counter() - t0:.1f} s")
+        world1 = run_mesh_world1(cases, results, device, tmp)
+        del cases
+        ranks = run_mesh_ranks(queries, world1, device, tmp)
+    launches = {k: len(world1) + v for k, v in ranks["launches"].items()}
+    return {"world1": world1, "ranks": ranks["reports"], "launches": launches,
+            "max_abs_err": max(r["mask_err"] for r in world1.values())}
+
+
 def device_busy(label, query, store, **kw) -> None:
     """One more run of the main path under ``torch.profiler``: the device
     time of every kernel over the run's wall time, and the kernels that
@@ -3169,6 +3470,14 @@ def main() -> int:
             totals[k] += v
     log(f"  phase 3d took {serving_s:.1f} s ({card})")
 
+    log("== 3e. the mesh skim: sharded_skim on the whole NanoAOD-like store, "
+        "predicate_eval and stream_compact per shard, the count summed over the "
+        "mesh ==")
+    t0 = time.perf_counter()
+    mesh = run_mesh_skim(host_store, results, device)
+    mesh_s = time.perf_counter() - t0
+    log(f"  phase 3e took {mesh_s:.1f} s ({card})")
+
     kernels = [
         {"name": "skim_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/skim_fused.cu",
@@ -3187,12 +3496,15 @@ def main() -> int:
          "max_abs_err": max(stage_err, pred_err),
          **bounds(timing["predicate_eval_batch"])},
         # the four below have no caller in run_skim: their launches are
-        # those of their own path, the ops entry points of phase 3c
+        # those of their own paths, the ops entry points of phase 3c and,
+        # for predicate_eval and stream_compact, the mesh skim of phase 3e
         {"name": "predicate_eval", "route": "cuda",
          "source": "src/repro_torch/csrc/predicate_eval.cu",
          "replaces": "src/repro/kernels/predicate_eval.py:304",
-         "launches": sum(r["launches"] for r in predicate.values()),
-         "max_abs_err": max([pred_err] + [r["max_abs_err"] for r in predicate.values()]),
+         "launches": sum(r["launches"] for r in predicate.values())
+         + mesh["launches"]["predicate_eval"],
+         "max_abs_err": max([pred_err, mesh["max_abs_err"]]
+                            + [r["max_abs_err"] for r in predicate.values()]),
          **bounds(timing["predicate_eval"])},
         {"name": "skim_fused_batch", "route": "cuda",
          "source": "src/repro_torch/csrc/skim_fused.cu",
@@ -3203,7 +3515,8 @@ def main() -> int:
         {"name": "stream_compact", "route": "cuda",
          "source": "src/repro_torch/csrc/stream_compact.cu",
          "replaces": "src/repro/kernels/stream_compact.py:58",
-         "launches": compact["launches"], "max_abs_err": compact_err,
+         "launches": compact["launches"] + mesh["launches"]["stream_compact"],
+         "max_abs_err": compact_err,
          **bounds(timing["stream_compact"])},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -3228,6 +3541,12 @@ def main() -> int:
     log("serving plane (" + card + "): " + json.dumps(
         {k: {f: v for f, v in r.items() if f not in ("res", "shards")}
          for k, r in serving.items()}))
+    log("mesh skim (" + card + "): " + json.dumps(
+        {"seconds": mesh_s, "launches": mesh["launches"], **{
+            label: {k: r[k] for k in ("total", "fn_ms", "predicate_eval_ms",
+                                      "predicate_eval_bound_ms", "stream_compact_ms",
+                                      "stream_compact_bound_ms", "all_reduce_ms")}
+            for label, r in mesh["world1"].items()}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

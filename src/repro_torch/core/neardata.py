@@ -16,10 +16,13 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import expr as xpr
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.kernels import program as kprog
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels.program import Program, compile_query
 
 
@@ -188,6 +191,36 @@ def build_padded_inputs(
         payload=torch.from_numpy(payload).to(device),
         n_events=n_events,
     )
+
+
+# ---------------------------------------------------------------------------
+# device-side evaluation
+# ---------------------------------------------------------------------------
+
+
+def _on_cpu(x) -> bool:
+    return isinstance(x, torch.Tensor) and not x.is_cuda
+
+
+def skim_mask(batch_terms, batch_valid, batch_weights, program: Program) -> torch.Tensor:
+    """(T, E, K), (G, E, K), (G, E, K) -> (E,) bool survivor mask.  A CPU
+    tensor takes the plain version (``ref.predicate_eval_ref``), a CUDA
+    tensor the ``predicate_eval`` kernel; numpy goes to the card (and
+    raises without one)."""
+    if _on_cpu(batch_terms):
+        return kref.predicate_eval_ref(batch_terms, batch_valid, batch_weights, program)
+    return ops.predicate_eval(batch_terms, batch_valid, batch_weights, program) != 0
+
+
+def compact_jnp(payload, mask):
+    """(E, D) payload, (E,) mask -> (packed (E, D): the rows ``mask``
+    keeps first, in order, then zeros; count () int32).  A CPU tensor takes
+    the plain version (``ref.stream_compact_ref``), a CUDA tensor the
+    ``stream_compact`` kernel; numpy goes to the card.  The JAX package's
+    name, kept so one test drives both."""
+    if _on_cpu(payload):
+        return kref.stream_compact_ref(payload, mask)
+    return ops.stream_compact(payload, mask)
 
 
 # numpy mirror of kernels.ref.apply_op, keyed by the compiled op ids
@@ -390,8 +423,6 @@ def fused_window_skim(
         mask = np.ones(E, dtype=bool)
         return mask, {n: np.asarray(data[n]) for n in payload_branches}
 
-    from repro_torch.kernels import ops
-
     if backend is None:
         backend = "cuda" if resolve_device(device).type == "cuda" else "host"
 
@@ -433,13 +464,81 @@ def fused_window_skim(
     return mask, cols
 
 
+def _block(x, rows: slice, device: torch.device) -> torch.Tensor:
+    """Rows ``rows`` of the event axis (axis 1 of a (T/G, E, K) array, axis
+    0 of the payload), alone, contiguous on ``device``: a numpy array (an
+    ``np.load`` map too) is read only there."""
+    index = (slice(None), rows) if x.ndim == 3 else rows
+    if isinstance(x, torch.Tensor):
+        return x[index].to(device).contiguous()
+    return torch.from_numpy(np.require(x[index], requirements=("C", "W"))).to(device)
+
+
+def sharded_skim(mesh, program: Program, data_axes=("pod", "data")):
+    """Build the sharded near-data skim step over a
+    ``torch.distributed.device_mesh.DeviceMesh`` with named dimensions.
+
+    The caller builds the mesh and its process groups (NCCL on cards,
+    gloo on the CPU), as the JAX caller builds its ``jax.make_mesh``.
+    The event axis is split over the mesh dimensions named in
+    ``data_axes``, in that order: shard ``s`` is row-major over them, the
+    first outermost (the layout of JAX's ``P(("pod", "data"))``), and
+    ranks that differ only in another dimension compute the same shard.
+
+    Returns ``fn(terms, valid, weights, payload)``, taking the global
+    (T, E, K), (G, E, K), (G, E, K) and (E, D) arrays (numpy or tensors).
+    Each rank moves only its block of ``E / n`` events to the mesh's
+    device (``torch.cuda.current_device()`` for a ``"cuda"`` mesh, else
+    the CPU), evaluates :func:`skim_mask` and :func:`compact_jnp` there,
+    and sums the count over the data dimensions' groups.  It returns this
+    rank's shard of JAX's outputs: the packed (E/n, D) block (its
+    survivors first, then zeros), the mask as int32 (E/n,), and the global
+    survivor count, an int32 scalar.  JAX's global ``packed`` and ``mask``
+    are the shards' blocks concatenated in shard order.  Only the count
+    crosses ranks: the compaction happens inside the shard.
+    """
+    names = tuple(mesh.mesh_dim_names or ())
+    dims = [names.index(a) for a in data_axes if a in names]
+    n_shards, shard = 1, 0
+    for d in dims:
+        n_shards *= mesh.size(d)
+        shard = shard * mesh.size(d) + mesh.get_local_rank(d)
+    groups = [mesh.get_group(d) for d in dims]
+    if mesh.device_type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    elif mesh.device_type == "cpu":
+        device = torch.device("cpu")
+    else:
+        raise ValueError(f"sharded_skim: unsupported mesh device {mesh.device_type!r}")
+
+    def fn(terms, valid, weights, payload):
+        E = payload.shape[0]
+        if E % n_shards:
+            raise ValueError(
+                f"sharded_skim: {E} events do not split evenly over {n_shards} shards"
+            )
+        size = E // n_shards
+        rows = slice(shard * size, (shard + 1) * size)
+        t, v, w, p = (_block(x, rows, device) for x in (terms, valid, weights, payload))
+        mask = skim_mask(t, v, w, program)
+        packed, count = compact_jnp(p, mask)
+        for group in groups:
+            dist.all_reduce(count, group=group)
+        return packed, mask.to(torch.int32), count
+
+    return fn
+
+
 __all__ = [
     "PaddedBatch",
     "Program",
     "compile_query",
     "build_padded_inputs",
+    "skim_mask",
+    "compact_jnp",
     "program_eval_np",
     "fused_window_skim",
     "pad_window",
     "window_pad_K",
+    "sharded_skim",
 ]

@@ -250,6 +250,12 @@ def predicate_mask(program, terms, valid, weights) -> torch.Tensor:
     return mask
 
 
+def predicate_eval_ref(terms, valid, weights, program) -> torch.Tensor:
+    """Alias of :func:`predicate_mask` under the JAX package's name, in
+    its argument order: (T, E, K), (G, E, K), (G, E, K) -> (E,) bool."""
+    return predicate_mask(program, terms, valid, weights)
+
+
 def predicate_eval_batch_ref(terms, valid, weights, program) -> torch.Tensor:
     """:func:`predicate_mask` per window of a batch: terms (B, T, E, K),
     valid/weights (B, G, E, K) -> (B, E) int32.
@@ -492,6 +498,7 @@ __all__ = [
     "pack_bits",
     "pair_group_value",
     "predicate_eval_batch_ref",
+    "predicate_eval_ref",
     "predicate_mask",
     "skim_fused_batch_ref",
     "skim_fused_ref",

@@ -10,8 +10,11 @@ exact: the kernels are built without fast math and without FMA
 contraction, so they round as the plain versions' separate ops do.
 """
 
+import os
+import subprocess
 import sys
 import threading
+import textwrap
 from pathlib import Path
 
 import numpy as np
@@ -24,6 +27,7 @@ if str(ROOT) not in sys.path:
 
 import chip_smoke  # noqa: E402  (the card checks and the queries)
 from repro_torch.core import run_skim  # noqa: E402
+from repro_torch.core.neardata import compact_jnp, skim_mask  # noqa: E402
 from repro_torch.data.synth import make_nanoaod_like  # noqa: E402
 from repro_torch.kernels import basket_decode as bd  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -68,6 +72,10 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert int(m) == int(n) and torch.equal(packed, want)
     q = t[0][None, :, :, :2].contiguous()
     assert torch.equal(fa.flash_attention(q, q, q), ref.flash_attention_ref(q, q, q))
+    keep = skim_mask(*t[:3], prog)
+    assert torch.equal(keep, ref.predicate_eval_ref(*t[:3], prog))
+    packed, m = compact_jnp(t[3], keep)
+    assert int(m) == int(n) and torch.equal(packed, want)
     assert ops.launch_counts() == {
         "skim_fused": 0, "skim_fused_batch": 0, "basket_decode": 0,
         "cascade_stage": 0, "predicate_eval_batch": 0, "predicate_eval": 0,
@@ -513,3 +521,69 @@ def test_cuda_threaded_cluster_matches_the_host(cuda_device):
     assert got.output.manifest_hash() == want.output.manifest_hash()
     assert got.output._blobs == want.output._blobs
     assert chip_smoke.fetch_row(got.stats) == chip_smoke.fetch_row(want.stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["count", "any", "mass_pair", "dr_same", "expr"])
+def test_cuda_skim_mask_and_compact_jnp_launch_their_kernels(cuda_device, name):
+    """On CUDA tensors the mesh skim's two steps launch one kernel each and
+    equal their plain versions on the card bit for bit."""
+    prog = dict(chip_smoke.sweep_programs())[name]
+    host = chip_smoke.sweep_inputs(np.random.default_rng(4), prog, 4097, 8, 3)
+    t, v, w, p = (torch.from_numpy(x).to(cuda_device) for x in host)
+    ops.reset_launch_counts()
+    mask = skim_mask(t, v, w, prog)
+    packed, n = compact_jnp(p, mask)
+    torch.cuda.synchronize()
+    launches = {k: c for k, c in ops.launch_counts().items() if c}
+    assert launches == {"predicate_eval": 1, "stream_compact": 1}
+    assert mask.dtype == torch.bool and mask.is_cuda
+    assert torch.equal(mask, ref.predicate_eval_ref(t, v, w, prog))
+    want, want_n = ref.stream_compact_ref(p, mask)
+    assert n.dtype == torch.int32 and int(n) == int(want_n)
+    assert torch.equal(packed.view(torch.int32), want.view(torch.int32))
+
+
+NCCL_WORLD1 = textwrap.dedent(
+    """
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    import chip_smoke
+    from repro_torch.core.neardata import sharded_skim
+    from repro_torch.kernels import ops, ref
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+    prog = dict(chip_smoke.sweep_programs())["ht"]
+    host = chip_smoke.sweep_inputs(np.random.default_rng(6), prog, 5000, 8, 2)
+    ops.reset_launch_counts()
+    packed, mask, total = sharded_skim(mesh, prog)(*host)
+    torch.cuda.synchronize()
+    launches = {k: c for k, c in ops.launch_counts().items() if c}
+    assert launches == {"predicate_eval": 1, "stream_compact": 1}, launches
+    t = [torch.from_numpy(x).cuda() for x in host]
+    want = ref.predicate_eval_ref(*t[:3], prog)
+    want_packed, want_n = ref.stream_compact_ref(t[3], want)
+    assert packed.is_cuda and mask.dtype == torch.int32 and total.dtype == torch.int32
+    assert torch.equal(mask, want.to(torch.int32))
+    assert torch.equal(packed.view(torch.int32), want_packed.view(torch.int32))
+    assert int(total) == int(want_n) > 0
+    dist.destroy_process_group()
+    print("ok", int(total))
+    """
+)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_skim_over_nccl_at_world_size_1(cuda_device):
+    """The mesh skim on a ``"cuda"`` mesh, NCCL at world size 1 from a
+    ``HashStore`` (no port), in its own process: one launch of each kernel,
+    equal to the plain versions on the card."""
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    out = subprocess.run([sys.executable, "-c", NCCL_WORLD1], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("ok ")
