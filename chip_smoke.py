@@ -88,9 +88,18 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    ``FileStore``, each mapping (a)'s saved arrays and reading only its
    block: each block equals the plain compaction of its slice of (a)'s
    mask, each total (a)'s, one launch of each kernel a rank.
+   Then phase 3f, the five examples (``repro_torch.examples``), each run
+   in this process at its default size on the card and with ``--device
+   cpu``: every printed line but the device line equal once the
+   wall-clock values (``examples.CLOCK_FIELDS``) are masked,
+   ``basket_decode`` and ``skim_fused`` launched on the card (counted from
+   0 around each run, ``build_cluster``'s decode launches apart), none by
+   the host run; then the paper's four placements from ``skim_service``'s
+   table, each mode's ``Breakdown`` total and ``busy_fraction`` at 1, 10
+   and 100 Gb/s (modeled links), card and host.
 4. One JSON line listing each kernel (its launches those of every main
-   path, the serving plane's and the mesh skim's included), then the
-   device line last.
+   path, the serving plane's, the mesh skim's and the examples' included),
+   then the device line last.
 
 It imports ``repro_torch`` only (never JAX or the JAX package), needs one
 card, and exits non-zero without a result where there is no card or no
@@ -3297,6 +3306,142 @@ def run_mesh_skim(host_store, results, device) -> dict:
             "max_abs_err": max(r["mask_err"] for r in world1.values())}
 
 
+# ---------------------------------------------------------------------------
+# phase 3f: the five examples, on the card and on the host
+# ---------------------------------------------------------------------------
+
+
+def run_example(name: str, device: str) -> dict:
+    """``repro_torch.examples.<name>.main(["--device", device])`` in this
+    process at its default size: its stdout, wall time and launches
+    (counted from 0), each ``SkimEngine.run`` it made (mode, input link,
+    the unrounded ``Breakdown``, ``busy_fraction``) and the
+    ``basket_decode`` launches of each ``build_cluster`` call.  The module's
+    ``SkimEngine`` and ``build_cluster`` are wrapped for the run only, and
+    the wrappers return what the real ones return."""
+    import contextlib
+    import importlib
+    import io
+
+    from repro_torch.kernels import ops
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    runs, builds, wrapped = [], [], {}
+    if hasattr(mod, "SkimEngine"):
+        class RecordingEngine(mod.SkimEngine):
+            def run(self, query, mode="near_data", **kw):
+                res = super().run(query, mode, **kw)
+                runs.append({"mode": mode, "gbps": self.input_link.bandwidth_gbps,
+                             "breakdown": res.breakdown.as_dict(),
+                             "busy_fraction": res.busy_fraction})
+                return res
+
+        wrapped["SkimEngine"] = RecordingEngine
+    if hasattr(mod, "build_cluster"):
+        build = mod.build_cluster
+
+        def counted_build(*args, **kw):
+            before = ops.launch_counts()["basket_decode"]
+            coord = build(*args, **kw)
+            builds.append(ops.launch_counts()["basket_decode"] - before)
+            return coord
+
+        wrapped["build_cluster"] = counted_build
+    saved = {k: getattr(mod, k) for k in wrapped}
+    buf = io.StringIO()
+    try:
+        for k, v in wrapped.items():
+            setattr(mod, k, v)
+        with Launches() as step, contextlib.redirect_stdout(buf):
+            mod.main(["--device", device])
+    finally:
+        for k, v in saved.items():
+            setattr(mod, k, v)
+    return {"text": buf.getvalue(), "wall_s": step.wall_s, "launches": step.launches,
+            "runs": runs, "builds": builds}
+
+
+def example_pair(name: str) -> dict:
+    """One example on the card, then on the host: every line but the device
+    line equal once the wall-clock values (``examples.CLOCK_FIELDS``) are
+    masked, ``basket_decode`` and ``skim_fused`` launched on the card, and
+    nothing launched by the host run."""
+    from repro_torch.examples import mask_clock
+
+    card = run_example(name, "cuda")
+    host = run_example(name, "cpu")
+    lines, masked = mask_clock(name, card["text"])
+    host_lines, host_masked = mask_clock(name, host["text"])
+    check(lines[0].startswith("device: cuda") and host_lines[0] == "device: cpu",
+          f"example {name}: device lines {lines[0]!r} / {host_lines[0]!r}")
+    diff = [(a, b) for a, b in zip(lines[1:], host_lines[1:]) if a != b]
+    check(len(lines) == len(host_lines) and not diff,
+          f"example {name}: {len(diff)} lines differ between the card and the host "
+          f"({len(lines)} / {len(host_lines)} lines), first {diff[:2]}")
+    check(masked == host_masked, f"example {name}: masked {masked} / {host_masked}")
+    for kernel in ("basket_decode", "skim_fused"):
+        check(card["launches"][kernel] > 0,
+              f"example {name}: no {kernel} launch on the card")
+    check(not any(host["launches"].values()),
+          f"example {name}: the host run launched {host['launches']}")
+    return {"card": card, "host": host, "lines": len(lines) - 1, "masked": sorted(masked),
+            "launches": card["launches"]}
+
+
+PLACEMENTS = ("client_plain", "client_opt", "server_side", "near_data")  # skim_service.MODES
+PLACEMENT_GBPS = (1, 10, 100)
+
+
+def placement_table(pair) -> dict:
+    """The paper's four placements from ``skim_service``'s table: per mode
+    and link, the ``Breakdown`` total (measured stages + the modeled link)
+    and ``busy_fraction``, on the card and on the host, unrounded."""
+    table = {}
+    for side in ("card", "host"):
+        runs = pair[side]["runs"]
+        check(len(runs) == len(PLACEMENTS) * len(PLACEMENT_GBPS) + 1,
+              f"skim_service made {len(runs)} SkimEngine runs")
+        for run, (mode, gbps) in zip(runs, [(m, g) for m in PLACEMENTS
+                                            for g in PLACEMENT_GBPS]):
+            check((run["mode"], run["gbps"]) == (mode, float(gbps)),
+                  f"skim_service ran {run['mode']} at {run['gbps']} Gb/s in {mode}'s place")
+            table.setdefault(mode, {}).setdefault(side, {})[f"{gbps} Gb/s"] = {
+                "total_s": run["breakdown"]["total"],
+                "busy_fraction": run["busy_fraction"], "breakdown": run["breakdown"]}
+        table.setdefault("near_data breakdown", {})[side] = runs[-1]["breakdown"]
+    for mode in PLACEMENTS:
+        log(f"  placement [{mode}] Breakdown.total() s at 1 / 10 / 100 Gb/s (links "
+            "modeled): card " + " / ".join(
+                str(table[mode]["card"][f"{g} Gb/s"]["total_s"]) for g in PLACEMENT_GBPS)
+            + ", host " + " / ".join(
+                str(table[mode]["host"][f"{g} Gb/s"]["total_s"]) for g in PLACEMENT_GBPS)
+            + "; busy_fraction card " + " / ".join(
+                str(table[mode]["card"][f"{g} Gb/s"]["busy_fraction"])
+                for g in PLACEMENT_GBPS)
+            + ", host " + " / ".join(
+                str(table[mode]["host"][f"{g} Gb/s"]["busy_fraction"])
+                for g in PLACEMENT_GBPS))
+    return table
+
+
+def run_examples() -> tuple[dict, dict]:
+    """Phase 3f: each of the five examples at its default size, on the card
+    and on the host (:func:`example_pair`), then the placement table."""
+    from repro_torch.examples import EXAMPLES
+
+    out = {}
+    for name in EXAMPLES:
+        pair = example_pair(name)
+        log(f"  [{name}] card {pair['card']['wall_s']:.3f} s, host "
+            f"{pair['host']['wall_s']:.3f} s; {pair['lines']} lines equal, masked "
+            f"{pair['masked']}; launches on the card "
+            + json.dumps({k: v for k, v in pair["launches"].items() if v}, sort_keys=True)
+            + (f", of them basket_decode in build_cluster {pair['card']['builds']}"
+               if pair["card"]["builds"] else ""))
+        out[name] = pair
+    return out, placement_table(out["skim_service"])
+
+
 def device_busy(label, query, store, **kw) -> None:
     """One more run of the main path under ``torch.profiler``: the device
     time of every kernel over the run's wall time, and the kernels that
@@ -3478,6 +3623,16 @@ def main() -> int:
     mesh_s = time.perf_counter() - t0
     log(f"  phase 3e took {mesh_s:.1f} s ({card})")
 
+    log("== 3f. the five examples (repro_torch.examples), each on the card and "
+        "on the host ==")
+    t0 = time.perf_counter()
+    examples, placements = run_examples()
+    examples_s = time.perf_counter() - t0
+    for pair in examples.values():
+        for k, v in pair["launches"].items():
+            totals[k] += v
+    log(f"  phase 3f took {examples_s:.1f} s ({card})")
+
     kernels = [
         {"name": "skim_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/skim_fused.cu",
@@ -3547,6 +3702,13 @@ def main() -> int:
                                       "predicate_eval_bound_ms", "stream_compact_ms",
                                       "stream_compact_bound_ms", "all_reduce_ms")}
             for label, r in mesh["world1"].items()}}))
+    log("examples (" + card + "): " + json.dumps(
+        {"seconds": examples_s, **{
+            name: {"card_s": p["card"]["wall_s"], "host_s": p["host"]["wall_s"],
+                   "launches": {k: v for k, v in p["launches"].items() if v},
+                   "build_cluster_basket_decode": p["card"]["builds"]}
+            for name, p in examples.items()}}, sort_keys=True))
+    log("placements (" + card + "; links modeled): " + json.dumps(placements, sort_keys=True))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -254,7 +254,7 @@ def main() -> int:
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "a") as f:
         for rec in records:
-            line = json.dumps({**head, **rec})
+            line = json.dumps({**head, **rec}, sort_keys=True)
             f.write(line + "\n")
             print(line, flush=True)
     return 0

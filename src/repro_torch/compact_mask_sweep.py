@@ -181,7 +181,7 @@ def main() -> int:
                      f"stream_compact variant {name} differs from the plain version")
             row[name] = cs.device_ms(lambda call=call: call(payload, mask))
         records.append(row)
-        print(json.dumps(row), flush=True)
+        print(json.dumps(row, sort_keys=True), flush=True)
 
     cases = [("bench_kernels",) + tuple(cs.bench_predicate(rng, E, device))
              for E in (4096, 1 << 17, 1 << 20)]
@@ -219,7 +219,7 @@ def main() -> int:
                         lambda: pe.predicate_eval(t, v, w, program))
                     pe.mask_plan = plan_of
             records.append(row)
-            print(json.dumps(row), flush=True)
+            print(json.dumps(row, sort_keys=True), flush=True)
     finally:
         pe.mask_plan = plan_of
     package = _build.load("predicate_eval")
@@ -233,7 +233,7 @@ def main() -> int:
                 row[name] = cs.device_ms(lambda: pe.predicate_eval(t, v, w, program))
             _build._LIBS["predicate_eval"] = package
             records.append(row)
-            print(json.dumps(row), flush=True)
+            print(json.dumps(row, sort_keys=True), flush=True)
     finally:
         _build._LIBS["predicate_eval"] = package
     smi = subprocess.run(
@@ -243,7 +243,7 @@ def main() -> int:
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "a") as f:
         for rec in records:
-            f.write(json.dumps({"card": card, **rec}) + "\n")
+            f.write(json.dumps({"card": card, **rec}, sort_keys=True) + "\n")
     print(card, flush=True)
     return 0
 

@@ -287,6 +287,22 @@ def _decode_branches(
     return data
 
 
+def _warm_kernels(store, device, fused: bool) -> None:
+    """One-time warm-up (kernel build/load + CUDA context) outside the
+    stage timers, when a run on the card launches kernels: the fused skim,
+    or the decode rounds of a store that decodes there.  Measured stages
+    then report steady-state compute, not start-up (DESIGN.md §2c)."""
+    if device.type != "cuda":
+        return
+    if fused or store.resolved_decode_backend() == "device":
+        import torch
+
+        from repro_torch.kernels import ops
+
+        ops.load_kernels()
+        torch.cuda.init()
+
+
 def _skipped_requests(nbytes: int, n_baskets: int, coalesce: bool) -> int:
     """Requests a skipped fetch round would have issued — the store's
     TTreeCache request model (:func:`repro_torch.data.store.coalesced_requests`),
@@ -641,6 +657,7 @@ class SkimEngine:
     def _run_client_plain(self, plan: SkimPlan) -> SkimResult:
         store, b, stats = self.store, Breakdown(), FetchStats()
         n = store.n_events
+        _warm_kernels(store, self.device, fused=False)
 
         data = _decode_branches(
             store, plan.output_branches, 0, n, b, stats, coalesce=True
@@ -701,16 +718,7 @@ class SkimEngine:
         phase2_stats = FetchStats()
 
         program = plan.compiled_program() if fused else None
-        if fused and self.device.type == "cuda":
-            # one-time executor warm-up (kernel build/load + CUDA context)
-            # outside the stage timers: measured stages report steady-state
-            # compute, not start-up (DESIGN.md §2c)
-            import torch
-
-            from repro_torch.kernels import ops
-
-            ops.load_kernels()
-            torch.cuda.init()
+        _warm_kernels(store, self.device, fused)
         # cascaded phase 1 (DESIGN.md §11): one executor per run owns the
         # adaptive stage order; the prefetcher loads only the pinned head
         # stage, later stages fetch alive baskets on demand

@@ -32,6 +32,7 @@ from repro_torch.core.engine import (
     _select_columns,
     _skipped_requests,
     _Timer,
+    _warm_kernels,
     _window_phase2,
     _write_output,
     drain,
@@ -212,15 +213,8 @@ class SharedScanEngine:
             for p in plans
         ]
         tr.add_span("plan", kind="plan", t0=plan_t0, t1=tr.now())
-        if self.fused and self.device.type == "cuda":
-            # one-time executor warm-up (kernel build/load + CUDA context)
-            # outside the stage timers, as SkimEngine does
-            import torch
-
-            from repro_torch.kernels import ops
-
-            ops.load_kernels()
-            torch.cuda.init()
+        # one-time warm-up outside the stage timers, as SkimEngine does
+        _warm_kernels(store, self.device, self.fused)
 
         # full union of filter branches, first-seen order: the pricing /
         # amortization reference (what the union preload moved)

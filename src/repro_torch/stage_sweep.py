@@ -94,7 +94,7 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else None
     with open(args.out, "a") as f:
         for rec in records:
-            line = json.dumps({"card": card, **rec})
+            line = json.dumps({"card": card, **rec}, sort_keys=True)
             f.write(line + "\n")
             print(line, flush=True)
     return 0

@@ -587,3 +587,17 @@ def test_cuda_sharded_skim_over_nccl_at_world_size_1(cuda_device):
                          text=True, timeout=300, env=env, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("ok ")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["quickstart", "skim_expr", "skim_service",
+                                  "skim_service_async", "skim_cluster"])
+def test_cuda_example_matches_the_host(cuda_device, name):
+    """``repro_torch.examples.<name>`` at its default size on the card and
+    with ``--device cpu``: every line equal once the wall-clock values are
+    masked, ``basket_decode`` and ``skim_fused`` launched on the card."""
+    pair = chip_smoke.example_pair(name)
+    assert pair["lines"] > 0
+    assert pair["launches"]["basket_decode"] > 0
+    assert pair["launches"]["skim_fused"] > 0
+    assert not any(pair["host"]["launches"].values())
