@@ -19,7 +19,10 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    kind and at E from 1 to 1,000,000 (the single-pass look-back over
    many tiles, one launch a call), ``cascade_stage`` and
    ``predicate_eval`` over every op and group kind (``cascade_stage``
-   also over staged windows only: K = 1/8/16/64, a short last tile,
+   also through the public ``ops.cascade_stage_step``, the JAX package's
+   form, on a dense batch of numpy and of card tensors, bit for bit
+   against ``ref.cascade_stage_ref`` with one launch a call, and over
+   staged windows only: K = 1/8/16/64, a short last tile,
    subsets of a batch staged, dead tiles, every copy mode, bit for bit;
    ``predicate_eval`` at ragged E, in every copy mode and at
    bench_kernels' E = 2^17 and 2^20), ``stream_compact`` bit for bit
@@ -32,7 +35,8 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    its bound, at the shapes the main path gives it (window 0's decode
    rounds and skim calls; the batch of the first 16 windows), with the
    host-to-host time of a whole decode round, of a window's skim and of a
-   cascade stage step; ``cascade_stage`` and ``predicate_eval`` beside
+   cascade stage step (the staged step the path calls, and the public
+   form on the dense numpy batch); ``cascade_stage`` and ``predicate_eval`` beside
    their earlier designs on the same inputs, the stage's earlier step
    (three pageable uploads), and ``predicate_eval`` also at
    bench_kernels' shapes.
@@ -994,9 +998,52 @@ def check_cascade_stage(rng, device, names=None) -> tuple[float, int]:
     return max_err, edge
 
 
+def check_cascade_stage_public(rng, device, names=None) -> float:
+    """``ops.cascade_stage_step``, the JAX package's form, over a dense
+    batch: every sweep program at B = 16, E = 4096, K in 1/8/16/64, given
+    numpy (staged whole into one page-locked upload) and given tensors on
+    the card.  The new mask words, basket bits and counts must equal
+    ``ref.cascade_stage_ref``'s bit for bit, with one ``cascade_stage``
+    launch a call.  Returns the max |err| over the three."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    cases = 0
+    max_err = 0.0
+    for name, program in sweep_programs():
+        if names and name not in names:
+            continue
+        for K in (1, 8, 16, 64):
+            host = batch_inputs(rng, program, 16, 4096, K, 1024)
+            nb = host[5]
+            t, v, w, packed, seg = (torch.from_numpy(x).to(device) for x in host[:5])
+            want = ref.cascade_stage_ref(t, v, w, packed, seg, program, nb)
+            for form, args in (("numpy", host[:5]),
+                               ("card tensors", (t, v, w, packed.clone(), seg))):
+                ops.reset_launch_counts()
+                got = ops.cascade_stage_step(*args, program, nb, device=device)
+                torch.cuda.synchronize()
+                launched = ops.launch_counts()["cascade_stage"]
+                check(launched == 1, f"cascade_stage_step ({form}) {name} K={K}: "
+                      f"{launched} cascade_stage launches, not one")
+                for part, g, wnt in zip(("mask words", "basket bits", "counts"),
+                                        got, want):
+                    err = float((g.long() - wnt.long()).abs().max())
+                    max_err = max(max_err, err)
+                    check(err == 0.0, f"cascade_stage_step ({form}) {name} K={K}: "
+                          f"{part} differ from cascade_stage_ref by {err}")
+                cases += 1
+    log(f"  cascade_stage_step (the public form, a dense batch): {cases} calls "
+        "(every sweep program, B = 16, E = 4096, K in 1/8/16/64, numpy and card "
+        "tensors); mask words, basket bits and counts equal to cascade_stage_ref "
+        f"bit for bit, one cascade_stage launch a call; max |err| {max_err}")
+    return max_err
+
+
 def check_cascade_stage_windows(rng, device, names=None) -> tuple[float, int]:
     """``cascade_stage_windows`` (the kernel over the staged windows only,
-    as ``ops.cascade_stage_step`` launches it) against its plain version,
+    as ``ops.cascade_stage_step_staged`` launches it) against its plain version,
     bit for bit: every sweep program at K in 1/8/16/64, E in 512/4000
     (4000: a short last tile), B in 1/5/16 with all, some, one or no
     windows staged, live spans that start inside a mask word, a run of
@@ -1463,7 +1510,7 @@ def finish_parent_build(proc, lib):
     return SimpleNamespace(stage=stage, mask=mask, compact=compact)
 
 
-def count_uploads(step_name: str = "cascade_stage_step"):
+def count_uploads(step_name: str = "cascade_stage_step_staged"):
     """Count, until the returned ``restore()``, every host-to-device copy
     made by ``Tensor.copy_`` or ``Tensor.to`` (any thread): copies, bytes
     and how many came from pageable memory, in total and inside
@@ -1786,7 +1833,7 @@ def path_skim_cases(store, queries, device):
 def path_stage_cases(store, queries, device, batch: int = 16):
     """Every cascade stage's inputs for the batch of the first ``batch``
     windows of each query, as ``run_window_batch`` hands them to
-    ``ops.cascade_stage_step`` (recorded on the way through, the carried
+    ``ops.cascade_stage_step_staged`` (recorded on the way through, the carried
     mask as it was before the stage): (program, nb, the dense batch the
     staged windows stand for (terms, valid, weights) on the card, packed,
     seg_ids, and a dict of the staged form: ``planes`` and ``rows`` on the
@@ -1801,7 +1848,7 @@ def path_stage_cases(store, queries, device, batch: int = 16):
     from repro_torch.kernels import ops
 
     cases = []
-    step = ops.cascade_stage_step
+    step = ops.cascade_stage_step_staged
 
     def record(inputs, packed, seg_ids, program, nb, **kw):
         host = inputs.host.clone()  # the staging buffer serves the next stage
@@ -1815,8 +1862,9 @@ def path_stage_cases(store, queries, device, batch: int = 16):
         return step(inputs, packed, seg_ids, program, nb, **kw)
 
     be = store.basket_events
-    ops.cascade_stage_step = record
+    ops.cascade_stage_step_staged = record
     for q in queries:
+        before = len(cases)
         plan = plan_skim(parse_query(q), store, window_events=be, prune=False,
                          cascade=True)
         ex = CascadeExecutor(plan, store, device=device)
@@ -1827,7 +1875,10 @@ def path_stage_cases(store, queries, device, batch: int = 16):
             mark_fetched(store, ex.head_branches, start, stop, ledger)
             entries.append((start, stop, None, Breakdown(), FetchStats(), ledger))
         ex.run_window_batch(entries, pad_B=batch)
-    ops.cascade_stage_step = step
+        check(len(cases) > before, f"the batched path of {sorted(q)} recorded no "
+              "stage step: run_window_batch no longer calls "
+              "ops.cascade_stage_step_staged")
+    ops.cascade_stage_step_staged = step
     return cases
 
 
@@ -1892,8 +1943,8 @@ def bounds(summary: dict) -> dict:
     return {k: summary[k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "by_dtype",
                       "per_basket_ms", "round_ms", "window_ms", "dense_ms", "parent_ms",
-                      "step_ms", "parent_step_ms", "staged_bytes", "dense_bytes",
-                      "parent_stream_ms", "shapes", "wrapper_us")
+                      "step_ms", "parent_step_ms", "public_step_ms", "staged_bytes",
+                      "dense_bytes", "parent_stream_ms", "shapes", "wrapper_us")
             if k in summary}
 
 
@@ -2138,13 +2189,19 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
 
         def step():
             restore()
-            kops.stage_summary_host(kops.cascade_stage_step(
+            kops.stage_summary_host(kops.cascade_stage_step_staged(
                 inputs, pk, seg, program, nb, device=t.device)[1])
 
         def parent_step():
             restore()
             up = [torch.as_tensor(x).to(t.device) for x in dense_np]
             kops.stage_summary_host(parent.stage(*up, pk, seg, program, nb))
+
+        def public_step():  # the JAX package's form: the dense numpy batch,
+            restore()  # staged whole into one page-locked upload
+            _, bits, counts = kops.cascade_stage_step(*dense_np, pk, seg, program, nb,
+                                                      device=t.device)
+            bits.cpu(), counts.cpu()
 
         copy_ms = device_ms(restore)
         copy_stream = stream_ms(restore)
@@ -2158,6 +2215,7 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
                 planes, stage_rows, pk, seg, program, nb))) - copy_stream,
             "step_ms": host_ms(step, calls=20),
             "parent_step_ms": host_ms(parent_step, calls=20),
+            "public_step_ms": host_ms(public_step, calls=20),
             "staged_bytes": inputs.nbytes,
             "dense_bytes": 4 * B * (T + 2 * G) * E * K,
             "t_bytes": t_bytes, "t_ops": t_ops,
@@ -2170,14 +2228,16 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
             f"host (parent {row['parent_stream_ms']:.5f}); the step from the host "
             f"{row['step_ms']:.5f} ms, {row['staged_bytes']} bytes in one pinned "
             f"upload (parent {row['parent_step_ms']:.5f} ms, "
-            f"{row['dense_bytes']} bytes in three pageable uploads); plain "
+            f"{row['dense_bytes']} bytes in three pageable uploads; the public "
+            f"form ops.cascade_stage_step on the dense numpy batch "
+            f"{row['public_step_ms']:.5f} ms); plain "
             f"{row['plain_ms']:.5f} ms; bound {max(t_bytes, t_ops):.7f} ms")
         # predicate_eval: window 0 of the same batch, the mask alone
         single.append(time_predicate(program, t[0], v[0], w[0], parent))
     out["predicate_eval_batch"] = _summary(rows)
     if rows:
         for key in ("dense_ms", "parent_ms", "parent_stream_ms", "step_ms",
-                    "parent_step_ms", "staged_bytes", "dense_bytes"):
+                    "parent_step_ms", "public_step_ms", "staged_bytes", "dense_bytes"):
             out["predicate_eval_batch"][key] = sum(r[key] for r in rows) / len(rows)
     out["predicate_eval"] = _summary(single)
     if single:
@@ -3522,6 +3582,7 @@ def main() -> int:
     decode_err = check_basket_decode(rng, device)
     skim_err, _ = check_skim_fused(rng, device)
     stage_err = max(check_cascade_stage(rng, device)[0],
+                    check_cascade_stage_public(rng, device),
                     check_cascade_stage_windows(rng, device)[0])
     pred_err, _ = check_predicate_eval(rng, device)
     compact_err = check_stream_compact(rng, device)

@@ -985,7 +985,7 @@ class CascadeExecutor:
                     )
 
             t0 = _time.perf_counter()
-            packed, summary = ops.cascade_stage_step(
+            packed, summary = ops.cascade_stage_step_staged(
                 inputs, packed, seg_ids,
                 stage.program, nb, backend=backend, device=device,
             )

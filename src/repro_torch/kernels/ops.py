@@ -375,7 +375,7 @@ def _stage_device(backend: str, device) -> torch.device:
 
 class CascadeInputs:
     """A cascade stage's inputs as the batched executor stages them: only
-    the windows the stage runs, one buffer for :func:`cascade_stage_step`
+    the windows the stage runs, one buffer for :func:`cascade_stage_step_staged`
     to upload in one copy.
 
     ``shape`` is the dense batch the inputs stand for, (Bn, T, E, K);
@@ -475,8 +475,65 @@ def warm_cascade_stage(program: Program, shape, nb: int, backend="cuda",
     return True
 
 
-def cascade_stage_step(inputs: CascadeInputs, packed, seg_ids, program: Program,
-                       nb: int, backend="cuda", device="cuda"):
+def cascade_stage_step(terms, valid, weights, packed, seg_ids, program: Program,
+                       nb: int, backend=None, device=None):
+    """The batched cascade stage in the JAX package's form: one device
+    dispatch per (stage, window-batch), every window of the batch staged.
+
+    ``terms`` (B,T,E,K) and ``valid``/``weights`` (B,G,E,K) float32,
+    ``packed`` (B, E/32) mask words (uint32 or int32) and ``seg_ids`` (B,
+    E) int32, numpy or tensors.  ``device`` (default: the card, raising
+    when there is none) and ``backend`` (default ``"cuda"`` on the card,
+    ``"host"`` with ``device="cpu"``) say where and how the stage runs, as
+    for :func:`cascade_stage_step_staged`; tensors must already be there.
+    numpy inputs are staged into a :class:`CascadeInputs` and go up in one
+    copy; tensors are read where they are
+    (:func:`repro_torch.kernels.predicate_eval.cascade_stage`, the same
+    kernel).  A ``packed`` tensor is updated in place, as the JAX package's
+    donated buffer is consumed: keep only the returned mask.  A numpy
+    ``packed`` is copied.
+
+    Returns ``(packed (B, E/32) int32, basket_alive (B, nb) int32, counts
+    (B,) int32)``, the last two views of the one (B, nb + 1) summary
+    buffer.  The dispatch ledger notes one dispatch of ``terms.shape``.
+    """
+    device = resolve_device(device)
+    if backend is None:
+        backend = "cuda" if device.type == "cuda" else "host"
+    device = _stage_device(backend, device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    B, T, E, K = np.shape(terms)
+    G = program.n_groups
+    groups = (B, G, E, K)
+    if T != program.n_terms or {tuple(np.shape(valid)), tuple(np.shape(weights))} != {groups}:
+        raise ValueError(
+            f"cascade_stage_step: terms {tuple(np.shape(terms))}, valid "
+            f"{tuple(np.shape(valid))} and weights {tuple(np.shape(weights))} do not "
+            f"match a program of {program.n_terms} terms and {G} groups")
+    if not isinstance(packed, torch.Tensor):
+        packed = torch.from_numpy(np.array(packed, np.uint32).view(np.int32)).to(device)
+    if not isinstance(seg_ids, torch.Tensor):
+        seg_ids = torch.from_numpy(np.ascontiguousarray(seg_ids, np.int32)).to(device)
+    arrays = (terms, valid, weights)
+    if any(isinstance(x, torch.Tensor) and x.device != device
+           for x in (*arrays, packed, seg_ids)):
+        raise ValueError(f"cascade_stage_step: tensors must be on {device}")
+    if isinstance(terms, torch.Tensor):
+        _note_dispatch(_cascade_sig(program, terms.shape, nb, backend))
+        stage = _pe.cascade_stage if backend == "cuda" else _pe.cascade_stage_plain
+        packed, out = stage(*arrays, packed, seg_ids, program, nb)
+    else:
+        inputs = CascadeInputs((B, T, E, K), G, range(B), device)
+        inputs.planes[:, :T], inputs.planes[:, T:T + G], inputs.planes[:, T + G:] = arrays
+        packed, out = cascade_stage_step_staged(inputs, packed, seg_ids, program, nb,
+                                                backend=backend, device=device)
+    return packed, out[:, :nb], out[:, nb]
+
+
+def cascade_stage_step_staged(inputs: CascadeInputs, packed, seg_ids,
+                              program: Program, nb: int, backend="cuda",
+                              device="cuda"):
     """The batched cascade stage: one device dispatch per (stage,
     window-batch), over the windows ``inputs`` stages.
 
@@ -617,6 +674,7 @@ __all__ = [
     "basket_decode_batch",
     "basket_decode_round",
     "cascade_stage_step",
+    "cascade_stage_step_staged",
     "compile_query",
     "dispatch_stats",
     "flash_attention",

@@ -2,11 +2,13 @@
 
 The second slice of the port: ``run_skim(..., device_batch=B)`` runs the
 cascade one stage per window-batch (``CascadeExecutor.run_window_batch``
-→ ``ops.cascade_stage_step``).  On the CPU the port's stage step takes its
-plain version (``ref.cascade_stage_ref``); it is held here against the
-JAX package's ``ops.cascade_stage_step`` (its vmapped jnp version) and
-``predicate_eval_batch`` (Pallas, interpret mode), and the engine against
-the JAX engine on the store and query of ``tests/test_device_batch.py``.
+→ ``ops.cascade_stage_step_staged``).  On the CPU the port's stage step
+takes its plain version (``ref.cascade_stage_ref``).  The public
+``ops.cascade_stage_step`` is held here against the JAX package's (its
+vmapped jnp version), called with the same arguments; the batched
+predicate against ``predicate_eval_batch`` (Pallas, interpret mode); and
+the engine against the JAX engine on the store and query of
+``tests/test_device_batch.py``.
 The verifier and the cache's content address, which the batched path and
 the planner call, are held against the JAX package's as well.
 
@@ -91,24 +93,29 @@ def _side_by_side(x):
     return np.ascontiguousarray(x.transpose(1, 0, 2, 3).reshape(P, B * E, K))
 
 
+@pytest.mark.parametrize("backend", ["host", "torch"])
 @pytest.mark.parametrize("name", sorted(SWEEP))
-def test_cascade_stage_ref_matches_jax(name):
-    """new_packed, basket_alive and counts against the JAX package's
-    stage step (``use_pallas=False, donate=False``): bit-identical, except
-    mass/ΔR events at a cut's edge."""
+def test_cascade_stage_ref_matches_jax(name, backend):
+    """The two packages' ``ops.cascade_stage_step``, called with the same
+    arguments (the JAX package's without Pallas and without donation):
+    new_packed, basket_alive and counts bit-identical, except mass/ΔR
+    events at a cut's edge, and the same dispatch ledger."""
     prog = SWEEP[name]
     B, E, K, be = 3, 1024, 4, 256
     terms, valid, weights, packed, seg, nb = stage_inputs(
         np.random.default_rng(21), prog, B, E, K, be
     )
+    jops.reset_dispatch_stats()
     jp, jb, jc = jops.cascade_stage_step(
-        terms, valid, weights, jnp.asarray(packed), jnp.asarray(seg),
-        _jax_program(prog), nb, use_pallas=False, donate=False,
+        terms, valid, weights, packed, seg, _jax_program(prog), nb,
+        use_pallas=False, donate=False,
     )
-    tp, tb, tc = tref.cascade_stage_ref(
-        *(torch.from_numpy(x) for x in (terms, valid, weights)),
-        torch.from_numpy(packed.view(np.int32)), torch.from_numpy(seg), prog, nb,
+    tops.reset_dispatch_stats()
+    tp, tb, tc = tops.cascade_stage_step(
+        terms, valid, weights, packed, seg, prog, nb, backend=backend, device="cpu",
     )
+    assert tops.dispatch_stats() == jops.dispatch_stats()
+    assert tops.dispatch_stats() == {"dispatches": 1, "compiles": 1, "warmups": 0}
     want = [np.asarray(jp).view(np.int32), np.asarray(jb), np.asarray(jc)]
     got = [tp.numpy(), tb.numpy(), tc.numpy()]
     assert [g.dtype for g in got] == [np.int32] * 3
@@ -195,7 +202,7 @@ def test_stage_step_updates_the_mask_in_place_and_reads_back_once(backend):
         for part, dense in zip(inputs.window(s), (terms, valid, weights)):
             part[...] = dense[s]
     tops.reset_dispatch_stats()
-    out, summary = tops.cascade_stage_step(
+    out, summary = tops.cascade_stage_step_staged(
         inputs, carried, seg_t, prog, nb, backend=backend, device="cpu",
     )
     assert out is carried and torch.equal(carried, want[0])
@@ -205,8 +212,57 @@ def test_stage_step_updates_the_mask_in_place_and_reads_back_once(backend):
     np.testing.assert_array_equal(host_counts, want[2].numpy())
     assert tops.dispatch_stats() == {"dispatches": 1, "compiles": 1, "warmups": 0}
     with pytest.raises(ValueError):
-        tops.cascade_stage_step(inputs, carried, seg_t, prog, nb,
-                                backend="pallas", device="cpu")
+        tops.cascade_stage_step_staged(inputs, carried, seg_t, prog, nb,
+                                       backend="pallas", device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["host", "torch"])
+@pytest.mark.parametrize("name", ["count", "ht", "dr_pair", "expr"])
+def test_public_stage_step_on_tensors_equals_it_on_numpy(name, backend):
+    """Tensors are read where they are and the carried tensor is updated
+    in place; a numpy mask is copied.  Both give the same words, and the
+    basket bits and counts are views of one (B, nb + 1) buffer."""
+    prog = SWEEP[name]
+    arrays = stage_inputs(np.random.default_rng(6), prog, 3, 1024, 4, 256)
+    terms, valid, weights, packed, seg, nb = arrays
+    before = packed.copy()
+    want = tops.cascade_stage_step(*arrays[:5], prog, nb, backend=backend,
+                                   device="cpu")
+    np.testing.assert_array_equal(packed, before)
+    carried = torch.from_numpy(packed.view(np.int32).copy())
+    tops.reset_dispatch_stats()
+    got = tops.cascade_stage_step(
+        *(torch.from_numpy(x) for x in (terms, valid, weights)), carried,
+        torch.from_numpy(seg), prog, nb, backend=backend, device="cpu")
+    assert tops.dispatch_stats() == {"dispatches": 1, "compiles": 1, "warmups": 0}
+    assert got[0] is carried
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    bits, counts = got[1], got[2]
+    assert bits.shape == (3, nb) and counts.shape == (3,)
+    assert bits.data_ptr() == counts.data_ptr() - 4 * nb  # one summary buffer
+
+
+def test_public_stage_step_rejects_what_it_cannot_run(monkeypatch):
+    prog = SWEEP["count"]
+    terms, valid, weights, packed, seg, nb = stage_inputs(
+        np.random.default_rng(7), prog, 2, 512, 4, 128)
+    step = tops.cascade_stage_step
+    with pytest.raises(ValueError):  # a CUDA stage on the CPU
+        step(terms, valid, weights, packed, seg, prog, nb, backend="cuda", device="cpu")
+    with pytest.raises(ValueError):
+        step(terms, valid, weights, packed, seg, prog, nb, backend="pallas",
+             device="cpu")
+    with pytest.raises(ValueError):  # a term plane short
+        step(terms[:, 1:], valid, weights, packed, seg, prog, nb, device="cpu")
+    with pytest.raises(ValueError):
+        step(terms, valid[:, :, :256], weights, packed, seg, prog, nb, device="cpu")
+    with pytest.raises(ValueError):  # tensors elsewhere than the stage
+        step(*(torch.from_numpy(x).to("meta") for x in (terms, valid, weights)),
+             packed, seg, prog, nb, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        step(terms, valid, weights, packed, seg, prog, nb)
 
 
 def test_cascade_stage_rejects_what_the_kernel_does_not_take():

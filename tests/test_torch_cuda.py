@@ -149,7 +149,7 @@ def test_cuda_cascade_stage_windows_match_plain(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_stage_step_is_one_pinned_upload(cuda_device):
-    """``ops.cascade_stage_step`` moves the staged buffer in one
+    """``ops.cascade_stage_step_staged`` moves the staged buffer in one
     page-locked copy and launches one kernel over the staged windows."""
     prog = dict(chip_smoke.sweep_programs())["ht"]
     staged, packed, seg, nb = chip_smoke.staged_batch(
@@ -168,8 +168,8 @@ def test_cuda_stage_step_is_one_pinned_upload(cuda_device):
     uploads, restore = chip_smoke.count_uploads()
     ops.reset_launch_counts()
     try:
-        got_p, got = ops.cascade_stage_step(inputs, carried, seg_t, prog, nb,
-                                            device=cuda_device)
+        got_p, got = ops.cascade_stage_step_staged(inputs, carried, seg_t, prog, nb,
+                                                   device=cuda_device)
     finally:
         restore()
     torch.cuda.synchronize()
@@ -177,6 +177,16 @@ def test_cuda_stage_step_is_one_pinned_upload(cuda_device):
     assert (uploads["calls"], uploads["step_uploads"], uploads["step_pageable"]) == (1, 1, 0)
     assert uploads["step_bytes"] == inputs.nbytes
     assert torch.equal(got_p, want_p) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_public_stage_step_launches_the_kernel(cuda_device):
+    """``ops.cascade_stage_step``, the JAX package's form, on a dense batch
+    of numpy and of card tensors: one ``cascade_stage`` launch a call,
+    bit for bit ``ref.cascade_stage_ref``'s words, basket bits and counts."""
+    names = ("count", "ht", "mass_pair", "expr")
+    assert chip_smoke.check_cascade_stage_public(
+        np.random.default_rng(5), cuda_device, names) == 0.0
 
 
 @pytest.mark.cuda

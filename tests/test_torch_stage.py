@@ -2,9 +2,9 @@
 
 ``run_window_batch`` stages only the windows a stage runs, each window's
 planes back to back in one buffer with a row table
-(``ops.CascadeInputs``), and ``ops.cascade_stage_step`` uploads that
-buffer in one copy and runs the stage over the staged windows only.  On
-the CPU the step takes the plain version over the same layout
+(``ops.CascadeInputs``), and ``ops.cascade_stage_step_staged`` uploads
+that buffer in one copy and runs the stage over the staged windows only.
+On the CPU the step takes the plain version over the same layout
 (``predicate_eval.cascade_stage_windows_plain``); these tests hold it
 against ``ref.cascade_stage_ref`` on the dense batch the staged windows
 stand for, and the batched engine's ledgers against the JAX package's.
@@ -63,8 +63,8 @@ def test_staged_step_equals_the_dense_batch(name, subset, backend):
     want_words, want_out = _dense_ref(inputs, packed, seg, prog, nb)
     carried = torch.from_numpy(packed.copy())
     tops.reset_dispatch_stats()
-    words, out = tops.cascade_stage_step(inputs, carried, torch.from_numpy(seg),
-                                         prog, nb, backend=backend, device="cpu")
+    words, out = tops.cascade_stage_step_staged(inputs, carried, torch.from_numpy(seg),
+                                                prog, nb, backend=backend, device="cpu")
     assert words is carried
     assert torch.equal(words, want_words)
     assert torch.equal(out, want_out)
@@ -84,7 +84,7 @@ def test_staged_windows_at_every_object_capacity(K):
     inputs, packed, seg, nb = chip_smoke.staged_batch(
         np.random.default_rng(K), prog, 4, 1024, K, 256, (1, 2), start=5)
     want_words, want_out = _dense_ref(inputs, packed, seg, prog, nb)
-    words, out = tops.cascade_stage_step(
+    words, out = tops.cascade_stage_step_staged(
         inputs, torch.from_numpy(packed.copy()), torch.from_numpy(seg), prog, nb,
         backend="host")
     assert torch.equal(words, want_words) and torch.equal(out, want_out)
@@ -98,7 +98,7 @@ def test_rows_not_staged_keep_their_words():
         np.random.default_rng(8), prog, 5, 1024, 4, 256, (0, 3), keep=(2,))
     before = packed.copy()
     assert before[2].any()
-    words, out = tops.cascade_stage_step(
+    words, out = tops.cascade_stage_step_staged(
         inputs, torch.from_numpy(packed.copy()), torch.from_numpy(seg), prog, nb,
         backend="host")
     for b in (1, 2, 4):
@@ -178,7 +178,7 @@ def test_event_lanes(name, K, want):
 def _stage_log(monkeypatch):
     """Record each stage step's staged rows and dense shape."""
     calls = []
-    step = tops.cascade_stage_step
+    step = tops.cascade_stage_step_staged
 
     def record(inputs, packed, *a, **k):
         counts = tref.unpack_bits(packed, inputs.shape[2]).sum(dim=1)
@@ -186,7 +186,7 @@ def _stage_log(monkeypatch):
                       np.nonzero(counts.numpy())[0].tolist(), inputs.nbytes))
         return step(inputs, packed, *a, **k)
 
-    monkeypatch.setattr(tops, "cascade_stage_step", record)
+    monkeypatch.setattr(tops, "cascade_stage_step_staged", record)
     return calls
 
 
