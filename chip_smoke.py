@@ -7,10 +7,10 @@ Phases, in order; the first failure stops the run with a non-zero exit:
 
 1. Device: the card's name and power limit (``nvidia-smi``), the torch
    and CUDA versions, then the build of every kernel from ``src/`` and,
-   beside it, of the earlier designs of ``cascade_stage``,
+   beside it, of the earlier designs of ``skim_fused``, ``cascade_stage``,
    ``predicate_eval`` and ``stream_compact`` the script keeps as timing
    baselines (:data:`PARENT_CU`), and the attention
-   library's SASS (``cuobjdump``): its bf16 route must hold ``HGMMA``
+   library's SASS (``cuobjdump``): its 16-bit routes must hold ``HGMMA``
    (wgmma) and its float32 route tf32 ``HMMA`` (mma.sync).
 2. Kernels against their plain PyTorch versions, on the card:
    ``basket_decode`` bit for bit (same-shaped batches, mixed-kind rounds
@@ -28,16 +28,24 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    bench_kernels' E = 2^17 and 2^20), ``stream_compact`` bit for bit
    over every payload width (NaN payloads, -0.0, integers past 2^24),
    rows of a multiple of 16 bytes and not, buffers off 16-byte
-   alignment, ``skim_fused_batch`` over every op and group kind, and
-   ``flash_attention`` at the JAX tests' shapes and at its edges (ragged
-   S, a padded D, many heads), 3e-5 in float32, a few ulps in bf16.
+   alignment, ``skim_fused_batch`` over every op and group kind, both
+   skim kernels with payloads of 1, 2, 4 and 8 bytes (int32, float16,
+   uint8, int64, bool) bit for bit, ``flash_attention`` at the JAX tests'
+   shapes, at its edges (ragged S, a padded D, many heads) and past D =
+   128 (136, 192, 256, Gemma-7B's layout), 3e-5 in float32, a few ulps in
+   bf16 and float16, one launch a call; then the ``ops`` entries on numpy
+   as the JAX package reads it (float64 as float32, int64 as int32, a
+   float or int64 mask through int32) through the card, equal in type and
+   bytes to the host's, the per-window skim's staged route among them.
    Then each skim kernel's median time beside its plain version's and
    its bound, at the shapes the main path gives it (window 0's decode
    rounds and skim calls; the batch of the first 16 windows), with the
    host-to-host time of a whole decode round, of a window's skim and of a
    cascade stage step (the staged step the path calls, and the public
-   form on the dense numpy batch); ``cascade_stage`` and ``predicate_eval`` beside
-   their earlier designs on the same inputs, the stage's earlier step
+   form on the dense numpy batch); both skim kernels beside the parent's
+   float32-only kernel and at int32 and uint8 rows; ``cascade_stage`` and
+   ``predicate_eval`` beside their earlier designs on the same inputs, the
+   stage's earlier step
    (three pageable uploads), and ``predicate_eval`` also at
    bench_kernels' shapes.
 3. The main path: ``run_skim`` with every default on two 1,000,000-event
@@ -59,7 +67,8 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    batches (equal per window to ``ops.fused_skim``),
    ``ops.stream_compact`` of eight float32 branches by the quickstart
    cell's 1,000,000-event survivor mask, and ``ops.flash_attention`` at
-   StarCoder2-7B's head layout (1, 36, 2048, 128) in float32 and bf16;
+   StarCoder2-7B's head layout (1, 36, 2048, 128) and Gemma-7B's (1, 16,
+   2048, 256) in float32, bf16 and float16;
    then their times, beside one PyTorch call each where there is one
    (and the kernels ``torch.profiler`` saw that call run);
    ``stream_compact`` also beside its earlier design, at bench_kernels'
@@ -124,7 +133,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
-BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 and fp16 on the tensor cores, dense
 N_EVENTS = 1_000_000
 
 QUICKSTART_QUERY = {  # examples/quickstart.py
@@ -345,13 +354,14 @@ def bound_times(nbytes: float, ops: float,
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
 
 
-def attention_ops_ms(ops: float, bf16: bool) -> float:
-    """The least time for ``ops`` operations of attention.  bf16: the
-    tensor cores' bf16 rate.  float32: the lesser of the two ways to a
-    float32-exact product, the CUDA cores at their float32 rate and split
-    TF32 on the tensor cores (three TF32 products per product at the TF32
-    rate), which is the lesser: 3 / 495 < 1 / 67."""
-    if bf16:
+def attention_ops_ms(ops: float, half: bool) -> float:
+    """The least time for ``ops`` operations of attention.  ``half`` (bf16
+    or float16): the tensor cores' 16-bit rate, the same for both.
+    float32: the lesser of the two ways to a float32-exact product, the
+    CUDA cores at their float32 rate and split TF32 on the tensor cores
+    (three TF32 products per product at the TF32 rate), which is the
+    lesser: 3 / 495 < 1 / 67."""
+    if half:
         return ops / BF16_OPS_PER_S * 1e3
     return min(ops / FP32_OPS_PER_S, 3 * ops / TF32_OPS_PER_S) * 1e3
 
@@ -381,7 +391,7 @@ def profiled_kernels(fn) -> list[str] | str:
 
 
 def check_tensor_core_sass() -> dict:
-    """Counts, in the SASS of the attention library, the bf16 route's wgmma
+    """Counts, in the SASS of the attention library, the 16-bit routes' wgmma
     (``HGMMA``) and the float32 route's tf32 mma.sync (``HMMA`` ... ``TF32``);
     fails if either is 0 or ``cuobjdump`` is missing."""
     import shutil
@@ -397,9 +407,9 @@ def check_tensor_core_sass() -> dict:
     lines = sass.stdout.splitlines()
     counts = {"HGMMA": sum("HGMMA" in ln for ln in lines),
               "HMMA_TF32": sum("HMMA" in ln and "TF32" in ln for ln in lines)}
-    log(f"  flash_attention SASS: {counts['HGMMA']} HGMMA (bf16 route, wgmma), "
+    log(f"  flash_attention SASS: {counts['HGMMA']} HGMMA (16-bit routes, wgmma), "
         f"{counts['HMMA_TF32']} tf32 HMMA (float32 route, mma.sync)")
-    check(counts["HGMMA"] > 0, "flash_attention: no HGMMA in the bf16 route's SASS")
+    check(counts["HGMMA"] > 0, "flash_attention: no HGMMA in the 16-bit routes' SASS")
     check(counts["HMMA_TF32"] > 0, "flash_attention: no tf32 HMMA in the float32 route's SASS")
     return counts
 
@@ -799,10 +809,159 @@ def check_skim_fused(rng, device) -> tuple[float, int]:
         f"packed and count equal to the plain version except {edge} events "
         "at a mass/ΔR cut's edge")
     max_err = max(max_err, check_skim_fused_sizes(rng, device))
+    check_skim_payloads(rng, device, batch=False)
     return max_err, edge
 
 
 SKIM_SIZES = (1, 300, 512, 4097, 65_536, 1_000_000)
+# payload kinds beside float32: elements of 4, 2, 1, 8 and 1 bytes
+SKIM_PAYLOAD_KINDS = ("int32", "float16", "uint8", "int64", "bool")
+
+
+def check_skim_payloads(rng, device, batch: bool) -> int:
+    """``skim_fused`` (``batch``: ``skim_fused_batch``, B = 3) over every
+    sweep program, E in 512/4608, K = 4, D in 1/5, with payloads of each
+    kind of :data:`SKIM_PAYLOAD_KINDS` (NaN payloads, -0.0 and integers
+    past 2^24 among them): one launch a call, the count, and the packed
+    rows in the payload's type, zero tail included, bit for bit the plain
+    compaction's (``ref.stream_compact_ref``) by the same survivors.  The
+    survivors are the kernel's on the same inputs with a float32
+    event-index payload, held to the plain version's but for events at a
+    mass/ΔR cut's edge (as :func:`check_skim_fused`).  Returns the number
+    of calls."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import skim_fused as sf
+
+    B = 3 if batch else 1
+    who = "skim_fused_batch" if batch else "skim_fused"
+    cases = 0
+    for name, program in sweep_programs():
+        for E in (512, 4608):
+            host = batch_sweep_inputs(rng, program, B, E, 4, 1)
+            t, v, w, index = (torch.from_numpy(x).to(device) for x in host)
+
+            def run(payload):
+                if batch:
+                    return sf.skim_fused_batch(t, v, w, payload, program)
+                got, n = sf.skim_fused(t[0], v[0], w[0], payload[0], program)
+                return got[None], n[None]
+
+            got, counts = run(index)
+            want, want_counts = ref.skim_fused_batch_ref(t, v, w, index, program)
+            torch.cuda.synchronize()
+            keep = torch.zeros((B, E), dtype=torch.bool, device=device)
+            for b in range(B):
+                n, wn = int(counts[b]), int(want_counts[b])
+                if n != wn or not torch.equal(got[b].view(torch.int32),
+                                              want[b].view(torch.int32)):
+                    packed_edges(f"{who} {name} E={E} window {b}", program, t[b], v[b],
+                                 got[b], n, want[b], wn)
+                keep[b, got[b, :n, 0].long()] = True
+            for D in (1, 5):
+                for kind in SKIM_PAYLOAD_KINDS:
+                    payload = compact_payload(rng, kind, B * E, D).view(B, E, D).to(device)
+                    ops.reset_launch_counts()
+                    packed, n = run(payload)
+                    torch.cuda.synchronize()
+                    what = f"{who} {name} E={E} D={D} {kind}"
+                    check(ops.launch_counts()[who] == 1,
+                          f"{what}: {ops.launch_counts()[who]} launches for one call")
+                    check(packed.dtype == payload.dtype and packed.shape == payload.shape
+                          and torch.equal(n, counts),
+                          f"{what}: {packed.dtype} {tuple(packed.shape)}, counts "
+                          f"{n.tolist()} vs {counts.tolist()}")
+                    for b in range(B):
+                        plain, _ = ref.stream_compact_ref(payload[b], keep[b])
+                        check(bit_err(packed[b], plain) == 0.0,
+                              f"{what} window {b}: rows differ from the plain compaction")
+                    cases += 1
+    log(f"  {who}: {cases} calls with payloads of "
+        f"{'/'.join(SKIM_PAYLOAD_KINDS)} (1, 2, 4 and 8 bytes; every sweep program, "
+        f"E in 512/4608, D in 1/5{', B = 3' if batch else ''}): one launch each, "
+        "packed rows bit for bit and counts equal to the plain version")
+    return cases
+
+
+def check_numpy_entries(rng, device) -> int:
+    """The ``ops`` entries on numpy, as the JAX package reads it, through
+    the card against the same call with ``device="cpu"``: the output's
+    type and bytes and the count.  ``ops.fused_skim`` (the staged route:
+    one page-locked upload, one launch, one readback) and
+    ``ops.skim_fused`` with payloads of float64 (read as float32), int64
+    (read as int32), int32, float16, uint8 and bool; ``ops.fused_skim_batch``
+    with float64 planes and int64 payloads; ``ops.stream_compact`` with an
+    int64 payload and float32 and int64 masks (0.5 and 2^32 read as 0);
+    ``ops.flash_attention`` on float64 (float32 out).  Each card call
+    launches its kernel once.  Returns the number of calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    cpu = torch.device("cpu")
+    cases = 0
+
+    def same(what, entry, launched, call):
+        nonlocal cases
+        ops.reset_launch_counts()
+        got = call(device)
+        torch.cuda.synchronize()
+        check(ops.launch_counts()[launched] == 1,
+              f"{what}: {ops.launch_counts()[launched]} {launched} launches")
+        want = call(cpu)
+        got, want = (x if isinstance(x, (tuple, list)) else (x,) for x in (got, want))
+        for g, w_ in zip(got, want):
+            g = g.cpu().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+            w_ = w_.numpy() if isinstance(w_, torch.Tensor) else np.asarray(w_)
+            check(g.dtype == w_.dtype and g.shape == w_.shape,
+                  f"{what}: {g.dtype} {g.shape} on the card, {w_.dtype} {w_.shape} on "
+                  "the host")
+            if entry == "flash_attention":
+                check(np.allclose(g, w_, rtol=FLASH_TOL["float32"][0],
+                                  atol=FLASH_TOL["float32"][1]), f"{what}: values differ")
+            else:
+                check(g.tobytes() == w_.tobytes(), f"{what}: bytes differ")
+        cases += 1
+
+    program = dict(sweep_programs())["count"]
+    t, v, w, _ = sweep_inputs(rng, program, 4608, 4, 1)
+    kinds = {"float64": rng.normal(size=(4608, 3)),
+             "int64": rng.integers(-(1 << 40), 1 << 40, (4608, 3)),
+             "int32": rng.integers(-(1 << 30), 1 << 30, (4608, 3)).astype(np.int32),
+             "float16": rng.normal(size=(4608, 3)).astype(np.float16),
+             "uint8": rng.integers(0, 256, (4608, 3), dtype=np.uint8),
+             "bool": rng.random((4608, 3)) < 0.5}
+    for kind, payload in kinds.items():
+        same(f"ops.fused_skim numpy {kind}", "fused_skim", "skim_fused",
+             lambda dev, payload=payload: ops.fused_skim(t, v, w, payload, program,
+                                                        device=dev))
+        same(f"ops.skim_fused numpy {kind}", "skim_fused", "skim_fused",
+             lambda dev, payload=payload: ops.skim_fused(t, v, w, payload, program,
+                                                        device=dev))
+    bt, bv, bw, _ = batch_sweep_inputs(rng, program, 3, 512, 4)
+    big = rng.integers(-(1 << 40), 1 << 40, (3, 512, 2))
+    same("ops.fused_skim_batch numpy float64 planes, int64 payload", "fused_skim_batch",
+         "skim_fused_batch",
+         lambda dev: ops.fused_skim_batch(bt.astype(np.float64), bv, bw, big, program,
+                                          device=dev))
+    payload = rng.integers(-(1 << 40), 1 << 40, (5000, 2))
+    m32 = np.where(rng.random(5000) < 0.4, 2.7, 0.5).astype(np.float32)
+    m64 = np.where(rng.random(5000) < 0.4, 3, 1 << 32).astype(np.int64)
+    for what, mask in (("float32", m32), ("int64", m64)):
+        same(f"ops.stream_compact numpy int64 payload, {what} mask", "stream_compact",
+             "stream_compact",
+             lambda dev, mask=mask: ops.stream_compact(payload, mask, device=dev))
+    q, k, vv = (rng.normal(size=(1, 2, 200, 64)) for _ in range(3))
+    same("ops.flash_attention numpy float64", "flash_attention", "flash_attention",
+         lambda dev: ops.flash_attention(q, k, vv, device=dev))
+    log(f"  ops entries on numpy: {cases} calls on the card equal to the host's in "
+        "type and bytes (fused_skim staged and skim_fused with float64/int64/int32/"
+        "float16/uint8/bool payloads, fused_skim_batch, stream_compact with float32 "
+        "and int64 masks; flash_attention float64 -> float32 within 3e-5), one "
+        "launch each")
+    return cases
 
 
 def check_skim_fused_sizes(rng, device, Es=SKIM_SIZES) -> float:
@@ -1251,10 +1410,55 @@ def check_predicate_eval(rng, device, names=None) -> tuple[float, int]:
 # ---------------------------------------------------------------------------
 
 PARENT_CU = r"""
+#include "compact.cuh"
 #include "predicate.cuh"
 namespace {
 constexpr int kTile = 512;
 constexpr int kWarps = kTile / 32;
+__global__ void __launch_bounds__(kTile)
+parent_skim_kernel(Program p, Inputs batch, int T,
+                   const uint32_t* __restrict__ payload, int D,
+                   uint32_t* __restrict__ out, int* __restrict__ totals,
+                   unsigned long long* __restrict__ status,
+                   unsigned* __restrict__ tickets, unsigned epoch, int n_tiles) {
+  __shared__ int warp_counts[kWarps];
+  __shared__ int s_tile, s_excl;
+  const long long b = blockIdx.y;
+  const long long E = batch.E;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_tile = take_ticket(tickets + b, n_tiles);
+  __syncthreads();
+  const int tile = s_tile;
+  const long long e = (long long)tile * kTile + threadIdx.x;
+  if (e < E) {
+    uint32_t* row = out + (b * E + e) * D;
+    for (int d = 0; d < D; ++d) row[d] = 0u;
+  }
+  const bool keep = e < E && eval_event(p, e, window_inputs(batch, b, T, p.G));
+  const uint32_t ballot = __ballot_sync(0xffffffffu, keep);
+  if (lane == 0) warp_counts[warp] = __popc(ballot);
+  __syncthreads();
+  int before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = warp_counts[w];
+    before += w < warp ? c : 0;
+    total += c;
+  }
+  if (warp == 0) {
+    const int excl = look_back(status + b * n_tiles, tile, total, epoch);
+    if (lane == 0) s_excl = excl;
+  }
+  __syncthreads();
+  const int excl = s_excl;
+  if (keep) {
+    const long long rank = excl + before + __popc(ballot & ((1u << lane) - 1u));
+    const uint32_t* src = payload + (b * E + e) * D;
+    uint32_t* dst = out + (b * E + rank) * D;
+    for (int d = 0; d < D; ++d) dst[d] = src[d];
+  }
+  if (tile == n_tiles - 1 && threadIdx.x == 0) totals[b] = excl + total;
+}
 __global__ void cascade_stage_kernel(Program p, Inputs batch, int T,
                                      uint32_t* __restrict__ packed,
                                      const int* __restrict__ seg_ids, int nb,
@@ -1364,6 +1568,23 @@ cudaError_t launch_rows(const void* payload, const uint32_t* words,
   return cudaGetLastError();
 }
 }  // namespace
+extern "C" int parent_skim_launch(
+    const float* terms, const float* valid, const float* weights,
+    const float* payload, int B, int T, int G, long long E, int K, int D,
+    const int* groups, const int* term_ids, const int* ops, const float* thrs,
+    const float* cmp_thrs, const int* rpn_op, const int* rpn_term,
+    const float* rpn_const, unsigned long long* status, unsigned* tickets,
+    unsigned epoch, float* out, int* totals, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (epoch == 0 || epoch >= (1u << 30)) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (int)((E + kTile - 1) / kTile);
+  Program p{groups, term_ids, ops, thrs, cmp_thrs, rpn_op, rpn_term, rpn_const, G};
+  Inputs batch{terms, valid, weights, E, K};
+  parent_skim_kernel<<<dim3((unsigned)n_tiles, (unsigned)B), kTile, 0, s>>>(
+      p, batch, T, reinterpret_cast<const uint32_t*>(payload), D,
+      reinterpret_cast<uint32_t*>(out), totals, status, tickets, epoch, n_tiles);
+  return (int)cudaGetLastError();
+}
 extern "C" int parent_stage_launch(
     const float* terms, const float* valid, const float* weights, int B,
     int T, int G, long long E, int K, const int* groups, const int* term_ids,
@@ -1426,8 +1647,9 @@ def start_parent_build():
 
     from repro_torch.kernels import _build
 
-    digest = hashlib.sha256(PARENT_CU.encode() + (
-        _build._CSRC / "predicate.cuh").read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(PARENT_CU.encode() + b"".join(
+        (_build._CSRC / h).read_bytes() for h in ("compact.cuh", "predicate.cuh")
+    )).hexdigest()[:16]
     lib = _build.build_dir() / f"parent-{digest}.so"
     if lib.exists():
         return None, lib
@@ -1441,9 +1663,12 @@ def start_parent_build():
 
 
 def finish_parent_build(proc, lib):
-    """Wait for :func:`start_parent_build`; returns the three baselines,
+    """Wait for :func:`start_parent_build`; returns the four baselines,
     each called as the wrapper it stood behind was, wrapper work and all:
-    ``.stage(terms, valid, weights, packed, seg_ids, program, nb) -> out``
+    ``.skim(terms, valid, weights, payload, program) -> buf`` (a (B, T, E,
+    K) batch and a float32 payload, moved as 32-bit words: the kernel
+    before payloads of every width), ``.stage(terms, valid, weights,
+    packed, seg_ids, program, nb) -> out``
     (``packed`` updated in place), ``.mask(terms, valid, weights, program)
     -> (B, E) int32`` and ``.compact(payload, mask) -> (packed, count)``
     (four allocations a call, as its wrapper made; its argument checks,
@@ -1455,7 +1680,7 @@ def finish_parent_build(proc, lib):
 
     from repro_torch.kernels import _build
     from repro_torch.kernels import predicate_eval as pe
-    from repro_torch.kernels.skim_fused import program_args
+    from repro_torch.kernels.skim_fused import Workspace, header_words, program_args
 
     if proc is not None:
         out, err = proc.communicate()
@@ -1463,12 +1688,31 @@ def finish_parent_build(proc, lib):
     lib = ctypes.CDLL(str(lib))
     pv, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     dense = [pv, pv, pv, i, i, i, ll, i, *([pv] * 8)]
+    lib.parent_skim_launch.argtypes = [pv, pv, pv, pv, i, i, i, ll, i, i, *([pv] * 10),
+                                       ctypes.c_uint, pv, pv, pv]
     lib.parent_stage_launch.argtypes = [*dense, pv, pv, i, pv, pv]
     lib.parent_mask_launch.argtypes = [*dense, pv, pv]
     lib.parent_compact_launch.argtypes = [pv, pv, i, ll, i, i, pv, pv, pv, pv, pv]
-    for fn in (lib.parent_stage_launch, lib.parent_mask_launch, lib.parent_compact_launch):
+    for fn in (lib.parent_skim_launch, lib.parent_stage_launch, lib.parent_mask_launch,
+               lib.parent_compact_launch):
         fn.restype = ctypes.c_int
     p = _build.ptr
+
+    def skim(t, v, w, payload, program):  # the parent's skim_fused.launch
+        device = t.device
+        B, T, E, K = t.shape
+        D = payload.shape[-1]
+        hdr = header_words(B)
+        buf = torch.empty(hdr + B * E * D, dtype=torch.int32, device=device)
+        stream = _build.stream_id(device)
+        status, tickets, epoch = Workspace.reserve(device, stream, B * -(-E // 512), B)
+        rc = _build.call_on(
+            device, lib.parent_skim_launch, p(t), p(v), p(w), p(payload), B, T,
+            program.n_groups, E, K, D, *program_args(program, device), p(status),
+            p(tickets), epoch, ctypes.c_void_p(buf.data_ptr() + 4 * hdr), p(buf),
+            ctypes.c_void_p(stream))
+        _build.check_launch("parent skim_fused", rc)
+        return buf
 
     def stream_of(device):  # as the earlier wrappers looked the stream up
         return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
@@ -1507,7 +1751,7 @@ def finish_parent_build(proc, lib):
         _build.check_launch("parent stream_compact", rc)
         return out, total[0]
 
-    return SimpleNamespace(stage=stage, mask=mask, compact=compact)
+    return SimpleNamespace(skim=skim, stage=stage, mask=mask, compact=compact)
 
 
 def count_uploads(step_name: str = "cascade_stage_step_staged"):
@@ -1576,21 +1820,23 @@ COMPACT_KINDS = ("float32", "int32", "bfloat16", "int64", "bool")
 
 
 def compact_payload(rng, kind: str, E: int, D: int):
-    """An (E, D) host payload of ``kind``: float32 and bfloat16 with NaNs
-    (random payload bits) and -0.0 mixed in, int32 at and above 2^24 (and
-    negative), int64 across its range, random bools."""
+    """An (E, D) host payload of ``kind``: float32, bfloat16 and float16
+    with NaNs (random payload bits) and -0.0 mixed in, int32 at and above
+    2^24 (and negative), int64 across its range, random bytes (uint8),
+    random bools."""
     import numpy as np
     import torch
 
     n = E * D
-    if kind in ("float32", "bfloat16"):
+    if kind in ("float32", "bfloat16", "float16"):
         x = rng.normal(size=n).astype(np.float32)
         nan = (np.uint32(0x7FC00000) | rng.integers(0, 1 << 22, n).astype(np.uint32))
         special = rng.random(n)
         x = np.where(special < 0.05, nan.view(np.float32), x)
         x = np.where((special >= 0.05) & (special < 0.1), np.float32(-0.0), x)
-        t = torch.from_numpy(x.reshape(E, D))
-        return t.to(torch.bfloat16) if kind == "bfloat16" else t
+        return torch.from_numpy(x.reshape(E, D)).to(getattr(torch, kind))
+    if kind == "uint8":
+        return torch.from_numpy(rng.integers(0, 256, (E, D), dtype=np.uint8))
     if kind == "int32":
         big = rng.integers((1 << 24) - 3, (1 << 31) - 1, n)
         sign = np.where(rng.random(n) < 0.3, -1, 1)
@@ -1723,6 +1969,7 @@ def check_skim_fused_batch(rng, device, names=None) -> tuple[float, int]:
     log(f"  skim_fused_batch: {cases} cases (every sweep program, B in 1/3/16, "
         f"E in 512/4096, K in 1/8); packed rows and counts equal to the plain "
         f"version except {edge} events at a mass/ΔR cut's edge; max |err| {max_err}")
+    check_skim_payloads(rng, device, batch=True)
     return max_err, edge
 
 
@@ -1730,13 +1977,24 @@ FLASH_SHAPES = ((1, 1, 128, 32), (2, 3, 256, 64), (1, 2, 512, 128))  # tests/tes
 # the kernel's edges: S a multiple of neither key tile (32, 128), a D the
 # wrapper pads to 48, B*H = 72 heads over several waves of CTAs
 FLASH_EDGE_SHAPES = ((1, 2, 200, 128), (1, 2, 2049, 128), (1, 2, 200, 40), (2, 36, 384, 128))
+# Gemma-7B's attention (google/gemma-7b config.json: 16 heads, head_dim
+# 256) over 2048 positions, causal
+GEMMA_7B_ATTN = (1, 16, 2048, 256)
+# head dims past 128, one CTA per 128-column slice of the output: a D the
+# wrapper pads to 144 (a slice mostly past D), 192 (a half slice), 256 at a
+# ragged S, 520 padded to 528 (five chunks, the last of 16 columns), and
+# Gemma-7B's layout
+FLASH_WIDE_SHAPES = ((1, 2, 200, 136), (1, 2, 512, 192), (1, 2, 2049, 256), (1, 1, 130, 520),
+                     GEMMA_7B_ATTN)
 # (rtol, atol) against the plain version on the card.  float32: the JAX
 # tests' 3e-5.  bf16: kernel and plain version both accumulate in float32
 # and round once to bf16, so they differ by at most about one bf16 ulp
 # (2^-8 of the value); 1e-2 relative plus 4e-3 absolute allows a few, far
 # under the JAX tests' 0.05, which is as large as a typical output at
-# S = 2048.
-FLASH_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-2, 4e-3)}
+# S = 2048.  float16: the same argument with f16's ulp, at most 2^-10 of
+# the value, and P rounded to f16 (2^-11) before P V: 2e-3 relative plus
+# 2e-3 absolute, tighter than bf16's in both.
+FLASH_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-2, 4e-3), "float16": (2e-3, 2e-3)}
 
 
 def attention_close(got, want, dtype_name: str, what: str) -> float:
@@ -1765,35 +2023,38 @@ def attention_inputs(rng, shape, dtype, device):
             .to(device=device, dtype=dtype) for _ in range(3)]
 
 
-def check_flash_attention(rng, device, shapes=FLASH_SHAPES + FLASH_EDGE_SHAPES) -> float:
+def check_flash_attention(rng, device,
+                          shapes=FLASH_SHAPES + FLASH_EDGE_SHAPES + FLASH_WIDE_SHAPES) -> float:
     """``flash_attention`` against its plain version at the JAX tests'
-    shapes and :data:`FLASH_EDGE_SHAPES`, causal and not, within
-    :data:`FLASH_TOL`.
-    Returns the largest |kernel - plain| over all cases."""
+    shapes, :data:`FLASH_EDGE_SHAPES` and :data:`FLASH_WIDE_SHAPES`, causal
+    and not, in float32, bf16 and float16, within :data:`FLASH_TOL`, one
+    launch a call.  Returns the largest |kernel - plain| over all cases."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
 
     cases = 0
-    errs = {"float32": 0.0, "bfloat16": 0.0}
+    errs = dict.fromkeys(FLASH_TOL, 0.0)
     for shape in shapes:
         for causal in (True, False):
             for dtype_name in errs:
                 dtype = getattr(torch, dtype_name)
                 q, k, v = attention_inputs(rng, shape, dtype, device)
+                ops.reset_launch_counts()
                 got = fa.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                what = f"flash_attention {shape} causal={causal} {dtype_name}"
+                check(ops.launch_counts()["flash_attention"] == 1, f"{what}: not launched")
                 want = ref.flash_attention_ref(q, k, v, causal=causal)
                 torch.cuda.synchronize()
-                err = attention_close(got, want, dtype_name,
-                                      f"flash_attention {shape} causal={causal} "
-                                      f"{dtype_name}")
+                err = attention_close(got, want, dtype_name, what)
                 errs[dtype_name] = max(errs[dtype_name], err)
                 cases += 1
+                del q, k, v, got, want
     log(f"  flash_attention: {cases} cases (shapes {list(shapes)}, causal and "
-        f"not, float32 and bf16) within (rtol, atol) {FLASH_TOL} of the plain "
-        f"version; max |err| float32 {errs['float32']}, "
-        f"bf16 {errs['bfloat16']}")
+        f"not, float32, bf16 and float16), one launch each, within (rtol, atol) "
+        f"{FLASH_TOL} of the plain version; max |err| {errs}")
     return max(errs.values())
 
 
@@ -1941,7 +2202,8 @@ def _summary(rows) -> dict | None:
 
 def bounds(summary: dict) -> dict:
     return {k: summary[k]
-            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "by_dtype",
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "by_case",
+                      "int32_ms", "uint8_ms",
                       "per_basket_ms", "round_ms", "window_ms", "dense_ms", "parent_ms",
                       "step_ms", "parent_step_ms", "public_step_ms", "staged_bytes",
                       "dense_bytes", "parent_stream_ms", "shapes", "wrapper_us")
@@ -2062,14 +2324,17 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
     the plain version's time per call, the bound (decoded values counted
     at each branch's own width) and, where one PyTorch call computes the
     same function, that call's time per call from the host
-    (``library_ms``).  ``cascade_stage``, ``predicate_eval`` and
-    ``stream_compact`` are timed beside their earlier designs (``parent``,
-    from :func:`finish_parent_build`) on the same inputs.
+    (``library_ms``).  ``skim_fused`` and ``skim_fused_batch`` are timed
+    beside the parent's float32-only kernel and at int32 and uint8 rows of
+    the same shape; ``cascade_stage``, ``predicate_eval`` and
+    ``stream_compact`` beside their earlier designs (``parent``, from
+    :func:`finish_parent_build`) on the same inputs.
     ``predicate_eval`` also at ``pred_cases`` (program, terms, valid,
     weights: bench_kernels' shapes) and ``stream_compact`` at every case
     (label, payload, mask), the mean over those labelled "path" as its
-    row; each shape is listed under ``shapes``.  Only the kernels given
-    cases are timed."""
+    row; each shape is listed under ``shapes``.  ``flash_attention``'s row
+    is the mean over its cases, each also under ``by_case``.  Only the
+    kernels given cases are timed."""
     import torch
 
     from repro_torch.kernels import basket_decode as bd
@@ -2090,8 +2355,15 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         nbytes = 4 * (T * E * K + 2 * G * E * K + 2 * E * D + 1)
         ops = E * K * (T + 4 * G)  # a compare per term slot, the group's AND/sum
         t_bytes, t_ops = bound_times(nbytes, ops)
+        # the same rows' bits as int32, and bytes of them as uint8
+        p_i32 = p.view(torch.int32)
+        p_u8 = (p_i32 & 0xFF).to(torch.uint8)
         row = {
             "ms": device_ms(lambda: sf.skim_fused(t, v, w, p, program)),
+            "parent_ms": device_ms(lambda: parent.skim(t[None], v[None], w[None], p[None],
+                                                       program)),
+            "int32_ms": device_ms(lambda: sf.skim_fused(t, v, w, p_i32, program)),
+            "uint8_ms": device_ms(lambda: sf.skim_fused(t, v, w, p_u8, program)),
             "stream_ms": stream_ms(lambda: sf.skim_fused(t, v, w, p, program)),
             "plain_ms": stream_ms(lambda: ref.skim_fused_ref(t, v, w, p, program)),
             # the path's whole call: numpy in, one upload, the launch, one
@@ -2102,12 +2374,15 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         }
         rows.append(row)
         log(f"  skim_fused T={T} G={G} E={E} K={K} D={D}: kernel {row['ms']:.5f} ms "
-            f"on the device, {row['stream_ms']:.5f} ms per call from the host; "
+            f"on the device (the parent's float32-only kernel {row['parent_ms']:.5f}; "
+            f"int32 rows {row['int32_ms']:.5f}, uint8 {row['uint8_ms']:.5f}), "
+            f"{row['stream_ms']:.5f} ms per call from the host; "
             f"numpy to packed rows (ops.fused_skim) {row['window_ms']:.5f} "
             f"ms; plain {row['plain_ms']:.5f} ms; bound {max(t_bytes, t_ops):.7f} ms")
     out["skim_fused"] = _summary(rows)
     if rows:
-        out["skim_fused"]["window_ms"] = sum(r["window_ms"] for r in rows) / len(rows)
+        for key in ("window_ms", "parent_ms", "int32_ms", "uint8_ms"):
+            out["skim_fused"][key] = sum(r[key] for r in rows) / len(rows)
     rows = []
     for label, parts, dtypes, layout, staged, dev_out in decode_cases:
         views = kops.round_views(staged, layout)
@@ -2255,8 +2530,13 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         # B windows of skim_fused's bytes and operations
         nbytes = 4 * B * (T * E * K + 2 * G * E * K + 2 * E * D + 1)
         t_bytes, t_ops = bound_times(nbytes, B * E * K * (T + 4 * G))
+        p_i32 = p.view(torch.int32)
+        p_u8 = (p_i32 & 0xFF).to(torch.uint8)
         row = {
             "ms": device_ms(lambda: sf.skim_fused_batch(t, v, w, p, program)),
+            "parent_ms": device_ms(lambda: parent.skim(t, v, w, p, program)),
+            "int32_ms": device_ms(lambda: sf.skim_fused_batch(t, v, w, p_i32, program)),
+            "uint8_ms": device_ms(lambda: sf.skim_fused_batch(t, v, w, p_u8, program)),
             "stream_ms": stream_ms(lambda: sf.skim_fused_batch(t, v, w, p, program)),
             "plain_ms": stream_ms(
                 lambda: ref.skim_fused_batch_ref(t, v, w, p, program)),
@@ -2264,10 +2544,15 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         }
         rows.append(row)
         log(f"  skim_fused_batch B={B} T={T} G={G} E={E} K={K} D={D}: kernel "
-            f"{row['ms']:.5f} ms on the device, {row['stream_ms']:.5f} ms per call "
+            f"{row['ms']:.5f} ms on the device (the parent's float32-only kernel "
+            f"{row['parent_ms']:.5f}; int32 rows {row['int32_ms']:.5f}, uint8 "
+            f"{row['uint8_ms']:.5f}), {row['stream_ms']:.5f} ms per call "
             f"from the host; plain {row['plain_ms']:.5f} ms; bound "
             f"{max(t_bytes, t_ops):.7f} ms")
     out["skim_fused_batch"] = _summary(rows)
+    if rows:
+        for key in ("parent_ms", "int32_ms", "uint8_ms"):
+            out["skim_fused_batch"][key] = sum(r[key] for r in rows) / len(rows)
     rows = []
     for label, payload, mask in compact_cases:
         E, D = payload.shape
@@ -2308,11 +2593,11 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
     rows = []
     for q, k, v in attn_cases:
         B, H, S, D = q.shape
-        bf16 = q.dtype == torch.bfloat16
+        half = q.dtype != torch.float32
         # q, k, v read once and the output written once; 2 products of
         # 2 operations per (row, key, column) the causal mask keeps
         t_bytes, _ = bound_times(4 * q.numel() * q.element_size(), 0)
-        t_ops = attention_ops_ms(2 * 2 * B * H * D * S * (S + 1) / 2, bf16)
+        t_ops = attention_ops_ms(2 * 2 * B * H * D * S * (S + 1) / 2, half)
         scale = ref.attention_scale(D)
 
         def sdpa():
@@ -2320,7 +2605,7 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
                 q, k, v, is_causal=True, scale=scale)
 
         row = {
-            "dtype": str(q.dtype).removeprefix("torch."),
+            "case": f"{tuple(q.shape)} {str(q.dtype).removeprefix('torch.')}",
             "library_kernels": profiled_kernels(sdpa),
             "ms": device_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
             "stream_ms": stream_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
@@ -2330,21 +2615,21 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
             "t_bytes": t_bytes, "t_ops": t_ops,
         }
         rows.append(row)
-        log(f"  flash_attention {tuple(q.shape)} causal {q.dtype}: kernel "
+        log(f"  flash_attention {row['case']} causal: kernel "
             f"{row['ms']:.5f} ms on the device, {row['stream_ms']:.5f} ms per call from "
             f"the host; plain {row['plain_ms']:.5f} ms; scaled_dot_product_attention "
             f"{row['library_ms']:.5f} ms per call from the host, "
             f"{row['library_device_ms']:.5f} ms on the device, kernels "
             f"{row['library_kernels']}; bound {max(t_bytes, t_ops):.7f} ms "
-            f"({'bf16 tensor cores' if bf16 else 'split TF32 on the tensor cores'})")
+            f"({'16-bit tensor cores' if half else 'split TF32 on the tensor cores'})")
     out["flash_attention"] = _summary(rows)
     if rows:
-        out["flash_attention"]["by_dtype"] = {
-            r["dtype"]: {"ms": r["ms"], "plain_ms": r["plain_ms"],
-                         "library_ms": r["library_ms"],
-                         "library_device_ms": r["library_device_ms"],
-                         "library_kernels": r["library_kernels"],
-                         "bound_ms": max(r["t_bytes"], r["t_ops"])}
+        out["flash_attention"]["by_case"] = {
+            r["case"]: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "library_ms": r["library_ms"],
+                        "library_device_ms": r["library_device_ms"],
+                        "library_kernels": r["library_kernels"],
+                        "bound_ms": max(r["t_bytes"], r["t_ops"])}
             for r in rows}
     return {name: v for name, v in out.items() if v is not None}
 
@@ -2700,29 +2985,31 @@ def run_predicate_path(label, stage_case, device) -> dict:
 
 
 def run_attention_path(rng, device) -> dict:
-    """``ops.flash_attention`` at StarCoder2-7B's head layout, causal, in
-    float32 and bf16, held against the plain version (:data:`FLASH_TOL`)."""
+    """``ops.flash_attention`` at StarCoder2-7B's and Gemma-7B's head
+    layouts, causal, in float32, bf16 and float16, held against the plain
+    version (:data:`FLASH_TOL`)."""
     import torch
 
     from repro_torch.kernels import ops, ref
 
     launches, cases, errs = 0, [], {}
-    for dtype_name in FLASH_TOL:
-        q, k, v = attention_inputs(rng, STARCODER2_7B_ATTN, getattr(torch, dtype_name),
-                                   device)
-        ops.reset_launch_counts()
-        out = ops.flash_attention(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        n = ops.launch_counts()["flash_attention"]
-        check(n > 0, f"flash_attention {dtype_name} never launched")
-        launches += n
-        want = ref.flash_attention_ref(q, k, v, causal=True)
-        errs[dtype_name] = attention_close(
-            out, want, dtype_name, f"flash_attention {STARCODER2_7B_ATTN} {dtype_name}")
-        cases.append((q, k, v))
-        del out, want
-    log(f"  flash_attention {STARCODER2_7B_ATTN} causal (StarCoder2-7B): within "
-        f"tolerance of the plain version, max |err| {errs}; launches {launches}")
+    for shape in (STARCODER2_7B_ATTN, GEMMA_7B_ATTN):
+        for dtype_name in FLASH_TOL:
+            q, k, v = attention_inputs(rng, shape, getattr(torch, dtype_name), device)
+            ops.reset_launch_counts()
+            out = ops.flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            n = ops.launch_counts()["flash_attention"]
+            check(n > 0, f"flash_attention {shape} {dtype_name} never launched")
+            launches += n
+            want = ref.flash_attention_ref(q, k, v, causal=True)
+            errs[f"{shape} {dtype_name}"] = attention_close(
+                out, want, dtype_name, f"flash_attention {shape} {dtype_name}")
+            cases.append((q, k, v))
+            del out, want
+    log(f"  flash_attention {STARCODER2_7B_ATTN} (StarCoder2-7B) and {GEMMA_7B_ATTN} "
+        f"(Gemma-7B) causal: within tolerance of the plain version, max |err| {errs}; "
+        f"launches {launches}")
     return {"launches": launches, "cases": cases, "max_abs_err": max(errs.values())}
 
 
@@ -3588,6 +3875,7 @@ def main() -> int:
     compact_err = check_stream_compact(rng, device)
     batch_err, _ = check_skim_fused_batch(rng, device)
     flash_err = check_flash_attention(rng, device)
+    check_numpy_entries(rng, device)
 
     log(f"== building the {N_EVENTS:,}-event stores ==")
     from repro_torch.data.synth import make_nanoaod_like

@@ -216,10 +216,14 @@ def compact_jnp(payload, mask):
     """(E, D) payload, (E,) mask -> (packed (E, D): the rows ``mask``
     keeps first, in order, then zeros; count () int32).  A CPU tensor takes
     the plain version (``ref.stream_compact_ref``), a CUDA tensor the
-    ``stream_compact`` kernel; numpy goes to the card.  The JAX package's
-    name, kept so one test drives both."""
+    ``stream_compact`` kernel; numpy goes to the card.  A numpy mask keeps
+    its rows where it is nonzero, as the JAX oracle's ``mask.astype(bool)``
+    reads it (``ops.stream_compact`` reads numpy masks through int32).  The
+    JAX package's name, kept so one test drives both."""
     if _on_cpu(payload):
         return kref.stream_compact_ref(payload, mask)
+    if not isinstance(mask, torch.Tensor):
+        mask = np.asarray(mask) != 0
     return ops.stream_compact(payload, mask)
 
 

@@ -1,25 +1,28 @@
 // flash_attention: causal or full online-softmax attention on the tensor
-// cores, one launch per call, in two routes chosen by dtype.
+// cores, one launch per call, in routes chosen by dtype and head dim.
 //
 // Replaces the Pallas kernel `flash_attention` of
 // src/repro/kernels/flash_attention.py (body `_attn_kernel`).
 //
-// What it computes, for q, k, v (BH, S, D) of bfloat16 or float32, D a
-// multiple of 16 up to 128 (the wrapper pads D with zero columns): each
-// query row's softmax-weighted sum of the value rows over the keys it may
-// see (all, or those up to its own position when `causal`), accumulated in
-// float32 tile by tile with the running (max, sum, acc) rescaled from a
-// start of max = -1e30 (the reference's NEG_INF), the sum floored at
-// 1e-30, the result stored in the inputs' type.  Keys >= S and keys the
-// causal mask hides get probability 0, as the reference's -1e30 gives.
+// What it computes, for q, k, v (BH, S, D) of bfloat16, float16 or
+// float32, D a multiple of 16 (the wrapper pads D with zero columns):
+// each query row's softmax-weighted sum of the value rows over the keys it
+// may see (all, or those up to its own position when `causal`),
+// accumulated in float32 tile by tile with the running (max, sum, acc)
+// rescaled from a start of max = -1e30 (the reference's NEG_INF), the sum
+// floored at 1e-30, the result stored in the inputs' type.  Keys >= S and
+// keys the causal mask hides get probability 0, as the reference's -1e30
+// gives.
 //
 // What bounds it on an H100: operations.  2*2*S*S*D per head (halved when
 // causal) against 4*S*D elements moved: at S = 2048, D = 128 that is
-// about 1,000 operations per byte, far above the card's ~295 (bf16 on the
-// tensor cores, 989 TFLOP/s over 3.35 TB/s).  So both routes put the two
-// products on the tensor cores and keep everything between them on chip.
+// about 1,000 operations per byte, far above the card's ~295 (bf16 or f16
+// on the tensor cores, 989 TFLOP/s over 3.35 TB/s).  So every route puts
+// the two products on the tensor cores and keeps everything between them
+// on chip.
 //
-// bf16 route (`attn_bf16_kernel`): wgmma fed by TMA, warp-specialised.
+// 16-bit route, D <= 128 (`attn_half_kernel<T, kDB>`, T bf16 or f16): wgmma
+// fed by TMA, warp-specialised.
 //  * A CTA owns kBr = 128 query rows of one head: warpgroups 0 and 1
 //    consume, 64 rows each; the first thread of warpgroup 2 loads.
 //    setmaxnreg gives the consumers 240 registers, the loader 24.
@@ -34,12 +37,25 @@
 //    stored, (keys, D), is the K-major B operand), D/16 steps.
 //  * Softmax in registers: row max and sum across the 4 lanes of a quad,
 //    p = exp2(s * c - m * c) with c = scale * log2(e) folded into one FMA.
-//  * O += P V: P packed to bf16 in registers is the A operand of wgmma
+//  * O += P V: P packed to T in registers is the A operand of wgmma
 //    m64n{64,128}k16; V as stored, (keys, D), is the MN-major B operand
 //    (transpose-B), 8 steps of 16 keys.
 //  * Causal CTAs stop at the key tile holding their last row and mask
 //    only where a tile crosses the diagonal or the end of S; q tiles are
 //    launched longest first (grid (BH, q tiles), y reversed).
+//  * bf16 and f16 differ only in the wgmma's operand type (.bf16 / .f16),
+//    the tensor maps' element type and how P and the output are rounded.
+//
+// 16-bit route, D > 128 (`attn_half_wide_kernel<T>`): the output's columns
+// in slices of 128, one slice a CTA (the grid's z).  At D = 256 the
+// narrow CTA would need 320 KB of shared memory (over the 227 KB a block
+// may have) and an O accumulator of 128 registers a thread on top of the
+// score tile's 64.  Each CTA computes the whole score tile, Q K^T summed
+// over D in chunks of 128 columns, and P V for its own 128 columns of V:
+// the narrow route's registers and tiles, at ceil(D/128) times the Q K^T
+// work.  Q is not kept: each chunk of Q comes with the chunk of K it
+// meets, through the ring (a stage: Q chunk 32 KB + K chunk 32 KB; V
+// 32 KB a stage; 192 KB in all, any D).
 //
 // float32 route (`attn_f32_kernel`): split TF32 on mma.sync m16n8k8.
 //  * One TF32 product misses the 3e-5 tolerance (it keeps 11 bits), so
@@ -55,23 +71,30 @@
 //  * P needs no shuffle: the C fragment of S holds keys 2t and 2t + 1 of
 //    lane t's quad, and P V takes its keys in that order (A's column t is
 //    key 2t, column t + 4 key 2t + 1; V's B fragment rows follow).
+//  * D > 128 (`attn_f32_wide_kernel`): as the 16-bit route, one slice of
+//    128 output columns a CTA; each ring stage holds a 128-column chunk
+//    of Q and of K, V's slice comes with a tile's first chunk (132 KB,
+//    one CTA an SM).
 //
 // Where the rounding departs from the reference (which scales q before
 // the product and takes exp of float32 logits): the scale is applied to
 // the float32 logits after the product, exp is exp2 with the scale and
-// log2(e) folded into one constant (ex2.approx, about 2 ulp), and the bf16
-// route rounds P to bf16 before P V (its row sums stay float32).  These
-// stay inside chip_smoke.py's FLASH_TOL (bf16 rtol 1e-2, atol 4e-3;
-// float32 3e-5): tests/test_torch_attention.py emulates each route's
-// rounding on the CPU and holds it to the reference.
+// log2(e) folded into one constant (ex2.approx, about 2 ulp), and the
+// 16-bit routes round P to T before P V (its row sums stay float32).
+// These stay inside chip_smoke.py's FLASH_TOL (bf16 rtol 1e-2, atol 4e-3;
+// f16 2e-3, 2e-3; float32 3e-5): tests/test_torch_attention.py emulates
+// each route's rounding on the CPU and holds it to the reference.
 //
 // The scale c must be > 0 (the wrapper folds a sign or a zero into q).
 #include <cuda.h>  // CUtensorMap and the encoder's types; the encoder itself
                    // comes from the runtime (cudaGetDriverEntryPoint), no -lcuda
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -156,14 +179,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 route: TMA, mbarriers, wgmma
+// 16-bit routes (bf16, f16): TMA, mbarriers, wgmma
 // ---------------------------------------------------------------------------
 
 constexpr int kBr = 128;               // query rows per CTA (2 consumer warpgroups x 64)
 constexpr int kBc = 128;               // keys per K/V tile
 constexpr int kStages = 2;             // K/V ring depth
 constexpr int kBoxBytes = 128 * 128;   // one TMA box: 128 rows x 64 bf16, swizzled
-constexpr int kBf16Threads = 384;      // warpgroups 0, 1 consume; 2 loads
+constexpr int kHalfThreads = 384;      // warpgroups 0, 1 consume; 2 loads
 constexpr int kConsumers = 256;        // arrivals that free a K or V stage
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -234,94 +257,193 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
+// T's two values of a 32-bit register, rounded to nearest
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<T, __half>) {
+    const __half2 p = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  } else {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  }
 }
 
-// ---- wgmma, as PTX: 64 rows x N columns, bf16 in, float32 accumulate ----
+// ---- wgmma, as PTX: 64 rows x N columns, T (bf16 or f16) in, float32 accumulate ----
+// AB is the operands' PTX type; the accumulator d is operands %0 ... %(N/2 - 1).
+
+#define WG_REGS32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_REGS64 WG_REGS32 \
+  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_OUT32(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define WG_OUT64(d) WG_OUT32(d), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 
 // d (64 x 128) = A * B (+ d when scale_d): A and B from shared memory, both K-major.
+#define WGMMA_SS_N128(AB)                                                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                         \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" WG_REGS64 \
+               "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                   \
+               : WG_OUT64(d) : "l"(da), "l"(db), "r"(scale_d))
+// d (64 x N) += A * B: A (64 x 16) from registers, B from shared memory,
+// MN-major (transposed).
+#define WGMMA_RS_N128(AB)                                                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                         \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" WG_REGS64 \
+               "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                      \
+               : WG_OUT64(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define WGMMA_RS_N64(AB)                                                           \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                         \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {" WG_REGS32  \
+               "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                      \
+               : WG_OUT32(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
                                               int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
-      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46,"
-      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
-      "%62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (std::is_same_v<T, __half>) {
+    WGMMA_SS_N128("f16");
+  } else {
+    WGMMA_SS_N128("bf16");
+  }
 }
 
-// d (64 x 128) += A * B: A (64 x 16) from registers, B from shared memory,
-// MN-major (transposed).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
-      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46,"
-      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
-      "%62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (std::is_same_v<T, __half>) {
+    WGMMA_RS_N128("f16");
+  } else {
+    WGMMA_RS_N128("bf16");
+  }
 }
 
-// d (64 x 64) += A * B: A (64 x 16) from registers, B from shared memory,
-// MN-major (transposed).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16,"
-      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+                                             uint64_t db) {
+  if constexpr (std::is_same_v<T, __half>) {
+    WGMMA_RS_N64("f16");
+  } else {
+    WGMMA_RS_N64("bf16");
+  }
+}
+
+// s (64 x 128) = Q K^T over kSteps steps of 16 columns (32 bytes inside a
+// box of 64 columns), plus s when `accumulate`: Q's 64 rows at qa and K's
+// 128 keys at kb, in boxes of kBoxBytes.  The count is a constant: a
+// wgmma skipped at run time would make the compiler move the accumulator
+// between products and serialise them.
+template <typename T, int kSteps>
+__device__ __forceinline__ void qk_steps(float (&s)[64], uint32_t qa, uint32_t kb,
+                                         bool accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma_ss_n128<T>(s, sdesc(qa + off, 16, 1024), sdesc(kb + off, 16, 1024),
+                     accumulate || kk > 0);
+  }
+}
+
+// qk_steps over one chunk of `cols` (16 ... 128) columns of D
+template <typename T>
+__device__ __forceinline__ void qk_chunk(float (&s)[64], uint32_t qa, uint32_t kb, int cols,
+                                         bool accumulate) {
+  switch (cols / 16) {
+    case 1: qk_steps<T, 1>(s, qa, kb, accumulate); break;
+    case 2: qk_steps<T, 2>(s, qa, kb, accumulate); break;
+    case 3: qk_steps<T, 3>(s, qa, kb, accumulate); break;
+    case 4: qk_steps<T, 4>(s, qa, kb, accumulate); break;
+    case 5: qk_steps<T, 5>(s, qa, kb, accumulate); break;
+    case 6: qk_steps<T, 6>(s, qa, kb, accumulate); break;
+    case 7: qk_steps<T, 7>(s, qa, kb, accumulate); break;
+    default: qk_steps<T, 8>(s, qa, kb, accumulate); break;
+  }
+}
+
+// acc (64 x 64 kDB) += P V over a tile's 128 keys in steps of 16 rows of V
+// (2048 bytes a step); V's kDB boxes at sv, P's packed A fragments in p.
+template <typename T, int kDB>
+__device__ __forceinline__ void pv_steps(float (&acc)[kDB * 32], const uint32_t (&p)[32],
+                                         uint32_t sv) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+    const uint64_t db = sdesc(sv + kk * 2048, kBoxBytes, 1024);
+    if constexpr (kDB == 2) {
+      wgmma_rs_n128<T>(acc, a, db);
+    } else {
+      wgmma_rs_n64<T>(acc, a, db);
+    }
+  }
+}
+
+// One consumer thread's share of a key tile after its scores s: the
+// online softmax, acc rescaled, P packed to T, then acc += P V from V's
+// stage at sv once v_full has completed its phase; frees the stage.
+template <typename T, int kDB>
+__device__ __forceinline__ void tile_softmax_pv(float (&s)[64], float (&acc)[kDB * 32],
+                                                float (&m)[2], float (&l)[2], float c,
+                                                int key0, int row0, int S, int causal,
+                                                bool mask, uint32_t v_full, uint32_t ph,
+                                                uint32_t v_empty, uint32_t sv) {
+  float alpha[2];
+  softmax_tile<16>(s, m, l, alpha, c, key0, row0, S, causal != 0, mask);
+  rescale(acc, alpha);
+  // P as wgmma's A fragments: step kk takes keys 16 kk .. 16 kk + 15
+  uint32_t p[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
+  mbar_wait(v_full, ph);
+  fence_regs(acc);
+  fence_regs(p);
+  wgmma_fence();
+  pv_steps<T, kDB>(acc, p, sv);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(acc);
+  fence_regs(p);
+  mbar_arrive(v_empty);
+}
+
+// The thread's two rows of O = acc / l, columns col0 + (0 .. 64 kDB) below
+// D, in T; o points at the head's (S, D) output.
+template <typename T, int kDB>
+__device__ __forceinline__ void store_rows(T* __restrict__ o, const float (&acc)[kDB * 32],
+                                           const float (&l)[2], int row0, int S, int D,
+                                           int col0, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float denom = fmaxf(quad_sum(l[h]), 1e-30f);
+    const int row = row0 + 8 * h;
+    if (row >= S) continue;
+    T* out = o + static_cast<size_t>(row) * D + col0;
+#pragma unroll
+    for (int i = 0; i < kDB * 8; ++i) {
+      const int col = 8 * i + 2 * (lane % 4);
+      if (col0 + col < D) {
+        *reinterpret_cast<uint32_t*>(out + col) =
+            pack2<T>(acc[4 * i + 2 * h] / denom, acc[4 * i + 2 * h + 1] / denom);
+      }
+    }
+  }
 }
 
 // kDB: 64-column boxes per row (1 for D <= 64, 2 for D <= 128).
-template <int kDB>
-__global__ void __launch_bounds__(kBf16Threads, 1)
-attn_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
-                 int D, float c, int causal) {
+template <typename T, int kDB>
+__global__ void __launch_bounds__(kHalfThreads, 1)
+attn_half_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, T* __restrict__ o, int S, int D,
+                 float c, int causal) {
   constexpr int kTile = kDB * kBoxBytes;  // bytes of a Q, K or V tile
   constexpr int kOut = kDB * 32;          // O accumulator registers (64 x 64 kDB)
   extern __shared__ uint8_t smem_raw[];
@@ -392,68 +514,125 @@ attn_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       const uint32_t ph = (t / kStages) & 1;
       const int k0 = t * kBc;
 
-      // S = Q K^T over D in steps of 16 columns (32 bytes inside a box)
+      // S = Q K^T over D in steps of 16 columns
       float s[64];
       mbar_wait(k_full(st), ph);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4 * kDB; ++kk) {
-        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-        wgmma_ss_n128(s, sdesc(qa + off, 16, 1024), sdesc(sk + st * kTile + off, 16, 1024),
-                      kk > 0);
-      }
+      qk_steps<T, 4 * kDB>(s, qa, sk + st * kTile, false);
       wgmma_commit();
       wgmma_wait();
       fence_regs(s);
       mbar_arrive(k_empty(st));
 
-      float alpha[2];
       const bool mask = k0 + kBc > S || (causal && k0 + kBc - 1 > q0 + 64 * wg);
-      softmax_tile<16>(s, m, l, alpha, c, k0 + 2 * (lane % 4), row0, S, causal != 0, mask);
-      rescale(acc, alpha);
-      // P as wgmma's A fragments: step kk takes keys 16 kk .. 16 kk + 15
-      uint32_t p[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
-
-      // O += P V over the tile's keys in steps of 16 rows of V (2048 bytes)
-      mbar_wait(v_full(st), ph);
-      fence_regs(acc);
-      fence_regs(p);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-        const uint64_t db = sdesc(sv + st * kTile + kk * 2048, kBoxBytes, 1024);
-        if constexpr (kDB == 2) {
-          wgmma_rs_n128(acc, a, db);
-        } else {
-          wgmma_rs_n64(acc, a, db);
-        }
-      }
-      wgmma_commit();
-      wgmma_wait();
-      fence_regs(acc);
-      fence_regs(p);
-      mbar_arrive(v_empty(st));
+      tile_softmax_pv<T, kDB>(s, acc, m, l, c, k0 + 2 * (lane % 4), row0, S, causal, mask,
+                              v_full(st), ph, v_empty(st), sv + st * kTile);
     }
+    store_rows<T, kDB>(o + static_cast<size_t>(bh) * S * D, acc, l, row0, S, D, 0, lane);
+  }
+}
 
-    const size_t head = static_cast<size_t>(bh) * S * D;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float denom = fmaxf(quad_sum(l[h]), 1e-30f);
-      const int row = row0 + 8 * h;
-      if (row >= S) continue;
-      __nv_bfloat16* out = o + head + static_cast<size_t>(row) * D;
-#pragma unroll
-      for (int i = 0; i < kOut / 4; ++i) {
-        const int col = 8 * i + 2 * (lane % 4);
-        if (col < D) {
-          *reinterpret_cast<__nv_bfloat162*>(out + col) =
-              __floats2bfloat162_rn(acc[4 * i + 2 * h] / denom, acc[4 * i + 2 * h + 1] / denom);
+// D > 128: one CTA a (head, q tile, 128-column slice of O), blockIdx.z
+// the slice.  The QK ring's item i is (key tile i / nc, column chunk
+// i % nc) of nc = ceil(D / 128): a stage holds the chunk of Q (the CTA's
+// 128 rows) and of K (the tile's 128 keys); a V stage the tile's keys in
+// the CTA's slice.
+template <typename T>
+__global__ void __launch_bounds__(kHalfThreads, 1)
+attn_half_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, T* __restrict__ o, int S, int D,
+                      float c, int causal) {
+  constexpr int kTile = 2 * kBoxBytes;  // 128 rows x 128 columns
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sqk = (raw + 1023) & ~1023u;       // stage st: Q at sqk + 2 st kTile, K after
+  const uint32_t sv = sqk + 2 * kStages * kTile;     // stage st at sv + st * kTile
+  const uint32_t bars = sv + kStages * kTile;        // 4 * kStages barriers of 8 bytes
+  auto qk_full = [&](int st) { return bars + 8 * st; };
+  auto v_full = [&](int st) { return bars + 8 * (kStages + st); };
+  auto qk_empty = [&](int st) { return bars + 8 * (2 * kStages + st); };
+  auto v_empty = [&](int st) { return bars + 8 * (3 * kStages + st); };
+
+  const int bh = blockIdx.x;
+  const int qt = causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : static_cast<int>(blockIdx.y);
+  const int col0 = 128 * static_cast<int>(blockIdx.z);  // this CTA's slice of O and V
+  const int q0 = qt * kBr;
+  const int n_k = (S + kBc - 1) / kBc;
+  const int n_tiles = causal ? min(n_k, (q0 + kBr + kBc - 1) / kBc) : n_k;
+  const int nc = (D + 127) / 128;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(qk_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(qk_empty(st), kConsumers);
+      mbar_init(v_empty(st), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      int i = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        for (int cc = 0; cc < nc; ++cc, ++i) {
+          const int st = i % kStages;
+          const uint32_t ph = (i / kStages) & 1;
+          const int boxes = min(128, D - 128 * cc) > 64 ? 2 : 1;  // the chunk's columns below D
+          const uint32_t at = sqk + 2 * st * kTile;
+          mbar_wait(qk_empty(st), ph ^ 1);
+          mbar_expect_tx(qk_full(st), 2 * boxes * kBoxBytes);
+          for (int b = 0; b < boxes; ++b) {
+            tma_load(at + b * kBoxBytes, &tq, qk_full(st), 128 * cc + 64 * b, q0, bh);
+            tma_load(at + kTile + b * kBoxBytes, &tk, qk_full(st), 128 * cc + 64 * b, t * kBc,
+                     bh);
+          }
         }
+        // V's slice; a box wholly past D is not loaded (its stale columns
+        // reach only columns of O that are not stored)
+        const int st = t % kStages;
+        const uint32_t ph = (t / kStages) & 1;
+        const int v_boxes = D - col0 > 64 ? 2 : 1;
+        mbar_wait(v_empty(st), ph ^ 1);
+        mbar_expect_tx(v_full(st), v_boxes * kBoxBytes);
+        for (int b = 0; b < v_boxes; ++b)
+          tma_load(sv + st * kTile + b * kBoxBytes, &tv, v_full(st), col0 + 64 * b, t * kBc, bh);
       }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+    int i = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * kBc;
+      float s[64];
+      for (int cc = 0; cc < nc; ++cc, ++i) {
+        const int st = i % kStages;
+        const uint32_t at = sqk + 2 * st * kTile;
+        mbar_wait(qk_full(st), (i / kStages) & 1);
+        wgmma_fence();
+        qk_chunk<T>(s, at + wg * 64 * 128, at + kTile, min(128, D - 128 * cc), cc > 0);
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(s);
+        mbar_arrive(qk_empty(st));
+      }
+      const int st = t % kStages;
+      const bool mask = k0 + kBc > S || (causal && k0 + kBc - 1 > q0 + 64 * wg);
+      tile_softmax_pv<T, 2>(s, acc, m, l, c, k0 + 2 * (lane % 4), row0, S, causal, mask,
+                            v_full(st), (t / kStages) & 1, v_empty(st), sv + st * kTile);
+    }
+    store_rows<T, 2>(o + static_cast<size_t>(bh) * S * D, acc, l, row0, S, D, col0, lane);
   }
 }
 
@@ -628,6 +807,146 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// D > 128 in float32: one CTA a (head, q tile, 128-column slice of O),
+// blockIdx.z the slice.  Item i of the cp.async pipeline is (key tile
+// i / nc, column chunk i % nc) of nc = ceil(D / 128): a stage holds the
+// chunk of Q (the CTA's 64 rows) and of K (the tile's 32 keys); a tile's
+// first item also brings V's slice of its keys into V's stage t % 2.
+__global__ void __launch_bounds__(kF32Threads, 1)
+attn_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int S, int D, float c,
+                     int causal) {
+  constexpr int kD = 128;          // columns of a chunk and of the slice
+  constexpr int kStride = kD + 4;  // floats per staged row: 32 distinct banks per fragment
+  constexpr int kChunks = kD / 4;  // 16-byte chunks per row
+  constexpr int kStage = (kF32Rows + kF32Keys) * kStride;  // floats of a Q + K stage
+  extern __shared__ float4 smem_f4[];
+  float* qk = reinterpret_cast<float*>(smem_f4);  // 2 stages: Q (kF32Rows, kStride), then K
+  float* vs = qk + 2 * kStage;                    // 2 stages of (kF32Keys, kStride)
+
+  const int bh = blockIdx.x;
+  const int qt = causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : static_cast<int>(blockIdx.y);
+  const int q0 = qt * kF32Rows;
+  const int col0 = kD * static_cast<int>(blockIdx.z);
+  const int nc = (D + kD - 1) / kD;
+  const size_t head = static_cast<size_t>(bh) * S * D;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+
+  auto load_item = [&](int i) {
+    const int t = i / nc, cc = i % nc, k0 = t * kF32Keys;
+    float* qs = qk + (i % 2) * kStage;
+    float* ks = qs + kF32Rows * kStride;
+    for (int j = tid; j < kF32Rows * kChunks; j += kF32Threads) {
+      const int r = j / kChunks, col = (j % kChunks) * 4;
+      const bool ok = q0 + r < S && kD * cc + col < D;
+      cp16(qs + r * kStride + col,
+           ok ? q + head + static_cast<size_t>(q0 + r) * D + kD * cc + col : q, ok);
+    }
+    for (int j = tid; j < kF32Keys * kChunks; j += kF32Threads) {
+      const int r = j / kChunks, col = (j % kChunks) * 4;
+      const bool ok = k0 + r < S && kD * cc + col < D;
+      cp16(ks + r * kStride + col,
+           ok ? k + head + static_cast<size_t>(k0 + r) * D + kD * cc + col : k, ok);
+      if (cc == 0) {
+        const bool v_ok = k0 + r < S && col0 + col < D;
+        cp16(vs + ((t % 2) * kF32Keys + r) * kStride + col,
+             v_ok ? v + head + static_cast<size_t>(k0 + r) * D + col0 + col : v, v_ok);
+      }
+    }
+  };
+  const int n_k = (S + kF32Keys - 1) / kF32Keys;
+  const int n_tiles = causal ? min(n_k, (q0 + kF32Rows + kF32Keys - 1) / kF32Keys) : n_k;
+  const int n_items = n_tiles * nc;
+  load_item(0);
+  cp_commit();
+
+  const int wrow = 16 * warp;     // the warp's first row in the CTA
+  const int row0 = q0 + wrow + g;  // this thread's first row
+  float acc[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  float s[16];
+
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) load_item(i + 1);
+    cp_commit();
+    cp_wait_all_but_one();  // item i has landed
+    __syncthreads();
+    const int t = i / nc, cc = i % nc, k0 = t * kF32Keys;
+    // a warp whose rows all come before the tile's first key gets nothing from it
+    if (!causal || k0 <= q0 + wrow + 15) {
+      const float* qs = qk + (i % 2) * kStage;
+      const float* kt = qs + kF32Rows * kStride;
+      if (cc == 0) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) s[j] = 0.0f;
+      }
+      const int steps = min(kD, D - kD * cc) / 8;
+#pragma unroll
+      for (int kk = 0; kk < kD / 8; ++kk) {
+        if (kk < steps) {
+          const float* qa = qs + (wrow + g) * kStride + 8 * kk + tg;
+          uint32_t ab[4], as[4];
+          split(qa[0], ab[0], as[0]);
+          split(qa[8 * kStride], ab[1], as[1]);
+          split(qa[4], ab[2], as[2]);
+          split(qa[8 * kStride + 4], ab[3], as[3]);
+#pragma unroll
+          for (int j = 0; j < kF32Keys / 8; ++j) {
+            const float* kb = kt + (8 * j + g) * kStride + 8 * kk + tg;
+            uint32_t bb0, bs0, bb1, bs1;
+            split(kb[0], bb0, bs0);
+            split(kb[4], bb1, bs1);
+            mma3(&s[4 * j], ab, as, bb0, bb1, bs0, bs1);
+          }
+        }
+      }
+      if (cc == nc - 1) {
+        const float* vt = vs + (t % 2) * kF32Keys * kStride;
+        float alpha[2];
+        const bool mask = k0 + kF32Keys > S || (causal && k0 + kF32Keys - 1 > q0 + wrow);
+        softmax_tile<kF32Keys / 8>(s, m, l, alpha, c, k0 + 2 * tg, row0, S, causal != 0, mask);
+        rescale(acc, alpha);
+#pragma unroll
+        for (int j = 0; j < kF32Keys / 8; ++j) {
+          uint32_t pb[4], ps[4];
+          split(s[4 * j], pb[0], ps[0]);
+          split(s[4 * j + 2], pb[1], ps[1]);
+          split(s[4 * j + 1], pb[2], ps[2]);
+          split(s[4 * j + 3], pb[3], ps[3]);
+          const float* vb = vt + (8 * j + 2 * tg) * kStride + g;
+#pragma unroll
+          for (int n = 0; n < kD / 8; ++n) {
+            uint32_t bb0, bs0, bb1, bs1;
+            split(vb[8 * n], bb0, bs0);
+            split(vb[kStride + 8 * n], bb1, bs1);
+            mma3(&acc[4 * n], pb, ps, bb0, bb1, bs0, bs1);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stages are read before the next prefetch overwrites them
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float denom = fmaxf(quad_sum(l[h]), 1e-30f);
+    const int row = row0 + 8 * h;
+    if (row >= S) continue;
+    float* out = o + head + static_cast<size_t>(row) * D + col0;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      const int col = 8 * n + 2 * tg;
+      if (col0 + col < D) {
+        *reinterpret_cast<float2*>(out + col) =
+            make_float2(acc[4 * n + 2 * h] / denom, acc[4 * n + 2 * h + 1] / denom);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
@@ -651,17 +970,19 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A (BH, S, D) bf16 tensor as (D, S, BH), in boxes of 64 columns x 128
-// rows x 1 head with the 128-byte swizzle; out-of-range elements read as 0.
-bool head_map(EncodeTiled encode, CUtensorMap* map, const void* x, int BH, int S, int D) {
+// A (BH, S, D) tensor of 2-byte elements (`type` bf16 or f16) as (D, S,
+// BH), in boxes of 64 columns x 128 rows x 1 head with the 128-byte
+// swizzle; out-of-range elements read as 0.
+bool head_map(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType type, const void* x,
+              int BH, int S, int D) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(BH)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(S) * D * 2};
   const cuuint32_t box[3] = {64, 128, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, 3, const_cast<void*>(x), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -677,36 +998,65 @@ int opt_in(Kernel kernel, int smem, bool& done) {
   return static_cast<int>(err);
 }
 
-template <int kDB>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH, int S, int D,
+// kDB 1 or 2: the narrow kernel; 0: the wide one (D > 128)
+template <typename T, int kDB>
+int launch_half(const void* q, const void* k, const void* v, void* o, int BH, int S, int D,
                 float c, int causal, cudaStream_t s) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const CUtensorMapDataType type = std::is_same_v<T, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tq, tk, tv;
-  if (!head_map(encode, &tq, q, BH, S, D) || !head_map(encode, &tk, k, BH, S, D) ||
-      !head_map(encode, &tv, v, BH, S, D)) {
+  if (!head_map(encode, &tq, type, q, BH, S, D) || !head_map(encode, &tk, type, k, BH, S, D) ||
+      !head_map(encode, &tv, type, v, BH, S, D)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto kernel = attn_bf16_kernel<kDB>;
-  // the tiles, 1024 bytes to align them, the barriers
-  const int smem = (1 + 2 * kStages) * kDB * kBoxBytes + 1024 + 8 * (1 + 4 * kStages);
   static bool opted = false;
-  if (const int err = opt_in(kernel, smem, opted)) return err;
-  const dim3 grid(static_cast<unsigned>(BH), static_cast<unsigned>((S + kBr - 1) / kBr));
-  kernel<<<grid, kBf16Threads, smem, s>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, D, c,
-                                          causal);
+  const unsigned q_tiles = static_cast<unsigned>((S + kBr - 1) / kBr);
+  if constexpr (kDB == 0) {
+    const auto kernel = attn_half_wide_kernel<T>;
+    // Q + K and V stages of 2 boxes each, 1024 bytes to align them, the barriers
+    const int smem = 3 * kStages * 2 * kBoxBytes + 1024 + 8 * 4 * kStages;
+    if (const int err = opt_in(kernel, smem, opted)) return err;
+    const dim3 grid(static_cast<unsigned>(BH), q_tiles, static_cast<unsigned>((D + 127) / 128));
+    kernel<<<grid, kHalfThreads, smem, s>>>(tq, tk, tv, static_cast<T*>(o), S, D, c, causal);
+  } else {
+    const auto kernel = attn_half_kernel<T, kDB>;
+    // the tiles, 1024 bytes to align them, the barriers
+    const int smem = (1 + 2 * kStages) * kDB * kBoxBytes + 1024 + 8 * (1 + 4 * kStages);
+    if (const int err = opt_in(kernel, smem, opted)) return err;
+    const dim3 grid(static_cast<unsigned>(BH), q_tiles);
+    kernel<<<grid, kHalfThreads, smem, s>>>(tq, tk, tv, static_cast<T*>(o), S, D, c, causal);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_half_any(const void* q, const void* k, const void* v, void* o, int BH, int S,
+                    int D, float c, int causal, cudaStream_t s) {
+  if (D <= 64) return launch_half<T, 1>(q, k, v, o, BH, S, D, c, causal, s);
+  if (D <= 128) return launch_half<T, 2>(q, k, v, o, BH, S, D, c, causal, s);
+  return launch_half<T, 0>(q, k, v, o, BH, S, D, c, causal, s);
+}
+
+// kD 64 or 128: the narrow kernel; 0: the wide one (D > 128)
 template <int kD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int BH, int S, int D,
                float c, int causal, cudaStream_t s) {
-  const auto kernel = attn_f32_kernel<kD>;
-  const int smem = static_cast<int>(sizeof(float)) * (kF32Rows + 4 * kF32Keys) * (kD + 4);
+  const auto kernel = [] {
+    if constexpr (kD == 0) {
+      return attn_f32_wide_kernel;
+    } else {
+      return attn_f32_kernel<kD>;
+    }
+  }();
+  // narrow: Q and two K and V stages; wide: two Q + K stages and two V stages
+  const int smem = kD ? static_cast<int>(sizeof(float)) * (kF32Rows + 4 * kF32Keys) * (kD + 4)
+                      : static_cast<int>(sizeof(float)) * (2 * kF32Rows + 4 * kF32Keys) * 132;
   static bool opted = false;
   if (const int err = opt_in(kernel, smem, opted)) return err;
-  const dim3 grid(static_cast<unsigned>(BH),
-                  static_cast<unsigned>((S + kF32Rows - 1) / kF32Rows));
+  const dim3 grid(static_cast<unsigned>(BH), static_cast<unsigned>((S + kF32Rows - 1) / kF32Rows),
+                  kD ? 1u : static_cast<unsigned>((D + 127) / 128));
   kernel<<<grid, kF32Threads, smem, s>>>(static_cast<const float*>(q),
                                          static_cast<const float*>(k),
                                          static_cast<const float*>(v), static_cast<float*>(o),
@@ -716,20 +1066,26 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int BH, int
 
 }  // namespace
 
-// q, k, v, o: (BH, S, D) contiguous, 16-byte aligned, float32 (bf16 = 0)
-// or bfloat16 (bf16 = 1); D a multiple of 16 up to 128; scale > 0.
+// q, k, v, o: (BH, S, D) contiguous, 16-byte aligned, of `dtype` 0
+// (float32), 1 (bfloat16) or 2 (float16); D a multiple of 16; scale > 0.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int BH, int S, int D, float scale, int causal, int bf16,
+                                      int BH, int S, int D, float scale, int causal, int dtype,
                                       void* stream) {
-  if (D <= 0 || D > 128 || D % 16 != 0 || !(scale > 0.0f) || BH <= 0 || S <= 0) {
+  if (D <= 0 || D % 16 != 0 || (D + 127) / 128 > 65535 || !(scale > 0.0f) || BH <= 0 ||
+      S <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float c = scale * kLog2e;
-  if (bf16) {
-    if (D <= 64) return launch_bf16<1>(q, k, v, o, BH, S, D, c, causal, s);
-    return launch_bf16<2>(q, k, v, o, BH, S, D, c, causal, s);
+  switch (dtype) {
+    case 0:
+      if (D <= 64) return launch_f32<64>(q, k, v, o, BH, S, D, c, causal, s);
+      if (D <= 128) return launch_f32<128>(q, k, v, o, BH, S, D, c, causal, s);
+      return launch_f32<0>(q, k, v, o, BH, S, D, c, causal, s);
+    case 1:
+      return launch_half_any<__nv_bfloat16>(q, k, v, o, BH, S, D, c, causal, s);
+    case 2:
+      return launch_half_any<__half>(q, k, v, o, BH, S, D, c, causal, s);
   }
-  if (D <= 64) return launch_f32<64>(q, k, v, o, BH, S, D, c, causal, s);
-  return launch_f32<128>(q, k, v, o, BH, S, D, c, causal, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,7 +10,9 @@
 // window b's slices of the padded inputs terms (B,T,E,K), valid/weights
 // (B,G,E,K), then its payload rows (B,E,D) of the surviving events
 // packed to the front of its own output slice in event order, the tail
-// zeroed, and its survivor count.
+// zeroed, and its survivor count.  The payload is of any type of 1, 2, 4
+// or 8 bytes (bool, uint8, int16, float16, bf16, int32, float32, int64,
+// float64): its rows move as raw bits of that width.
 //
 // What bounds it on an H100: bytes.  Each input element is read once and
 // used in a handful of float32 compares; the work per byte is far below
@@ -35,9 +37,12 @@
 //    ordinal from a ticket, zeroes its own output rows, ballots its keep
 //    bits, and its first warp publishes its count and looks back for the
 //    survivors before it; its survivors' rows then go to (exclusive
-//    prefix + rank in the tile) as raw 32-bit words, so the f32 event
-//    index in payload column 0 comes through exact.  The window's last
-//    tile writes its total.  compact.cuh argues why zeroing before the
+//    prefix + rank in the tile) as raw bits of the payload's width (the
+//    kernel is a template on an unsigned integer of that width), so the
+//    f32 event index in payload column 0 comes through exact, and so do
+//    NaN, -0.0 and integers at or above 2^24, as in the JAX oracle
+//    `ref.skim_fused_ref`; the TPU kernel's float32 one-hot matmul would
+//    not keep them.  The window's last tile writes its total.  compact.cuh argues why zeroing before the
 //    publish leaves every row below the total written once by a survivor.
 //  * Status words and tickets live in the per-(device, stream) grow-only
 //    workspace both compaction kernels share; each window has its own
@@ -54,10 +59,12 @@ namespace {
 constexpr int kTile = 512;  // events per tile
 constexpr int kWarps = kTile / 32;
 
+// U: an unsigned integer of the payload's element width
+template <typename U>
 __global__ void __launch_bounds__(kTile)
 skim_fused_kernel(Program p, Inputs batch, int T,
-                  const uint32_t* __restrict__ payload, int D,
-                  uint32_t* __restrict__ out, int* __restrict__ totals,
+                  const U* __restrict__ payload, int D,
+                  U* __restrict__ out, int* __restrict__ totals,
                   unsigned long long* __restrict__ status,
                   unsigned* __restrict__ tickets, unsigned epoch, int n_tiles) {
   __shared__ int warp_counts[kWarps];
@@ -70,8 +77,8 @@ skim_fused_kernel(Program p, Inputs batch, int T,
   const int tile = s_tile;
   const long long e = (long long)tile * kTile + threadIdx.x;
   if (e < E) {  // the zero tail: this tile's own rows, before it publishes
-    uint32_t* row = out + (b * E + e) * D;
-    for (int d = 0; d < D; ++d) row[d] = 0u;
+    U* row = out + (b * E + e) * D;
+    for (int d = 0; d < D; ++d) row[d] = U(0);
   }
   const bool keep = e < E && eval_event(p, e, window_inputs(batch, b, T, p.G));
   const uint32_t ballot = __ballot_sync(0xffffffffu, keep);
@@ -93,33 +100,52 @@ skim_fused_kernel(Program p, Inputs batch, int T,
   const int excl = s_excl;
   if (keep) {
     const long long rank = excl + before + __popc(ballot & ((1u << lane) - 1u));
-    const uint32_t* src = payload + (b * E + e) * D;
-    uint32_t* dst = out + (b * E + rank) * D;
+    const U* src = payload + (b * E + e) * D;
+    U* dst = out + (b * E + rank) * D;
     for (int d = 0; d < D; ++d) dst[d] = src[d];
   }
   if (tile == n_tiles - 1 && threadIdx.x == 0) totals[b] = excl + total;
 }
 
+template <typename U>
+cudaError_t launch(const Program& p, const Inputs& batch, int B, int T, const void* payload,
+                   int D, void* out, int* totals, unsigned long long* status,
+                   unsigned* tickets, unsigned epoch, int n_tiles, cudaStream_t s) {
+  skim_fused_kernel<U><<<dim3((unsigned)n_tiles, (unsigned)B), kTile, 0, s>>>(
+      p, batch, T, static_cast<const U*>(payload), D, static_cast<U*>(out), totals, status,
+      tickets, epoch, n_tiles);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // `status` holds B * ceil(E/512) words carrying epochs below `epoch` (or
-// 0) only, `tickets` B counters at 0; `out` is (B, E, D) rows and
-// `totals` (B,) counts
+// 0) only, `tickets` B counters at 0; `payload` and `out` are (B, E, D)
+// rows of `elem_bytes` (1, 2, 4 or 8) an element and `totals` (B,)
+// counts.  Returns a CUDA error code, or cudaErrorInvalidValue for
+// another width or epoch.
 extern "C" int skim_fused_launch(
     const float* terms, const float* valid, const float* weights,
-    const float* payload, int B, int T, int G, long long E, int K, int D,
+    const void* payload, int B, int T, int G, long long E, int K, int D, int elem_bytes,
     const int* groups, const int* term_ids, const int* ops, const float* thrs,
     const float* cmp_thrs, const int* rpn_op, const int* rpn_term,
     const float* rpn_const, unsigned long long* status, unsigned* tickets,
-    unsigned epoch, float* out, int* totals,
+    unsigned epoch, void* out, int* totals,
     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (epoch == 0 || epoch >= (1u << 30)) return (int)cudaErrorInvalidValue;
   const int n_tiles = (int)((E + kTile - 1) / kTile);
   Program p{groups, term_ids, ops, thrs, cmp_thrs, rpn_op, rpn_term, rpn_const, G};
   Inputs batch{terms, valid, weights, E, K};
-  skim_fused_kernel<<<dim3((unsigned)n_tiles, (unsigned)B), kTile, 0, s>>>(
-      p, batch, T, reinterpret_cast<const uint32_t*>(payload), D,
-      reinterpret_cast<uint32_t*>(out), totals, status, tickets, epoch, n_tiles);
-  return (int)cudaGetLastError();
+  switch (elem_bytes) {
+    case 1: return (int)launch<uint8_t>(p, batch, B, T, payload, D, out, totals, status,
+                                        tickets, epoch, n_tiles, s);
+    case 2: return (int)launch<uint16_t>(p, batch, B, T, payload, D, out, totals, status,
+                                         tickets, epoch, n_tiles, s);
+    case 4: return (int)launch<uint32_t>(p, batch, B, T, payload, D, out, totals, status,
+                                         tickets, epoch, n_tiles, s);
+    case 8: return (int)launch<uint64_t>(p, batch, B, T, payload, D, out, totals, status,
+                                         tickets, epoch, n_tiles, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

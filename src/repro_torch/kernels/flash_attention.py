@@ -1,11 +1,13 @@
 """The attention kernel (``csrc/flash_attention.cu``).
 
 Causal or full online-softmax attention over (B, H, S, D) tensors of
-float32 or bfloat16, accumulated in float32, computing what the JAX
-package's Pallas ``_attn_kernel`` computes: ``sm_scale`` or 1/sqrt(D) on
-the logits, -1e30 as the running max's start, the denominator floored at
-1e-30, the output in q's dtype.  bf16 runs on wgmma fed by TMA, float32
-on mma.sync in split TF32 (the source's note says where each rounds).
+float32, bfloat16 or float16, any S and D, accumulated in float32,
+computing what the JAX package's Pallas ``_attn_kernel`` computes:
+``sm_scale`` or 1/sqrt(D) on the logits, -1e30 as the running max's
+start, the denominator floored at 1e-30, the output in q's dtype.  bf16
+and float16 run on wgmma fed by TMA, float32 on mma.sync in split TF32
+(the source's note says where each rounds); above D = 128 each CTA
+computes one 128-column slice of the output.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version, :func:`repro_torch.kernels.ref.flash_attention_ref`.
@@ -22,11 +24,12 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-DTYPES = (torch.float32, torch.bfloat16)
-MAX_HEAD_DIM = 128  # two 64-column TMA boxes (bf16); 16 mma column tiles (float32)
-HEAD_DIM_STEP = 16  # the kernel takes D in multiples of 16 (one bf16 wgmma step)
+# the types the kernel takes, by the code its launch function reads
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+HEAD_DIM_STEP = 16  # the kernel takes D in multiples of 16 (one 16-bit wgmma step)
 MAX_HEADS = 2**31 - 1  # B*H: the grid's x dimension
-MAX_Q_TILES = 65535  # the grid's y dimension, in tiles of 64 (float32) or 128 rows
+MAX_Q_TILES = 65535  # the grid's y dimension, in tiles of 64 (float32) or 128 rows;
+# its z dimension, in slices of 128 columns of D
 
 launches = 0  # kernel launches through flash_attention(); never reset here
 _LAUNCHES_LOCK = threading.Lock()
@@ -65,7 +68,7 @@ def stage(q, k, v, sm_scale: float | None = None):
 
 
 def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None):
-    """(B, H, S, D) attention, any S, D <= 128."""
+    """(B, H, S, D) attention, any S and D."""
     global launches
     if not q.is_cuda:
         return _ref.flash_attention_ref(q, k, v, causal, sm_scale)
@@ -79,12 +82,10 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None)
                 f"{x.device}, q is {q.dtype} {tuple(q.shape)} on {q.device}"
             )
     if q.dtype not in DTYPES:
-        raise ValueError(f"flash_attention: {q.dtype} is not float32 or bfloat16")
+        raise ValueError(f"flash_attention: {q.dtype} is not float32, bfloat16 or float16")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
-    if B * H > MAX_HEADS or -(-S // 64) > MAX_Q_TILES:
+    if B * H > MAX_HEADS or -(-S // 64) > MAX_Q_TILES or -(-D // 128) > MAX_Q_TILES:
         raise ValueError(f"flash_attention: {B * H} heads of {S} rows exceed the grid")
     if q.numel() == 0:
         return torch.empty_like(q)
@@ -94,7 +95,7 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None)
         p = _build.ptr
         rc = _fn()(
             p(qs), p(ks), p(vs), p(out), B * H, S, qs.shape[-1], scale,
-            int(bool(causal)), int(q.dtype == torch.bfloat16),
+            int(bool(causal)), DTYPES[q.dtype],
             _build.stream_of(q.device),
         )
     _build.check_launch("flash_attention", rc)
@@ -103,4 +104,4 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None)
     return out if out.shape[-1] == D else out[..., :D].contiguous()
 
 
-__all__ = ["DTYPES", "HEAD_DIM_STEP", "MAX_HEAD_DIM", "flash_attention", "stage"]
+__all__ = ["DTYPES", "HEAD_DIM_STEP", "flash_attention", "stage"]

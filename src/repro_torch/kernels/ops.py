@@ -72,18 +72,54 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
+# the numpy types JAX narrows when it reads an array with 64-bit types off
+# (``jax_enable_x64``, off by default); every other type it keeps
+_JAX_NARROWS = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+                np.dtype(np.uint64): np.uint32, np.dtype(np.complex128): np.complex64}
+
+
+def _jax_numpy(x, dtype=None) -> np.ndarray:
+    """A non-tensor input as ``jnp.asarray(x, dtype)`` reads it, as a
+    contiguous numpy array: cast straight to ``dtype`` (a numpy type)
+    where one is given, as numpy casts (a float truncates toward zero, an
+    integer wraps); otherwise in its own type, with the 64-bit types
+    narrowed to 32 bits, integers wrapping like a C cast
+    (:data:`_JAX_NARROWS`)."""
+    a = np.asarray(x, dtype)
+    return np.ascontiguousarray(a, _JAX_NARROWS.get(a.dtype, a.dtype))
+
+
+def _as_jax(x, dtype=None) -> torch.Tensor:
+    """:func:`_jax_numpy` as a CPU tensor (numpy's bfloat16, from
+    ``ml_dtypes``, by its bits)."""
+    a = _jax_numpy(x, dtype)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _numpy_as(t: torch.Tensor, dtype: np.dtype) -> np.ndarray:
+    """A tensor's bytes on the host as a numpy array of ``dtype``, a type
+    of the same width (one torch cannot hand to numpy included)."""
+    return t.cpu().contiguous().view(torch.uint8).numpy().view(dtype)
+
+
 def _tensors(device, *xs, dtype=None) -> list[torch.Tensor]:
     """The inputs of an entry point as tensors: a tensor stays on its own
-    device; anything else (numpy, lists) goes to ``device``, which defaults
-    to the card (:func:`repro_torch.device.resolve_device`: it raises when
-    there is none, naming ``device="cpu"``)."""
+    device; anything else (numpy, lists) is read as JAX reads it
+    (:func:`_as_jax`) and goes to ``device``, which defaults to the card
+    (:func:`repro_torch.device.resolve_device`: it raises when there is
+    none, naming ``device="cpu"``).  ``dtype`` (a type of :data:`_NP_OF`)
+    casts every input, numpy straight from its own type as
+    ``jnp.asarray(x, dtype)`` does."""
     target = None
+    np_dtype = None if dtype is None else _NP_OF[dtype]
     out = []
     for x in xs:
         if not isinstance(x, torch.Tensor):
             if target is None:
                 target = resolve_device(device)
-            x = torch.from_numpy(np.ascontiguousarray(x)).to(target)
+            x = _as_jax(x, np_dtype).to(target)
         out.append(x if dtype is None else x.to(dtype))
     return out
 
@@ -128,7 +164,10 @@ def unpack_mask(words: np.ndarray, n: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def torch_dtype(dtype) -> torch.dtype:
     """numpy dtype -> the torch dtype of the same kind and width."""
-    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+    dtype = np.dtype(dtype)
+    if dtype.name == "bfloat16":  # ml_dtypes' type, which torch.from_numpy refuses
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, dtype=dtype)).dtype
 
 
 # torch dtype -> numpy dtype, for the types a decode round stores
@@ -343,10 +382,15 @@ def stream_compact(payload, mask, device=None):
     """(E, D) payload, (E,) mask -> (packed (E, D) with the rows where
     ``mask`` is nonzero first, in order, then zeros; count () int32).
     Any E, no padding.  Tensors stay on their device; numpy inputs go to
-    ``device`` (default: the card).  A numpy mask of another integer type
-    than int32 is kept where nonzero."""
-    payload, mask = _tensors(device, payload, mask)
-    if mask.dtype not in _sc.MASK_DTYPES:
+    ``device`` (default: the card), read as the JAX package reads them:
+    the payload by :func:`_as_jax` (float64 to float32, int64 to int32,
+    ...), the mask as ``jnp.asarray(mask, jnp.int32)`` does (0.5 -> 0,
+    2.7 -> 2, int64 2^32 -> 0) and put where the payload is.  A mask
+    tensor of another type than bool or int32 is kept where nonzero."""
+    (payload,) = _tensors(device, payload)
+    if not isinstance(mask, torch.Tensor):
+        mask = _as_jax(mask, np.int32).to(payload.device)
+    elif mask.dtype not in _sc.MASK_DTYPES:
         mask = mask != 0
     return _sc.stream_compact(payload, mask)
 
@@ -574,9 +618,15 @@ def stage_summary_host(out) -> tuple[np.ndarray, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
-def skim_fused(terms, valid, weights, payload, program: Program):
+def skim_fused(terms, valid, weights, payload, program: Program, device=None):
     """One-pass predicate + compaction through the kernel wrapper.
-    Returns (packed (E, D) with survivors front-packed globally, count)."""
+    Returns (packed (E, D) with survivors front-packed globally, count).
+    Tensors stay on their device; numpy inputs go to ``device`` (default:
+    the card), ``terms``/``valid``/``weights`` as float32 and the payload
+    in its own type as JAX reads it (:func:`_as_jax`)."""
+    terms, valid, weights = _tensors(device, terms, valid, weights,
+                                     dtype=torch.float32)
+    (payload,) = _tensors(device, payload)
     return _sf.skim_fused(terms, valid, weights, payload, program)
 
 
@@ -584,67 +634,84 @@ def fused_skim(terms, valid, weights, payload, program: Program, use_kernel=True
                device=None):
     """Backend-dispatched one-pass skim (the engine's per-window path).
 
-    ``terms`` (T,E,K), ``valid``/``weights`` (G,E,K), ``payload`` (E,D)
-    float32.  ``use_kernel`` routes to :func:`skim_fused` — the CUDA
-    kernel for tensors on the card — otherwise to the plain PyTorch
-    version over the same padded layout on the tensors' own device.
-    Returns (packed (E, D) survivors-first, count).
+    ``terms`` (T,E,K), ``valid``/``weights`` (G,E,K) float32, ``payload``
+    (E,D) of any type of 1, 2, 4 or 8 bytes, returned in its own type.
+    ``use_kernel`` routes to :func:`skim_fused` — the CUDA kernel for
+    tensors on the card — otherwise to the plain PyTorch version over the
+    same padded layout on the tensors' own device.  Returns (packed (E, D)
+    survivors-first, count).
 
     Tensors stay on their device and give tensors there.  numpy arrays
-    (the engine's inputs) go to ``device`` (default: the card) and give
+    (the engine's inputs) go to ``device`` (default: the card), read as
+    the JAX package reads them (the payload by :func:`_as_jax`), and give
     (packed numpy (E, D), count int): on the card the kernel's inputs are
     packed into one page-locked buffer and uploaded by one copy, and its
     counts and packed rows come back by one copy into page-locked memory
     and one event wait.
     """
     _note_dispatch(("fused", program, tuple(terms.shape), bool(use_kernel)))
-    skim = skim_fused if use_kernel else _ref.skim_fused_ref
+    skim = _sf.skim_fused if use_kernel else _ref.skim_fused_ref
     if isinstance(terms, torch.Tensor):
         return skim(terms, valid, weights, payload, program)
     device = resolve_device(device)
     if use_kernel and device.type == "cuda":
-        return _skim_staged((terms, valid, weights, payload), program, device)
-    packed, count = skim(*_tensors(device, terms, valid, weights, payload,
-                                   dtype=torch.float32), program)
-    return packed.cpu().numpy(), int(count)
+        return _skim_staged(terms, valid, weights, payload, program, device)
+    payload = _jax_numpy(payload)
+    packed, count = skim(*_tensors(device, terms, valid, weights, dtype=torch.float32),
+                         *_tensors(device, payload), program)
+    return _numpy_as(packed, payload.dtype), int(count)
 
 
-def _skim_staged(arrays, program: Program, device) -> tuple[np.ndarray, int]:
+def _skim_staged(terms, valid, weights, payload, program: Program,
+                 device) -> tuple[np.ndarray, int]:
     """:func:`fused_skim` of numpy arrays by the kernel: one upload, one
-    launch, one readback."""
-    E, D = arrays[3].shape
-    sizes = [a.size for a in arrays]
-    n_in = sum(sizes)
+    launch, one readback.  The staged buffer holds terms, valid and
+    weights as float32, then the payload's bytes from a 16-byte boundary;
+    the rows come back as the payload's bytes and are read in its type."""
+    planes = [np.asarray(a, np.float32) for a in (terms, valid, weights)]
+    payload = _jax_numpy(payload)
+    E, D = payload.shape
+    sizes = [a.size for a in planes]
+    p_off = (sum(sizes) + 3) & ~3  # int32 words before the payload
+    n_in = p_off + (payload.nbytes + 3) // 4
     hdr = _sf.header_words(1)
-    host_in = _STAGING.buffer(device, "skim in", n_in, torch.float32, pinned=True)
+    host_in = _STAGING.buffer(device, "skim in", n_in, torch.int32, pinned=True)
     staged = host_in.numpy()
+    floats = staged.view(np.float32)
     views, o = [], 0
-    for a, n in zip(arrays, sizes):
-        staged[o: o + n] = a.reshape(-1)
+    for a, n in zip(planes, sizes):
+        floats[o: o + n] = a.reshape(-1)
         views.append((o, n, a.shape))
         o += n
-    dev_in = _STAGING.buffer(device, "skim in, card", n_in, torch.float32)
+    staged.view(np.uint8)[4 * p_off: 4 * p_off + payload.nbytes] = (
+        payload.reshape(-1).view(np.uint8))
+    dev_in = _STAGING.buffer(device, "skim in, card", n_in, torch.int32)
     dev_in.copy_(host_in, non_blocking=True)
-    t, v, w, pl = (dev_in[o: o + n].view(shape)[None] for o, n, shape in views)
+    t, v, w = (dev_in[o: o + n].view(torch.float32).view(shape)[None]
+               for o, n, shape in views)
+    pl = _sf.view_rows(dev_in[p_off:], 1, E, D, torch_dtype(payload.dtype))
     buf = _sf.launch("skim_fused", t, v, w, pl, program)
-    host = _STAGING.buffer(device, "skim out", hdr + E * D, torch.int32, pinned=True)
+    host = _STAGING.buffer(device, "skim out", buf.numel(), torch.int32, pinned=True)
     host.copy_(buf, non_blocking=True)
     _STAGING.wait(device)
     raw = host.numpy()
-    return raw[hdr:].view(np.float32).reshape(E, D).copy(), int(raw[0])
+    rows = raw[hdr:].view(np.uint8)[: payload.nbytes].view(payload.dtype)
+    return rows.reshape(E, D).copy(), int(raw[0])
 
 
 def fused_skim_batch(terms, valid, weights, payload, program: Program,
                      use_kernel=True, device=None):
     """Window-batched one-pass skim: one dispatch for a batch of padded
-    windows, terms (B,T,E,K), valid/weights (B,G,E,K), payload (B,E,D).
+    windows, terms (B,T,E,K), valid/weights (B,G,E,K) float32, payload
+    (B,E,D) of any type of 1, 2, 4 or 8 bytes, returned in its own type.
     Returns (packed (B,E,D) with each window's survivors front-packed,
     counts (B,)): per window bit-identical to :func:`fused_skim`.
 
     ``use_kernel`` routes to the CUDA kernel for tensors on the card (the
     plain version for CPU tensors), otherwise to the plain version on the
     tensors' own device.  Tensors stay on their device; numpy inputs go
-    to ``device`` (default: the card).
+    to ``device`` (default: the card), the payload read as JAX reads it
+    (:func:`_as_jax`).
     """
     terms, valid, weights = _tensors(device, terms, valid, weights,
                                      dtype=torch.float32)
@@ -661,9 +728,10 @@ def fused_skim_batch(terms, valid, weights, payload, program: Program,
 
 
 def flash_attention(q, k, v, causal=True, sm_scale=None, device=None):
-    """(B, H, S, D) float32 or bfloat16 attention, causal by default, the
-    output in q's dtype.  Tensors stay on their device; numpy inputs go
-    to ``device`` (default: the card)."""
+    """(B, H, S, D) attention in float32, bfloat16 or float16, any S and
+    D, causal by default, the output in q's dtype.  Tensors stay on their
+    device; numpy inputs go to ``device`` (default: the card), read as
+    JAX reads them (:func:`_as_jax`: float64 becomes float32)."""
     q, k, v = _tensors(device, q, k, v)
     return _fa.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
 

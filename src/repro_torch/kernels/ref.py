@@ -328,14 +328,26 @@ def cascade_stage_ref(terms, valid, weights, packed, seg_ids, program, nb: int):
 # ---------------------------------------------------------------------------
 
 
+# a payload element's bits as the signed integer of its width: the
+# compactions below only move bits, and CPU torch lacks gathers and
+# fills for some types (uint32, uint64) that it has for these
+_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(_BITS.get(x.element_size(), x.dtype))
+
+
 def stream_compact_ref(payload: torch.Tensor, mask: torch.Tensor):
     """Pack rows of ``payload`` where ``mask`` is true to the front, in
-    order.  Returns (packed (E, D) with survivors first then zeros,
-    count () int32)."""
+    order, bit for bit.  Returns (packed (E, D) with survivors first then
+    zeros, count () int32)."""
     idx = torch.nonzero(mask.to(torch.bool)).squeeze(1)
-    packed = torch.zeros_like(payload)
-    packed[: idx.numel()] = payload[idx]
-    return packed, torch.tensor(idx.numel(), dtype=torch.int32, device=payload.device)
+    bits = _bits(payload)
+    packed = torch.zeros_like(bits)
+    packed[: idx.numel()] = bits[idx]
+    return (packed.view(payload.dtype),
+            torch.tensor(idx.numel(), dtype=torch.int32, device=payload.device))
 
 
 def skim_fused_ref(terms, valid, weights, payload, program):
@@ -351,10 +363,10 @@ def skim_fused_batch_ref(terms, valid, weights, payload, program):
     B, E, D = payload.shape
     # survivors first, each window in event order (a stable sort of ~keep)
     order = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)
-    packed = torch.gather(payload, 1, order[:, :, None].expand(B, E, D))
+    packed = torch.gather(_bits(payload), 1, order[:, :, None].expand(B, E, D))
     counts = keep.sum(dim=1, dtype=torch.int32)
     tail = torch.arange(E, device=payload.device)[None, :] >= counts[:, None]
-    return packed.masked_fill_(tail[:, :, None], 0), counts
+    return packed.masked_fill_(tail[:, :, None], 0).view(payload.dtype), counts
 
 
 # ---------------------------------------------------------------------------

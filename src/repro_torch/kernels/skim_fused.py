@@ -40,6 +40,7 @@ from repro_torch.kernels.program import GROUP_EXPR, Program
 EVENT_TILE = 512  # events per block (csrc/skim_fused.cu kTile)
 MAX_STACK = 16  # RPN stack depth the kernel holds (csrc kMaxStack)
 MAX_WINDOWS = 65535  # the grid's y dimension (one window per row)
+ROW_WIDTHS = (1, 2, 4, 8)  # payload element bytes the kernel moves as raw bits
 
 # kernel launches through each wrapper; never reset here
 launches = {"skim_fused": 0, "skim_fused_batch": 0}
@@ -187,14 +188,22 @@ def _lib():
     fn = lib.skim_fused_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_longlong, i, i,
+        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_longlong, i, i, i,
                        p, p, p, p, p, p, p, p, p, p, ctypes.c_uint, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def _check(who, name, x, shape, device):
-    if x.dtype != torch.float32 or not x.is_contiguous():
+    """float32 planes; a payload of any type of 1, 2, 4 or 8 bytes (its
+    rows move as raw bits)."""
+    if name == "payload":
+        if x.element_size() not in ROW_WIDTHS:
+            raise ValueError(f"{who}: payload of {x.dtype} has "
+                             f"{x.element_size()}-byte elements, not 1, 2, 4 or 8")
+        if not x.is_contiguous():
+            raise ValueError(f"{who}: payload must be contiguous")
+    elif x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"{who}: {name} must be contiguous float32")
     if tuple(x.shape) != tuple(shape) or x.device != device:
         raise ValueError(
@@ -209,12 +218,19 @@ def header_words(B: int) -> int:
     return (B + 3) & ~3
 
 
+def view_rows(words, B: int, E: int, D: int, dtype) -> torch.Tensor:
+    """The (B, E, D) rows of ``dtype`` at the start of ``words``, a 1-D
+    int32 tensor starting on a 16-byte boundary (a view)."""
+    return words.view(torch.uint8)[: B * E * D * dtype.itemsize].view(dtype).view(B, E, D)
+
+
 def launch(who, terms, valid, weights, payload, program: Program):
     """Launch ``skim_fused_launch`` over a (B, T, E, K) batch on the card.
 
     Returns ``buf``, one int32 allocation: the B counts, padding to
-    :func:`header_words`, then the packed (B, E, D) rows' bits — so one
-    device-to-host copy brings back both."""
+    :func:`header_words`, then the packed (B, E, D) rows' bits in the
+    payload's type, padded to whole words — so one device-to-host copy
+    brings back both."""
     device = terms.device
     B, T, E, K = terms.shape
     G = program.n_groups
@@ -228,7 +244,8 @@ def launch(who, terms, valid, weights, payload, program: Program):
     _check(who, "weights", weights, (B, G, E, K), device)
     _check(who, "payload", payload, (B, E, D), device)
     hdr = header_words(B)
-    buf = torch.empty(hdr + B * E * D, dtype=torch.int32, device=device)
+    width = payload.element_size()
+    buf = torch.empty(hdr + -(-B * E * D * width // 4), dtype=torch.int32, device=device)
     if B == 0 or E == 0:
         buf.zero_()
         return buf
@@ -239,7 +256,7 @@ def launch(who, terms, valid, weights, payload, program: Program):
     p = _build.ptr
     rc = _build.call_on(
         device, _lib().skim_fused_launch, p(terms), p(valid), p(weights), p(payload),
-        B, T, G, E, K, D, *args, p(status), p(tickets), epoch,
+        B, T, G, E, K, D, width, *args, p(status), p(tickets), epoch,
         ctypes.c_void_p(buf.data_ptr() + 4 * hdr), p(buf), ctypes.c_void_p(stream))
     _build.check_launch(who, rc)
     with _LAUNCHES_LOCK:
@@ -247,17 +264,17 @@ def launch(who, terms, valid, weights, payload, program: Program):
     return buf
 
 
-def split(buf, B: int, E: int, D: int):
-    """:func:`launch`'s buffer -> (packed (B, E, D) float32, counts (B,)
-    int32), views of it."""
-    hdr = header_words(B)
-    return buf[hdr:].view(torch.float32).view(B, E, D), buf[:B]
+def split(buf, B: int, E: int, D: int, dtype=torch.float32):
+    """:func:`launch`'s buffer -> (packed (B, E, D) of the payload's
+    ``dtype``, counts (B,) int32), views of it."""
+    return view_rows(buf[header_words(B):], B, E, D, dtype), buf[:B]
 
 
 def skim_fused(terms, valid, weights, payload, program: Program):
-    """One-pass skim: (T,E,K),(G,E,K),(G,E,K),(E,D) float32 ->
-    (packed (E, D) with the survivors' rows first and zeros after,
-    count () int32).
+    """One-pass skim: (T,E,K),(G,E,K),(G,E,K) float32 and an (E,D)
+    payload of any type of 1, 2, 4 or 8 bytes -> (packed (E, D) in the
+    payload's type with the survivors' rows first, bit for bit, and zeros
+    after, count () int32).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
     plain version, :func:`repro_torch.kernels.ref.skim_fused_ref`.
@@ -272,15 +289,16 @@ def skim_fused(terms, valid, weights, payload, program: Program):
     E, D = payload.shape
     buf = launch("skim_fused", terms[None], valid[None], weights[None],
                  payload[None], program)
-    out, totals = split(buf, 1, E, D)
+    out, totals = split(buf, 1, E, D, payload.dtype)
     return out[0], totals[0]
 
 
 def skim_fused_batch(terms, valid, weights, payload, program: Program):
     """The one-pass skim over a batch of windows: terms (B, T, E, K),
-    valid/weights (B, G, E, K), payload (B, E, D) float32 -> (packed
-    (B, E, D) with each window's survivors first in its own slice, counts
-    (B,) int32).  Per window it equals :func:`skim_fused`.  Any E.
+    valid/weights (B, G, E, K) float32, payload (B, E, D) of any type of
+    1, 2, 4 or 8 bytes -> (packed (B, E, D) in the payload's type with
+    each window's survivors first in its own slice, counts (B,) int32).
+    Per window it equals :func:`skim_fused`.  Any E.
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
     plain version, :func:`repro_torch.kernels.ref.skim_fused_batch_ref`.
@@ -293,13 +311,14 @@ def skim_fused_batch(terms, valid, weights, payload, program: Program):
             f"{tuple(payload.shape)} are not (B, T, E, K) and (B, E, D)"
         )
     buf = launch("skim_fused_batch", terms, valid, weights, payload, program)
-    return split(buf, *payload.shape)
+    return split(buf, *payload.shape, payload.dtype)
 
 
 __all__ = [
     "EVENT_TILE",
     "KERNELS_PER_CALL",
     "MAX_WINDOWS",
+    "ROW_WIDTHS",
     "Workspace",
     "flatten_program",
     "header_words",
@@ -310,4 +329,5 @@ __all__ = [
     "skim_fused",
     "skim_fused_batch",
     "split",
+    "view_rows",
 ]

@@ -127,7 +127,8 @@ def test_flash_attention_ref_floors_the_denominator_and_keeps_the_dtype():
 # ---------------------------------------------------------------------------
 
 # keys per K/V tile of each route (kBc and kF32Keys in csrc/flash_attention.cu)
-ROUTE_KEYS = {"bf16": 128, "tf32x3": 32, "tf32": 32}
+ROUTE_KEYS = {"bf16": 128, "f16": 128, "tf32x3": 32, "tf32": 32}
+HALF = {"bf16": torch.bfloat16, "f16": torch.float16}  # the 16-bit routes' P
 LOG2E = 1.4426950408889634
 
 
@@ -140,7 +141,7 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
 
 def _product(a: torch.Tensor, b: torch.Tensor, route: str) -> torch.Tensor:
     """a @ b as the route's tensor cores form it, accumulated in float32."""
-    if route == "bf16":  # bf16 x bf16 products are exact in float32
+    if route in HALF:  # bf16 x bf16 and f16 x f16 products are exact in float32
         return a @ b
     big_a, big_b = _tf32(a), _tf32(b)
     if route == "tf32":
@@ -150,11 +151,14 @@ def _product(a: torch.Tensor, b: torch.Tensor, route: str) -> torch.Tensor:
 
 
 def _emulate(q, k, v, causal: bool, route: str, sm_scale=None) -> torch.Tensor:
-    """The kernel's arithmetic over float32 (B, H, S, D) inputs (bf16 values
-    upcast for the bf16 route): key tiles of ROUTE_KEYS[route], running max
-    from -1e30, p = exp2(s c - m c) with c = scale * log2(e) in float32 and
-    s c - m c rounded once (one FMA), the row sums in float32, P rounded to
-    bf16 before P V on the bf16 route, the sum floored at 1e-30."""
+    """The kernel's arithmetic over float32 (B, H, S, D) inputs (bf16 or
+    f16 values upcast for the 16-bit routes): key tiles of
+    ROUTE_KEYS[route], running max from -1e30, p = exp2(s c - m c) with c
+    = scale * log2(e) in float32 and s c - m c rounded once (one FMA), the
+    row sums in float32, P rounded to the route's 16-bit type before P V
+    on a 16-bit route, the sum floored at 1e-30.  Above D = 128 each slice
+    of 128 output columns repeats the same scores and P, so the emulation
+    is the same at every D."""
     S = q.shape[2]
     c = torch.tensor(tref.attention_scale(q.shape[-1], sm_scale), dtype=torch.float32)
     c = c * torch.tensor(LOG2E, dtype=torch.float32)
@@ -174,8 +178,8 @@ def _emulate(q, k, v, causal: bool, route: str, sm_scale=None) -> torch.Tensor:
         mc = m_new * c
         p = torch.exp2((s.double() * c.double() - mc.double()).float())
         l = l * alpha + p.sum(-1, keepdim=True)
-        if route == "bf16":
-            p = p.to(torch.bfloat16).float()
+        if route in HALF:
+            p = p.to(HALF[route]).float()
         acc = acc * alpha + _product(p, vt, route)
         m = m_new
     return acc / torch.clamp_min(l, 1e-30)
@@ -197,6 +201,20 @@ def test_bf16_route_rounding_stays_within_flash_tol(shape, causal):
     got = _emulate(*(a.float() for a in x), causal, "bf16").to(torch.bfloat16)
     want = tref.flash_attention_ref(*x, causal=causal)
     rtol, atol = chip_smoke.FLASH_TOL["bfloat16"]
+    assert _over(got.float(), want.float(), rtol, atol) == 0
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 200, 64), (1, 2, 256, 128), (2, 1, 130, 16),
+                                   (1, 2, 200, 136), (1, 1, 256, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f16_route_rounding_stays_within_flash_tol(shape, causal):
+    """The float16 route: P rounded to f16 before P V; the result rounded to
+    f16 stays within the card's float16 FLASH_TOL of the reference on the
+    same f16 inputs, at the narrow and the wide (D > 128) head dims."""
+    x = [torch.from_numpy(a).to(torch.float16) for a in _inputs(shape[2] + 3, shape)]
+    got = _emulate(*(a.float() for a in x), causal, "f16").to(torch.float16)
+    want = tref.flash_attention_ref(*x, causal=causal)
+    rtol, atol = chip_smoke.FLASH_TOL["float16"]
     assert _over(got.float(), want.float(), rtol, atol) == 0
 
 
@@ -258,8 +276,8 @@ def test_tf32_rounding_is_to_nearest_ties_away():
     assert torch.equal(_tf32(x), want)
 
 
-@pytest.mark.parametrize("D", [40, 24, 8, 100])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [40, 24, 8, 100, 136])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_head_dim_pad_equals_the_unpadded_plain_version(D, dtype):
     """The wrapper's staging for the kernel: D zero-padded to a multiple of
     16, the scale taken from the original D, the output sliced back."""
@@ -273,8 +291,9 @@ def test_head_dim_pad_equals_the_unpadded_plain_version(D, dtype):
         want = tref.flash_attention_ref(q, k, v, causal)
         if dtype == torch.float32:
             _close(got.numpy(), want.numpy(), 1e-6)
-        else:
-            _close(got.float().numpy(), want.float().numpy(), 2.0**-8)
+        else:  # one ulp of the type: 2^-8 (bf16), 2^-11 (f16)
+            _close(got.float().numpy(), want.float().numpy(),
+                   2.0**-8 if dtype == torch.bfloat16 else 2.0**-11)
 
 
 @pytest.mark.parametrize("sm_scale", [-0.2, 0.0])

@@ -355,12 +355,13 @@ def _entry_calls():
         "stream_compact": lambda **kw: tops.stream_compact(
             host[3][0], host[0][0, 0, :, 0] > 20, **kw),
         "fused_skim_batch": lambda **kw: tops.fused_skim_batch(*host, prog, **kw),
+        "skim_fused": lambda **kw: tops.skim_fused(*(a[0] for a in host), prog, **kw),
         "flash_attention": lambda **kw: tops.flash_attention(q, q, q, **kw),
     }
 
 
 @pytest.mark.parametrize("entry", ["predicate_eval", "stream_compact",
-                                   "fused_skim_batch", "flash_attention",
+                                   "fused_skim_batch", "skim_fused", "flash_attention",
                                    "basket_decode_batch", "decode_basket_batch"])
 def test_numpy_inputs_need_a_card_unless_asked_for_the_cpu(monkeypatch, entry):
     """numpy inputs go to ``device``, which defaults to the card: without

@@ -266,6 +266,29 @@ def test_cuda_flash_attention_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [False, True])
+def test_cuda_skim_kernels_move_payloads_of_every_width(cuda_device, batch):
+    """int32, float16, uint8, int64 and bool payloads: one launch a call,
+    bit for bit the plain compaction by the same survivors."""
+    assert chip_smoke.check_skim_payloads(np.random.default_rng(4), cuda_device, batch) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_numpy_entries_read_numpy_as_jax_does(cuda_device):
+    """The ops entries on numpy through the card (the per-window skim's
+    staged route among them) equal the host's in type and bytes."""
+    assert chip_smoke.check_numpy_entries(np.random.default_rng(5), cuda_device) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_in_float16_and_past_d_128(cuda_device):
+    """float16 beside float32 and bf16, at D = 136, 192 and 256 (one CTA a
+    128-column slice of the output), one launch a call."""
+    chip_smoke.check_flash_attention(np.random.default_rng(6), cuda_device,
+                                     ((1, 2, 200, 64),) + chip_smoke.FLASH_WIDE_SHAPES[:3])
+
+
+@pytest.mark.cuda
 def test_cuda_new_entry_points_launch_their_kernels(cuda_device):
     rng = np.random.default_rng(3)
     prog = dict(chip_smoke.sweep_programs())["count"]
@@ -291,14 +314,17 @@ def test_cuda_new_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         sc.stream_compact(x.t(), torch.zeros(2, dtype=torch.bool, device=cuda_device))
     q = torch.zeros((1, 1, 8, 160), device=cuda_device)
     with pytest.raises(ValueError):
-        fa.flash_attention(q, q, q)  # head dim above 128
+        fa.flash_attention(q.double(), q.double(), q.double())  # no float64 route
     with pytest.raises(ValueError):
-        fa.flash_attention(q[..., :64].double(), q[..., :64].double(), q[..., :64].double())
+        fa.flash_attention(q.int(), q.int(), q.int())
     prog = dict(chip_smoke.sweep_programs())["count"]
     host = chip_smoke.batch_sweep_inputs(np.random.default_rng(1), prog, 2, 512, 4)
     t = [torch.from_numpy(a).to(cuda_device) for a in host]
+    with pytest.raises(ValueError):  # 16-byte elements: no row width the kernel moves
+        sf.skim_fused_batch(t[0], t[1], t[2], t[3].to(torch.complex128), prog)
     with pytest.raises(ValueError):
-        sf.skim_fused_batch(t[0], t[1], t[2], t[3].double(), prog)
+        sf.skim_fused_batch(t[0], t[1], t[2],
+                            t[3].transpose(1, 2).contiguous().transpose(1, 2), prog)
 
 
 @pytest.mark.cuda

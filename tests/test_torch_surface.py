@@ -14,7 +14,12 @@ card's machine has no JAX).  For each module of ``src/repro/``:
   included) of a public class, exists in the port with the same
   positional arguments in the same order, leaving out the Pallas-only
   keywords; the port may add arguments after them (``backend``,
-  ``device``).
+  ``device``);
+* each of its keyword-only arguments is one the port's function takes
+  by keyword, each default value is the port's for the argument of that
+  name (source text, ``jnp.X`` read as ``torch.X``), and every argument
+  the port adds has a default: so a call the JAX function takes, the
+  port's takes with the same meaning.
 
 The names the port leaves out or keeps elsewhere are the one literal
 list below, which ROADMAP's "Names that differ on purpose" repeats.
@@ -109,6 +114,64 @@ def _callables(tree: ast.Module) -> dict[str, list[str]]:
     return out
 
 
+def _parameters(tree: ast.Module) -> dict[str, dict[str, tuple[str, str | None]]]:
+    """Public functions and public classes' public methods (and
+    ``__init__``) -> {argument: (kind, default's source or None)}, kind
+    "positional" (positional-only or positional-or-keyword), "keyword"
+    (keyword-only) or "star" (``*args``, ``**kwargs``), the default's
+    source with ``jnp.`` read as ``torch.``."""
+    def params(fn) -> dict[str, tuple[str, str | None]]:
+        a = fn.args
+        pos = a.posonlyargs + a.args
+        defaults = [None] * (len(pos) - len(a.defaults)) + list(a.defaults)
+        out = {}
+        for arg, d in zip(pos + a.kwonlyargs, defaults + list(a.kw_defaults)):
+            kind = "keyword" if arg in a.kwonlyargs else "positional"
+            src = None if d is None else ast.unparse(d).replace("jnp.", "torch.")
+            out[arg.arg] = (kind, src)
+        for arg in (a.vararg, a.kwarg):
+            if arg is not None:
+                out[arg.arg] = ("star", None)
+        return out
+
+    out = {}
+    for node in tree.body:
+        if getattr(node, "name", "_").startswith("_"):
+            continue
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = params(node)
+        elif isinstance(node, ast.ClassDef):
+            for sub in node.body:
+                if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)) and (
+                        not sub.name.startswith("_") or sub.name == "__init__"):
+                    out[f"{node.name}.{sub.name}"] = params(sub)
+    return out
+
+
+def _keyword_faults(module: str, jt: ast.Module, tt: ast.Module) -> list[str]:
+    """Where a JAX module's (``jt``) functions' keyword-only arguments or
+    default values are not its mirror's (``tt``), as lines (the positional
+    order is :func:`_surface_faults`'s)."""
+    port = _parameters(tt)
+    faults = []
+    for name, want in _parameters(jt).items():
+        got = port.get(name)
+        if got is None or _differs(module, name):
+            continue
+        for arg, (kind, default) in want.items():
+            if arg in PALLAS_KEYWORDS or kind == "star":
+                continue
+            if arg not in got:
+                faults.append(f"{module}: {name} takes no {arg!r} in the port")
+            elif default is not None and got[arg][1] != default:
+                faults.append(f"{module}: {name}({arg}={got[arg][1]}) in the port, "
+                              f"({arg}={default}) in the JAX package")
+        faults += [f"{module}: {name}'s port-only {arg!r} has no default"
+                   for arg, (kind, default) in got.items()
+                   if arg not in want and kind != "star" and default is None]
+    return faults
+
+
 def _differs(module: str, name: str) -> bool:
     return (module, name.split(".")[0]) in DIFFER_ON_PURPOSE
 
@@ -141,6 +204,30 @@ def _surface_faults(module: str) -> list[str]:
 @pytest.mark.parametrize("module", MODULES)
 def test_port_module_has_the_jax_module_surface(module):
     assert _surface_faults(module) == []
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_port_functions_take_the_jax_keywords_and_defaults(module):
+    assert _keyword_faults(module, _tree(JAX_PKG / module), _tree(PORT / module)) == []
+
+
+def test_the_keyword_walk_reports_each_kind_of_fault():
+    """A default that differs (``jnp.X`` read as ``torch.X``), a JAX
+    keyword-only argument the port lacks and a port-only argument with no
+    default are each reported; a Pallas keyword, a keyword-only argument
+    the port takes positionally and an equal default are not."""
+    jax_src = ("def f(a, b=jnp.float32, *, c=1, g=None, use_pallas=None):\n    pass\n"
+               "def h(x=jnp.int32):\n    pass\n")
+    port_src = ("def f(a, b=torch.float64, g=None, d=None, e=None, *, k):\n    pass\n"
+                "def h(x=torch.int32, device=None):\n    pass\n")
+    assert _parameters(ast.parse(jax_src))["f"] == {
+        "a": ("positional", None), "b": ("positional", "torch.float32"),
+        "c": ("keyword", "1"), "g": ("keyword", "None"), "use_pallas": ("keyword", "None")}
+    assert _keyword_faults("x.py", ast.parse(jax_src), ast.parse(port_src)) == [
+        "x.py: f(b=torch.float64) in the port, (b=torch.float32) in the JAX package",
+        "x.py: f takes no 'c' in the port",
+        "x.py: f's port-only 'k' has no default",
+    ]
 
 
 def test_every_name_that_differs_on_purpose_still_differs():
