@@ -390,6 +390,42 @@ def profiled_kernels(fn) -> list[str] | str:
     return "not measured"
 
 
+def start_ptxas_report():
+    """Start ``nvcc -Xptxas -v`` on ``csrc/flash_attention.cu`` beside the
+    builds (into a library of its own that nothing loads): ptxas's report
+    of each kernel's registers and spills, and of wgmma it serialises
+    (warning C7515)."""
+    from repro_torch.kernels import _build
+
+    _build.build_dir().mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_build._CSRC),
+           "-o", str(_build.build_dir() / "flash_attention-ptxas-report.so"),
+           str(_build._CSRC / _build.SOURCES["flash_attention"])]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_ptxas_report(proc) -> dict:
+    """Wait for :func:`start_ptxas_report`; logs the registers and spills
+    of each attention kernel and fails on a C7515 warning (a wgmma issued
+    where ptxas cannot pipeline it: the products run one at a time).
+    Returns {kernel: report line}."""
+    out, err = proc.communicate()
+    check(proc.returncode == 0, f"nvcc -Xptxas -v failed on flash_attention.cu:\n{out}{err}")
+    lines = (out + err).splitlines()
+    serialised = [ln.strip() for ln in lines if "C7515" in ln]
+    report, entry = {}, None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif entry and ("registers" in ln or "spill" in ln):
+            report[entry] = (report.get(entry, "") + " " + ln.split(":", 1)[-1].strip()).strip()
+    for name, line in sorted(report.items()):
+        log(f"  ptxas {name}: {line}")
+    log(f"  flash_attention.cu: {len(serialised)} C7515 warnings (serialised wgmma)")
+    check(not serialised, "ptxas serialised wgmma in flash_attention.cu: " + "; ".join(serialised))
+    return report
+
+
 def check_tensor_core_sass() -> dict:
     """Counts, in the SASS of the attention library, the 16-bit routes' wgmma
     (``HGMMA``) and the float32 route's tf32 mma.sync (``HMMA`` ... ``TF32``);
@@ -1396,7 +1432,7 @@ def check_predicate_eval(rng, device, names=None) -> tuple[float, int]:
 
 
 # ---------------------------------------------------------------------------
-# the earlier designs of three kernels, kept as the baselines the redesigned
+# the earlier designs of the kernels, kept as the baselines the redesigned
 # ones are timed against in the same run, each with a plain C interface:
 #  * parent_stage_launch: the cascade stage with one thread an event reading
 #    its own K-slot rows of dense (B, T, E, K) inputs from device memory
@@ -1407,6 +1443,10 @@ def check_predicate_eval(rng, device, names=None) -> tuple[float, int]:
 #    and a copy pass in which every block sums every tile's count and one
 #    thread copies its own row (csrc/stream_compact.cu before the
 #    single-pass redesign; its compact.cuh inlined here)
+#  * parent_attn_launch (PARENT_ATTN_CU, appended): flash_attention's two
+#    wide kernels (D > 128) as PR 23 designed them, one CTA a 128-column
+#    slice of O recomputing the whole score tile, Q streamed with K
+#    (csrc/flash_attention.cu before the 256-column wide tiles)
 # ---------------------------------------------------------------------------
 
 PARENT_CU = r"""
@@ -1640,6 +1680,605 @@ extern "C" int parent_compact_launch(const void* payload, const void* mask,
 """
 
 
+PARENT_ATTN_CU = r"""
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <type_traits>
+namespace parent_attn {
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInf = -1e30f;  // the reference's NEG_INF: the running max's start
+constexpr unsigned kFull = 0xffffffffu;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+template <int NC>
+__device__ __forceinline__ void softmax_tile(float (&s)[4 * NC], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], float c, int key0, int row0,
+                                             int S, bool causal, bool mask) {
+  if (mask) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + 8 * i + (e & 1);
+        if (key >= S || (causal && key > row0 + 8 * (e >> 1))) s[4 * i + e] = -INFINITY;
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = m[h];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) mx = fmaxf(mx, fmaxf(s[4 * i + 2 * h], s[4 * i + 2 * h + 1]));
+    mx = quad_max(mx);
+    alpha[h] = ex2((m[h] - mx) * c);
+    m[h] = mx;
+    const float mc = mx * c;
+    float sum = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float p = ex2(fmaf(s[4 * i + 2 * h + j], c, -mc));
+        s[4 * i + 2 * h + j] = p;
+        sum += p;
+      }
+    }
+    l[h] = fmaf(l[h], alpha[h], sum);
+  }
+}
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] *= alpha[(i >> 1) & 1];
+}
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+constexpr int kBr = 128;               // query rows per CTA (2 consumer warpgroups x 64)
+constexpr int kBc = 128;               // keys per K/V tile
+constexpr int kStages = 2;             // K/V ring depth
+constexpr int kBoxBytes = 128 * 128;   // one TMA box: 128 rows x 64 bf16, swizzled
+constexpr int kHalfThreads = 384;      // warpgroups 0, 1 consume; 2 loads
+constexpr int kConsumers = 256;        // arrivals that free a K or V stage
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<T, __half>) {
+    const __half2 p = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  } else {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  }
+}
+#define WG_REGS32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_REGS64 WG_REGS32 \
+  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_OUT32(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define WG_OUT64(d) WG_OUT32(d), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define WGMMA_SS_N128(AB)                                                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                         \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" WG_REGS64 \
+               "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                   \
+               : WG_OUT64(d) : "l"(da), "l"(db), "r"(scale_d))
+#define WGMMA_RS_N128(AB)                                                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                         \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" WG_REGS64 \
+               "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                      \
+               : WG_OUT64(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  if constexpr (std::is_same_v<T, __half>) {
+    WGMMA_SS_N128("f16");
+  } else {
+    WGMMA_SS_N128("bf16");
+  }
+}
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  if constexpr (std::is_same_v<T, __half>) {
+    WGMMA_RS_N128("f16");
+  } else {
+    WGMMA_RS_N128("bf16");
+  }
+}
+template <typename T, int kSteps>
+__device__ __forceinline__ void qk_steps(float (&s)[64], uint32_t qa, uint32_t kb,
+                                         bool accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma_ss_n128<T>(s, sdesc(qa + off, 16, 1024), sdesc(kb + off, 16, 1024),
+                     accumulate || kk > 0);
+  }
+}
+template <typename T>
+__device__ __forceinline__ void qk_chunk(float (&s)[64], uint32_t qa, uint32_t kb, int cols,
+                                         bool accumulate) {
+  switch (cols / 16) {
+    case 1: qk_steps<T, 1>(s, qa, kb, accumulate); break;
+    case 2: qk_steps<T, 2>(s, qa, kb, accumulate); break;
+    case 3: qk_steps<T, 3>(s, qa, kb, accumulate); break;
+    case 4: qk_steps<T, 4>(s, qa, kb, accumulate); break;
+    case 5: qk_steps<T, 5>(s, qa, kb, accumulate); break;
+    case 6: qk_steps<T, 6>(s, qa, kb, accumulate); break;
+    case 7: qk_steps<T, 7>(s, qa, kb, accumulate); break;
+    default: qk_steps<T, 8>(s, qa, kb, accumulate); break;
+  }
+}
+template <typename T, int kDB>
+__device__ __forceinline__ void pv_steps(float (&acc)[kDB * 32], const uint32_t (&p)[32],
+                                         uint32_t sv) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
+    const uint64_t db = sdesc(sv + kk * 2048, kBoxBytes, 1024);
+    wgmma_rs_n128<T>(acc, a, db);
+  }
+}
+template <typename T, int kDB>
+__device__ __forceinline__ void tile_softmax_pv(float (&s)[64], float (&acc)[kDB * 32],
+                                                float (&m)[2], float (&l)[2], float c,
+                                                int key0, int row0, int S, int causal,
+                                                bool mask, uint32_t v_full, uint32_t ph,
+                                                uint32_t v_empty, uint32_t sv) {
+  float alpha[2];
+  softmax_tile<16>(s, m, l, alpha, c, key0, row0, S, causal != 0, mask);
+  rescale(acc, alpha);
+  uint32_t p[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
+  mbar_wait(v_full, ph);
+  fence_regs(acc);
+  fence_regs(p);
+  wgmma_fence();
+  pv_steps<T, kDB>(acc, p, sv);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs(acc);
+  fence_regs(p);
+  mbar_arrive(v_empty);
+}
+template <typename T, int kDB>
+__device__ __forceinline__ void store_rows(T* __restrict__ o, const float (&acc)[kDB * 32],
+                                           const float (&l)[2], int row0, int S, int D,
+                                           int col0, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float denom = fmaxf(quad_sum(l[h]), 1e-30f);
+    const int row = row0 + 8 * h;
+    if (row >= S) continue;
+    T* out = o + static_cast<size_t>(row) * D + col0;
+#pragma unroll
+    for (int i = 0; i < kDB * 8; ++i) {
+      const int col = 8 * i + 2 * (lane % 4);
+      if (col0 + col < D) {
+        *reinterpret_cast<uint32_t*>(out + col) =
+            pack2<T>(acc[4 * i + 2 * h] / denom, acc[4 * i + 2 * h + 1] / denom);
+      }
+    }
+  }
+}
+template <typename T>
+__global__ void __launch_bounds__(kHalfThreads, 1)
+attn_half_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, T* __restrict__ o, int S, int D,
+                      float c, int causal) {
+  constexpr int kTile = 2 * kBoxBytes;  // 128 rows x 128 columns
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sqk = (raw + 1023) & ~1023u;       // stage st: Q at sqk + 2 st kTile, K after
+  const uint32_t sv = sqk + 2 * kStages * kTile;     // stage st at sv + st * kTile
+  const uint32_t bars = sv + kStages * kTile;        // 4 * kStages barriers of 8 bytes
+  auto qk_full = [&](int st) { return bars + 8 * st; };
+  auto v_full = [&](int st) { return bars + 8 * (kStages + st); };
+  auto qk_empty = [&](int st) { return bars + 8 * (2 * kStages + st); };
+  auto v_empty = [&](int st) { return bars + 8 * (3 * kStages + st); };
+  const int bh = blockIdx.x;
+  const int qt = causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : static_cast<int>(blockIdx.y);
+  const int col0 = 128 * static_cast<int>(blockIdx.z);  // this CTA's slice of O and V
+  const int q0 = qt * kBr;
+  const int n_k = (S + kBc - 1) / kBc;
+  const int n_tiles = causal ? min(n_k, (q0 + kBr + kBc - 1) / kBc) : n_k;
+  const int nc = (D + 127) / 128;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(qk_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(qk_empty(st), kConsumers);
+      mbar_init(v_empty(st), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      int i = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        for (int cc = 0; cc < nc; ++cc, ++i) {
+          const int st = i % kStages;
+          const uint32_t ph = (i / kStages) & 1;
+          const int boxes = min(128, D - 128 * cc) > 64 ? 2 : 1;  // the chunk's columns below D
+          const uint32_t at = sqk + 2 * st * kTile;
+          mbar_wait(qk_empty(st), ph ^ 1);
+          mbar_expect_tx(qk_full(st), 2 * boxes * kBoxBytes);
+          for (int b = 0; b < boxes; ++b) {
+            tma_load(at + b * kBoxBytes, &tq, qk_full(st), 128 * cc + 64 * b, q0, bh);
+            tma_load(at + kTile + b * kBoxBytes, &tk, qk_full(st), 128 * cc + 64 * b, t * kBc,
+                     bh);
+          }
+        }
+        const int st = t % kStages;
+        const uint32_t ph = (t / kStages) & 1;
+        const int v_boxes = D - col0 > 64 ? 2 : 1;
+        mbar_wait(v_empty(st), ph ^ 1);
+        mbar_expect_tx(v_full(st), v_boxes * kBoxBytes);
+        for (int b = 0; b < v_boxes; ++b)
+          tma_load(sv + st * kTile + b * kBoxBytes, &tv, v_full(st), col0 + 64 * b, t * kBc, bh);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+    int i = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * kBc;
+      float s[64];
+      for (int cc = 0; cc < nc; ++cc, ++i) {
+        const int st = i % kStages;
+        const uint32_t at = sqk + 2 * st * kTile;
+        mbar_wait(qk_full(st), (i / kStages) & 1);
+        wgmma_fence();
+        qk_chunk<T>(s, at + wg * 64 * 128, at + kTile, min(128, D - 128 * cc), cc > 0);
+        wgmma_commit();
+        wgmma_wait();
+        fence_regs(s);
+        mbar_arrive(qk_empty(st));
+      }
+      const int st = t % kStages;
+      const bool mask = k0 + kBc > S || (causal && k0 + kBc - 1 > q0 + 64 * wg);
+      tile_softmax_pv<T, 2>(s, acc, m, l, c, k0 + 2 * (lane % 4), row0, S, causal, mask,
+                            v_full(st), (t / kStages) & 1, v_empty(st), sv + st * kTile);
+    }
+    store_rows<T, 2>(o + static_cast<size_t>(bh) * S * D, acc, l, row0, S, D, col0, lane);
+  }
+}
+constexpr int kF32Rows = 64;   // query rows per CTA: 4 warps x 16
+constexpr int kF32Keys = 32;   // keys per K/V tile
+constexpr int kF32Threads = 128;
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma3(float* d, const uint32_t (&ab)[4], const uint32_t (&as)[4],
+                                     uint32_t bb0, uint32_t bb1, uint32_t bs0, uint32_t bs1) {
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+}
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+__device__ __forceinline__ void cp_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+__global__ void __launch_bounds__(kF32Threads, 1)
+attn_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int S, int D, float c,
+                     int causal) {
+  constexpr int kD = 128;          // columns of a chunk and of the slice
+  constexpr int kStride = kD + 4;  // floats per staged row: 32 distinct banks per fragment
+  constexpr int kChunks = kD / 4;  // 16-byte chunks per row
+  constexpr int kStage = (kF32Rows + kF32Keys) * kStride;  // floats of a Q + K stage
+  extern __shared__ float4 smem_f4[];
+  float* qk = reinterpret_cast<float*>(smem_f4);  // 2 stages: Q (kF32Rows, kStride), then K
+  float* vs = qk + 2 * kStage;                    // 2 stages of (kF32Keys, kStride)
+  const int bh = blockIdx.x;
+  const int qt = causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : static_cast<int>(blockIdx.y);
+  const int q0 = qt * kF32Rows;
+  const int col0 = kD * static_cast<int>(blockIdx.z);
+  const int nc = (D + kD - 1) / kD;
+  const size_t head = static_cast<size_t>(bh) * S * D;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+  auto load_item = [&](int i) {
+    const int t = i / nc, cc = i % nc, k0 = t * kF32Keys;
+    float* qs = qk + (i % 2) * kStage;
+    float* ks = qs + kF32Rows * kStride;
+    for (int j = tid; j < kF32Rows * kChunks; j += kF32Threads) {
+      const int r = j / kChunks, col = (j % kChunks) * 4;
+      const bool ok = q0 + r < S && kD * cc + col < D;
+      cp16(qs + r * kStride + col,
+           ok ? q + head + static_cast<size_t>(q0 + r) * D + kD * cc + col : q, ok);
+    }
+    for (int j = tid; j < kF32Keys * kChunks; j += kF32Threads) {
+      const int r = j / kChunks, col = (j % kChunks) * 4;
+      const bool ok = k0 + r < S && kD * cc + col < D;
+      cp16(ks + r * kStride + col,
+           ok ? k + head + static_cast<size_t>(k0 + r) * D + kD * cc + col : k, ok);
+      if (cc == 0) {
+        const bool v_ok = k0 + r < S && col0 + col < D;
+        cp16(vs + ((t % 2) * kF32Keys + r) * kStride + col,
+             v_ok ? v + head + static_cast<size_t>(k0 + r) * D + col0 + col : v, v_ok);
+      }
+    }
+  };
+  const int n_k = (S + kF32Keys - 1) / kF32Keys;
+  const int n_tiles = causal ? min(n_k, (q0 + kF32Rows + kF32Keys - 1) / kF32Keys) : n_k;
+  const int n_items = n_tiles * nc;
+  load_item(0);
+  cp_commit();
+  const int wrow = 16 * warp;     // the warp's first row in the CTA
+  const int row0 = q0 + wrow + g;  // this thread's first row
+  float acc[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  float s[16];
+  for (int i = 0; i < n_items; ++i) {
+    if (i + 1 < n_items) load_item(i + 1);
+    cp_commit();
+    cp_wait_all_but_one();  // item i has landed
+    __syncthreads();
+    const int t = i / nc, cc = i % nc, k0 = t * kF32Keys;
+    if (!causal || k0 <= q0 + wrow + 15) {
+      const float* qs = qk + (i % 2) * kStage;
+      const float* kt = qs + kF32Rows * kStride;
+      if (cc == 0) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) s[j] = 0.0f;
+      }
+      const int steps = min(kD, D - kD * cc) / 8;
+#pragma unroll
+      for (int kk = 0; kk < kD / 8; ++kk) {
+        if (kk < steps) {
+          const float* qa = qs + (wrow + g) * kStride + 8 * kk + tg;
+          uint32_t ab[4], as[4];
+          split(qa[0], ab[0], as[0]);
+          split(qa[8 * kStride], ab[1], as[1]);
+          split(qa[4], ab[2], as[2]);
+          split(qa[8 * kStride + 4], ab[3], as[3]);
+#pragma unroll
+          for (int j = 0; j < kF32Keys / 8; ++j) {
+            const float* kb = kt + (8 * j + g) * kStride + 8 * kk + tg;
+            uint32_t bb0, bs0, bb1, bs1;
+            split(kb[0], bb0, bs0);
+            split(kb[4], bb1, bs1);
+            mma3(&s[4 * j], ab, as, bb0, bb1, bs0, bs1);
+          }
+        }
+      }
+      if (cc == nc - 1) {
+        const float* vt = vs + (t % 2) * kF32Keys * kStride;
+        float alpha[2];
+        const bool mask = k0 + kF32Keys > S || (causal && k0 + kF32Keys - 1 > q0 + wrow);
+        softmax_tile<kF32Keys / 8>(s, m, l, alpha, c, k0 + 2 * tg, row0, S, causal != 0, mask);
+        rescale(acc, alpha);
+#pragma unroll
+        for (int j = 0; j < kF32Keys / 8; ++j) {
+          uint32_t pb[4], ps[4];
+          split(s[4 * j], pb[0], ps[0]);
+          split(s[4 * j + 2], pb[1], ps[1]);
+          split(s[4 * j + 1], pb[2], ps[2]);
+          split(s[4 * j + 3], pb[3], ps[3]);
+          const float* vb = vt + (8 * j + 2 * tg) * kStride + g;
+#pragma unroll
+          for (int n = 0; n < kD / 8; ++n) {
+            uint32_t bb0, bs0, bb1, bs1;
+            split(vb[8 * n], bb0, bs0);
+            split(vb[kStride + 8 * n], bb1, bs1);
+            mma3(&acc[4 * n], pb, ps, bb0, bb1, bs0, bs1);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stages are read before the next prefetch overwrites them
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float denom = fmaxf(quad_sum(l[h]), 1e-30f);
+    const int row = row0 + 8 * h;
+    if (row >= S) continue;
+    float* out = o + head + static_cast<size_t>(row) * D + col0;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      const int col = 8 * n + 2 * tg;
+      if (col0 + col < D) {
+        *reinterpret_cast<float2*>(out + col) =
+            make_float2(acc[4 * n + 2 * h] / denom, acc[4 * n + 2 * h + 1] / denom);
+      }
+    }
+  }
+}
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+bool head_map(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType type, const void* x,
+              int BH, int S, int D) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(S) * D * 2};
+  const cuuint32_t box[3] = {64, 128, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, type, 3, const_cast<void*>(x), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+template <typename Kernel>
+int opt_in(Kernel kernel, int smem, bool& done) {
+  if (done) return 0;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) done = true;
+  return static_cast<int>(err);
+}
+template <typename T>
+int launch_half_wide(const void* q, const void* k, const void* v, void* o, int BH, int S,
+                     int D, float c, int causal, cudaStream_t s) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const CUtensorMapDataType type = std::is_same_v<T, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap tq, tk, tv;
+  if (!head_map(encode, &tq, type, q, BH, S, D) || !head_map(encode, &tk, type, k, BH, S, D) ||
+      !head_map(encode, &tv, type, v, BH, S, D)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static bool opted = false;
+  const auto kernel = attn_half_wide_kernel<T>;
+  const int smem = 3 * kStages * 2 * kBoxBytes + 1024 + 8 * 4 * kStages;
+  if (const int err = opt_in(kernel, smem, opted)) return err;
+  const dim3 grid(static_cast<unsigned>(BH), static_cast<unsigned>((S + kBr - 1) / kBr),
+                  static_cast<unsigned>((D + 127) / 128));
+  kernel<<<grid, kHalfThreads, smem, s>>>(tq, tk, tv, static_cast<T*>(o), S, D, c, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+int launch_f32_wide(const void* q, const void* k, const void* v, void* o, int BH, int S, int D,
+                    float c, int causal, cudaStream_t s) {
+  const int smem = static_cast<int>(sizeof(float)) * (2 * kF32Rows + 4 * kF32Keys) * 132;
+  static bool opted = false;
+  if (const int err = opt_in(attn_f32_wide_kernel, smem, opted)) return err;
+  const dim3 grid(static_cast<unsigned>(BH), static_cast<unsigned>((S + kF32Rows - 1) / kF32Rows),
+                  static_cast<unsigned>((D + 127) / 128));
+  attn_f32_wide_kernel<<<grid, kF32Threads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, D, c, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+}  // namespace parent_attn
+extern "C" int parent_attn_launch(const void* q, const void* k, const void* v, void* o, int BH,
+                                  int S, int D, float scale, int causal, int dtype,
+                                  void* stream) {
+  if (D <= 128 || D % 16 != 0 || !(scale > 0.0f) || BH <= 0 || S <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float c = scale * parent_attn::kLog2e;
+  switch (dtype) {
+    case 0: return parent_attn::launch_f32_wide(q, k, v, o, BH, S, D, c, causal, s);
+    case 1: return parent_attn::launch_half_wide<__nv_bfloat16>(q, k, v, o, BH, S, D, c, causal, s);
+    case 2: return parent_attn::launch_half_wide<__half>(q, k, v, o, BH, S, D, c, causal, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+"""
+PARENT_CU += PARENT_ATTN_CU
+
 def start_parent_build():
     """Start ``nvcc`` on :data:`PARENT_CU` (beside the package's builds,
     which run at the same time); returns (process, library path)."""
@@ -1663,7 +2302,7 @@ def start_parent_build():
 
 
 def finish_parent_build(proc, lib):
-    """Wait for :func:`start_parent_build`; returns the four baselines,
+    """Wait for :func:`start_parent_build`; returns the five baselines,
     each called as the wrapper it stood behind was, wrapper work and all:
     ``.skim(terms, valid, weights, payload, program) -> buf`` (a (B, T, E,
     K) batch and a float32 payload, moved as 32-bit words: the kernel
@@ -1672,13 +2311,16 @@ def finish_parent_build(proc, lib):
     (``packed`` updated in place), ``.mask(terms, valid, weights, program)
     -> (B, E) int32`` and ``.compact(payload, mask) -> (packed, count)``
     (four allocations a call, as its wrapper made; its argument checks,
-    the same as today's, left out)."""
+    the same as today's, left out) and ``.attn(q, k, v, causal) -> out``
+    (PR 23's wide attention kernels, D > 128, staged as the wrapper
+    stages)."""
     import ctypes
     from types import SimpleNamespace
 
     import torch
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import predicate_eval as pe
     from repro_torch.kernels.skim_fused import Workspace, header_words, program_args
 
@@ -1693,8 +2335,9 @@ def finish_parent_build(proc, lib):
     lib.parent_stage_launch.argtypes = [*dense, pv, pv, i, pv, pv]
     lib.parent_mask_launch.argtypes = [*dense, pv, pv]
     lib.parent_compact_launch.argtypes = [pv, pv, i, ll, i, i, pv, pv, pv, pv, pv]
+    lib.parent_attn_launch.argtypes = [pv, pv, pv, pv, i, i, i, ctypes.c_float, i, i, pv]
     for fn in (lib.parent_skim_launch, lib.parent_stage_launch, lib.parent_mask_launch,
-               lib.parent_compact_launch):
+               lib.parent_compact_launch, lib.parent_attn_launch):
         fn.restype = ctypes.c_int
     p = _build.ptr
 
@@ -1751,7 +2394,18 @@ def finish_parent_build(proc, lib):
         _build.check_launch("parent stream_compact", rc)
         return out, total[0]
 
-    return SimpleNamespace(skim=skim, stage=stage, mask=mask, compact=compact)
+    def attn(q, k, v, causal=True):  # flash_attention's wrapper, D > 128 only
+        B, H, S, D = q.shape
+        qs, ks, vs, scale = fa.stage(q, k, v)
+        out = torch.empty_like(qs)
+        rc = _build.call_on(
+            q.device, lib.parent_attn_launch, p(qs), p(ks), p(vs), p(out), B * H, S,
+            qs.shape[-1], scale, int(bool(causal)), fa.DTYPES[q.dtype],
+            ctypes.c_void_p(_build.stream_id(q.device)))
+        _build.check_launch("parent flash_attention", rc)
+        return out if out.shape[-1] == D else out[..., :D].contiguous()
+
+    return SimpleNamespace(skim=skim, stage=stage, mask=mask, compact=compact, attn=attn)
 
 
 def count_uploads(step_name: str = "cascade_stage_step_staged"):
@@ -1980,12 +2634,15 @@ FLASH_EDGE_SHAPES = ((1, 2, 200, 128), (1, 2, 2049, 128), (1, 2, 200, 40), (2, 3
 # Gemma-7B's attention (google/gemma-7b config.json: 16 heads, head_dim
 # 256) over 2048 positions, causal
 GEMMA_7B_ATTN = (1, 16, 2048, 256)
-# head dims past 128, one CTA per 128-column slice of the output: a D the
-# wrapper pads to 144 (a slice mostly past D), 192 (a half slice), 256 at a
-# ragged S, 520 padded to 528 (five chunks, the last of 16 columns), and
-# Gemma-7B's layout
+# head dims past 128 (the wide kernels: a CTA owns a 256-column slice of
+# the output): a D the wrapper pads to 144, D = 144 itself (one 64-column
+# box past 128), 192, 240 (just under 256), 256 at a ragged S and at S =
+# 1000 (a ragged 64-key tile), 264 (a first 256-column slice plus 16
+# columns: two chunks of Q K^T), 520 padded to 528 (three slices, the last
+# of 16 columns), and Gemma-7B's layout
 FLASH_WIDE_SHAPES = ((1, 2, 200, 136), (1, 2, 512, 192), (1, 2, 2049, 256), (1, 1, 130, 520),
-                     GEMMA_7B_ATTN)
+                     GEMMA_7B_ATTN, (1, 2, 200, 144), (1, 2, 300, 240), (1, 2, 256, 264),
+                     (1, 2, 1000, 256))
 # (rtol, atol) against the plain version on the card.  float32: the JAX
 # tests' 3e-5.  bf16: kernel and plain version both accumulate in float32
 # and round once to bf16, so they differ by at most about one bf16 ulp
@@ -2333,8 +2990,9 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
     weights: bench_kernels' shapes) and ``stream_compact`` at every case
     (label, payload, mask), the mean over those labelled "path" as its
     row; each shape is listed under ``shapes``.  ``flash_attention``'s row
-    is the mean over its cases, each also under ``by_case``.  Only the
-    kernels given cases are timed."""
+    is the mean over its cases, each also under ``by_case``; a case past D
+    = 128 is timed beside PR 23's wide kernels (``parent.attn``) in turns,
+    parent, new, new, parent.  Only the kernels given cases are timed."""
     import torch
 
     from repro_torch.kernels import basket_decode as bd
@@ -2604,20 +3262,39 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
             return torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True, scale=scale)
 
+        def kernel():
+            return fa.flash_attention(q, k, v, causal=True)
+
         row = {
             "case": f"{tuple(q.shape)} {str(q.dtype).removeprefix('torch.')}",
             "library_kernels": profiled_kernels(sdpa),
-            "ms": device_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
-            "stream_ms": stream_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+            "t_bytes": t_bytes, "t_ops": t_ops,
+        }
+        if parent is not None and D > 128:
+            # the wide kernels beside PR 23's, in turns: parent, new, new, parent
+            def parent_kernel():
+                return parent.attn(q, k, v, causal=True)
+
+            attention_close(parent_kernel(), ref.flash_attention_ref(q, k, v, causal=True),
+                            str(q.dtype).removeprefix("torch."), f"parent {row['case']}")
+            turns = [device_ms(fn) for fn in (parent_kernel, kernel, kernel, parent_kernel)]
+            row["ms"] = (turns[1] + turns[2]) / 2
+            row["parent_ms"] = (turns[0] + turns[3]) / 2
+            row["turns_ms"] = turns
+        else:  # D <= 128: the narrow kernels, which have no earlier design here
+            row["ms"] = device_ms(kernel)
+        row |= {
+            "stream_ms": stream_ms(kernel),
             "plain_ms": stream_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True)),
             "library_ms": stream_ms(sdpa),
             "library_device_ms": device_ms(sdpa),
-            "t_bytes": t_bytes, "t_ops": t_ops,
         }
         rows.append(row)
+        earlier = (f" (PR 23's wide kernel {row['parent_ms']:.5f}; in turns parent, new, "
+                   f"new, parent {row['turns_ms']})" if "parent_ms" in row else "")
         log(f"  flash_attention {row['case']} causal: kernel "
-            f"{row['ms']:.5f} ms on the device, {row['stream_ms']:.5f} ms per call from "
-            f"the host; plain {row['plain_ms']:.5f} ms; scaled_dot_product_attention "
+            f"{row['ms']:.5f} ms on the device{earlier}, {row['stream_ms']:.5f} ms per call "
+            f"from the host; plain {row['plain_ms']:.5f} ms; scaled_dot_product_attention "
             f"{row['library_ms']:.5f} ms per call from the host, "
             f"{row['library_device_ms']:.5f} ms on the device, kernels "
             f"{row['library_kernels']}; bound {max(t_bytes, t_ops):.7f} ms "
@@ -2625,7 +3302,8 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
     out["flash_attention"] = _summary(rows)
     if rows:
         out["flash_attention"]["by_case"] = {
-            r["case"]: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+            r["case"]: {"ms": r["ms"], "parent_ms": r.get("parent_ms"),
+                        "plain_ms": r["plain_ms"],
                         "library_ms": r["library_ms"],
                         "library_device_ms": r["library_device_ms"],
                         "library_kernels": r["library_kernels"],
@@ -3857,11 +4535,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     parent_build = start_parent_build()
+    ptxas = start_ptxas_report()
     build_s = _build.build_all()
     ops.load_kernels()
     parent = finish_parent_build(*parent_build)
     log(f"  kernels built in {build_s:.1f} s into {_build.build_dir()}; with the "
         f"earlier designs (the timing baselines) {time.perf_counter() - t0:.1f} s")
+    finish_ptxas_report(ptxas)
     check_tensor_core_sass()
 
     log("== 2. kernels against their plain versions ==")

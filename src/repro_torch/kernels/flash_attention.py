@@ -6,8 +6,10 @@ computing what the JAX package's Pallas ``_attn_kernel`` computes:
 ``sm_scale`` or 1/sqrt(D) on the logits, -1e30 as the running max's
 start, the denominator floored at 1e-30, the output in q's dtype.  bf16
 and float16 run on wgmma fed by TMA, float32 on mma.sync in split TF32
-(the source's note says where each rounds); above D = 128 each CTA
-computes one 128-column slice of the output.
+(the source's note says where each rounds).  Above D = 128 a CTA owns all
+the columns of a 256-column slice of the output and forms Q K^T once a key
+tile: for bf16 and float16 one wgmma tile of 128 rows, for float32 sixteen
+warps, four to 16 rows, each summing the score tile over a quarter of D.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version, :func:`repro_torch.kernels.ref.flash_attention_ref`.
@@ -29,7 +31,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIM_STEP = 16  # the kernel takes D in multiples of 16 (one 16-bit wgmma step)
 MAX_HEADS = 2**31 - 1  # B*H: the grid's x dimension
 MAX_Q_TILES = 65535  # the grid's y dimension, in tiles of 64 (float32) or 128 rows;
-# its z dimension, in slices of 128 columns of D
+# its z dimension, in slices of WIDE_COLS columns of D
+WIDE_COLS = 256  # the columns of O a CTA of the wide kernels (D > 128) owns
 
 launches = 0  # kernel launches through flash_attention(); never reset here
 _LAUNCHES_LOCK = threading.Lock()
@@ -85,7 +88,7 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None)
         raise ValueError(f"flash_attention: {q.dtype} is not float32, bfloat16 or float16")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
-    if B * H > MAX_HEADS or -(-S // 64) > MAX_Q_TILES or -(-D // 128) > MAX_Q_TILES:
+    if B * H > MAX_HEADS or -(-S // 64) > MAX_Q_TILES or -(-D // WIDE_COLS) > MAX_Q_TILES:
         raise ValueError(f"flash_attention: {B * H} heads of {S} rows exceed the grid")
     if q.numel() == 0:
         return torch.empty_like(q)

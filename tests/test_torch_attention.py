@@ -17,9 +17,10 @@ The second half emulates, in plain torch on the CPU, the rounding of the
 CUDA kernel's two routes (its key tiles, the online rescale, the scale
 applied to the float32 logits, exp2 with one folded constant; P rounded
 to bf16 before P V on the bf16 route, three split-TF32 products on the
-float32 route) and holds each to the reference within ``chip_smoke``'s
-card tolerances ``FLASH_TOL`` and to the Pallas kernel within ``TOL``.
-A single TF32 product misses 3e-5: that is why the float32 route splits.
+float32 route, summed over four parts of D apart above D = 128) and
+holds each to the reference within ``chip_smoke``'s card tolerances
+``FLASH_TOL`` and to the Pallas kernel within ``TOL``.  A single TF32
+product misses 3e-5: that is why the float32 route splits.
 """
 
 import sys
@@ -129,7 +130,15 @@ def test_flash_attention_ref_floors_the_denominator_and_keeps_the_dtype():
 # keys per K/V tile of each route (kBc and kF32Keys in csrc/flash_attention.cu)
 ROUTE_KEYS = {"bf16": 128, "f16": 128, "tf32x3": 32, "tf32": 32}
 HALF = {"bf16": torch.bfloat16, "f16": torch.float16}  # the 16-bit routes' P
+WIDE_KEYS = 64  # the 16-bit wide tile's keys per K/V tile (kWideKeys), D > 128
 LOG2E = 1.4426950408889634
+
+
+def _route_keys(route: str, D: int) -> int:
+    """Keys per K/V tile of the kernel that ``route`` runs at head dim D."""
+    if route in HALF and D > 128:
+        return WIDE_KEYS
+    return ROUTE_KEYS[route]
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -150,15 +159,50 @@ def _product(a: torch.Tensor, b: torch.Tensor, route: str) -> torch.Tensor:
     return small_a @ big_b + big_a @ small_b + big_a @ big_b
 
 
+F32_PARTS = 4  # kF32Parts: the float32 wide kernel's warps that share 16 rows
+
+
+def _part_cols(cols: int, part: int) -> tuple[int, int]:
+    """The columns [a, b) of a chunk of ``cols`` that warp ``part`` of a
+    row group sums (``part_steps`` in csrc/flash_attention.cu): the
+    8-column steps split as evenly as they go, the first parts the
+    larger."""
+    steps = cols // 8
+    per = -(-steps // F32_PARTS)
+    first = min(steps, part * per)
+    return 8 * first, 8 * min(steps, first + per)
+
+
+def _scores(q, kt, route: str) -> torch.Tensor:
+    """q kt^T as the route forms it.  float32 above D = 128 (the wide
+    kernel): D padded to a multiple of 16 is cut into chunks of
+    tfa.WIDE_COLS columns, each chunk into F32_PARTS parts; warp p of a row
+    group sums part p of every chunk, and the group adds the four parts'
+    sums in one order, (x0 + x1) + (x2 + x3).  Every other kernel forms the
+    whole product at once."""
+    D = q.shape[-1]
+    if route in HALF or D <= 128:
+        return _product(q, kt.transpose(-1, -2), route)
+    padded = -(-D // tfa.HEAD_DIM_STEP) * tfa.HEAD_DIM_STEP
+    parts = [0.0] * F32_PARTS
+    for c0 in range(0, padded, tfa.WIDE_COLS):
+        cols = min(tfa.WIDE_COLS, padded - c0)
+        for p in range(F32_PARTS):
+            a, b = (c0 + x for x in _part_cols(cols, p))
+            parts[p] = parts[p] + _product(q[..., a:b], kt[..., a:b].transpose(-1, -2), route)
+    return (parts[0] + parts[1]) + (parts[2] + parts[3])
+
+
 def _emulate(q, k, v, causal: bool, route: str, sm_scale=None) -> torch.Tensor:
     """The kernel's arithmetic over float32 (B, H, S, D) inputs (bf16 or
     f16 values upcast for the 16-bit routes): key tiles of
-    ROUTE_KEYS[route], running max from -1e30, p = exp2(s c - m c) with c
-    = scale * log2(e) in float32 and s c - m c rounded once (one FMA), the
-    row sums in float32, P rounded to the route's 16-bit type before P V
-    on a 16-bit route, the sum floored at 1e-30.  Above D = 128 each slice
-    of 128 output columns repeats the same scores and P, so the emulation
-    is the same at every D."""
+    ``_route_keys(route, D)``, the scores as ``_scores`` forms them,
+    running max from -1e30, p = exp2(s c - m c) with c = scale * log2(e)
+    in float32 and s c - m c rounded once (one FMA), the row sums in
+    float32, P rounded to the route's 16-bit type before P V on a 16-bit
+    route, the sum floored at 1e-30.  Above D = 128 every 256-column slice
+    of the output repeats the same scores and P, and each column of P V is
+    its own sum, so the slices need no emulation of their own."""
     S = q.shape[2]
     c = torch.tensor(tref.attention_scale(q.shape[-1], sm_scale), dtype=torch.float32)
     c = c * torch.tensor(LOG2E, dtype=torch.float32)
@@ -166,10 +210,10 @@ def _emulate(q, k, v, causal: bool, route: str, sm_scale=None) -> torch.Tensor:
     l = torch.zeros_like(m)
     acc = torch.zeros_like(q)
     rows = torch.arange(S)[:, None]
-    step = ROUTE_KEYS[route]
+    step = _route_keys(route, q.shape[-1])
     for k0 in range(0, S, step):
         kt, vt = k[:, :, k0:k0 + step], v[:, :, k0:k0 + step]
-        s = _product(q, kt.transpose(-1, -2), route)
+        s = _scores(q, kt, route)
         keys = torch.arange(k0, k0 + kt.shape[2])[None, :]
         if causal:
             s = s.masked_fill(keys > rows, float("-inf"))
@@ -246,6 +290,61 @@ def test_route_emulations_match_pallas(route, causal):
         got = _emulate(*(torch.from_numpy(a) for a in host), causal, route)
         tol = TOL["float32"]
     want = jops.flash_attention(*x, causal=causal, interpret=True)
+    _close(got.numpy(), np.asarray(want, np.float32), tol)
+
+
+@pytest.mark.parametrize("route", ["bf16", "f16", "tf32x3"])
+@pytest.mark.parametrize("D", [192, 256, 264])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wide_route_rounding_stays_within_flash_tol(route, D, causal):
+    """The wide kernels (D > 128): the 16-bit tile's 64-key tiles, the
+    float32 row group's parts of D summed apart (at D = 264 over two
+    chunks of 256 columns), at a ragged S; each emulation, rounded to the
+    route's type, within the card's FLASH_TOL of the reference on the same
+    inputs."""
+    shape = (1, 2, 130, D)
+    host = [torch.from_numpy(a) for a in _inputs(D + 5, shape)]
+    dtype = HALF.get(route, torch.float32)
+    x = [a.to(dtype) for a in host]
+    got = _emulate(*(a.float() for a in x), causal, route).to(dtype)
+    want = tref.flash_attention_ref(*x, causal=causal)
+    rtol, atol = chip_smoke.FLASH_TOL[str(dtype).removeprefix("torch.")]
+    assert _over(got.float(), want.float(), rtol, atol) == 0
+
+
+def test_wide_routes_cut_the_keys_and_the_head_dim_as_the_kernels_do():
+    """The emulation's tiles and parts follow csrc/flash_attention.cu:
+    64-key tiles for the 16-bit wide tile, 32 for float32 at every D; the
+    parts of a chunk cover it once, and the float32 scores above D = 128
+    differ from one product over all of D only by the order of the sums."""
+    assert [_route_keys(r, 256) for r in ("bf16", "f16", "tf32x3")] == [64, 64, 32]
+    assert [_route_keys(r, 128) for r in ("bf16", "f16", "tf32x3")] == [128, 128, 32]
+    for cols in (16, 144, 240, 256):
+        cuts = [_part_cols(cols, p) for p in range(F32_PARTS)]
+        assert cuts[0][0] == 0 and cuts[-1][1] == cols
+        assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+    q, k = (torch.from_numpy(a) for a in _inputs(9, (1, 1, 40, 264))[:2])
+    parts = _scores(q, k, "tf32x3")
+    whole = _product(q, k.transpose(-1, -2), "tf32x3")
+    assert not torch.equal(parts, whole)
+    torch.testing.assert_close(parts, whole, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("route", ["bf16", "tf32x3"])
+def test_wide_route_emulations_match_pallas(route):
+    """The wide routes' emulations at Gemma-7B's head dim (256) against the
+    Pallas kernel in interpret mode, within the JAX tests' tolerances."""
+    shape = (1, 1, 256, 256)
+    host = _inputs(19, shape)
+    if route == "bf16":
+        x = [jnp.asarray(a, jnp.bfloat16) for a in host]
+        got = _emulate(*(torch.from_numpy(np.asarray(a, np.float32)) for a in x), True, route)
+        tol = TOL["bfloat16"]
+    else:
+        x = [jnp.asarray(a) for a in host]
+        got = _emulate(*(torch.from_numpy(a) for a in host), True, route)
+        tol = TOL["float32"]
+    want = jops.flash_attention(*x, causal=True, interpret=True)
     _close(got.numpy(), np.asarray(want, np.float32), tol)
 
 

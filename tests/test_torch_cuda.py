@@ -282,10 +282,14 @@ def test_cuda_numpy_entries_read_numpy_as_jax_does(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_flash_attention_in_float16_and_past_d_128(cuda_device):
-    """float16 beside float32 and bf16, at D = 136, 192 and 256 (one CTA a
-    128-column slice of the output), one launch a call."""
-    chip_smoke.check_flash_attention(np.random.default_rng(6), cuda_device,
-                                     ((1, 2, 200, 64),) + chip_smoke.FLASH_WIDE_SHAPES[:3])
+    """float16 beside float32 and bf16, causal and full, one launch a call,
+    at the wide kernels' edges: D = 136, 144 (one box past 128), 192, 256
+    (one 256-column tile, also at a ragged 64-key tile), 264 (a second
+    chunk of Q K^T and a second slice of 16 columns) and 520 (three)."""
+    chip_smoke.check_flash_attention(
+        np.random.default_rng(6), cuda_device,
+        ((1, 2, 200, 64), (1, 2, 200, 144), (1, 2, 1000, 256), (1, 2, 256, 264),
+         (1, 1, 130, 520)) + chip_smoke.FLASH_WIDE_SHAPES[:3])
 
 
 @pytest.mark.cuda
