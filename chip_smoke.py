@@ -36,7 +36,11 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    bf16 and float16, one launch a call; then the ``ops`` entries on numpy
    as the JAX package reads it (float64 as float32, int64 as int32, a
    float or int64 mask through int32) through the card, equal in type and
-   bytes to the host's, the per-window skim's staged route among them.
+   bytes to the host's, the per-window skim's staged route among them;
+   then ``predicate_eval``, ``cascade_stage``, ``skim_fused``,
+   ``skim_fused_batch`` and ``stream_compact`` bit for bit on inputs with
+   a tenth of every term plane NaN, +inf, -inf or -0.0
+   (:func:`check_nonfinite_kernels`).
    Then each skim kernel's median time beside its plain version's and
    its bound, at the shapes the main path gives it (window 0's decode
    rounds and skim calls; the batch of the first 16 windows), with the
@@ -110,12 +114,28 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    the host run; then the paper's four placements from ``skim_service``'s
    table, each mode's ``Breakdown`` total and ``busy_fraction`` at 1, 10
    and 100 Gb/s (modeled links), card and host.
+   Phase 3c also times ``skim_fused``, ``cascade_stage``,
+   ``predicate_eval`` and ``skim_fused_batch`` beside the same sources
+   built with the argmax lead selection and fminf / fmaxf they replaced
+   (:data:`PARENT_LEAD`),
+   in turns (:func:`time_lead_ab`).
+   Then phase 3g, non-finite values: the eight cases of
+   :func:`nonfinite_window` through the CUDA skim against the host
+   evaluator, then a 200,000-event NanoAOD-like store with 2% of every
+   float branch NaN, +inf, -inf or -0.0 through ``run_skim`` on the card,
+   per window and with ``device_batch=16``, decode on the card, for the
+   skimlint corpus, three pair and expression queries, quickstart and
+   Z->ee: each run equal to the host run of its path through the plain
+   versions, and to the staged reference except events the float32
+   evaluation decides otherwise at a mass/ΔR cut's edge (checked, logged).
 4. One JSON line listing each kernel (its launches those of every main
-   path, the serving plane's, the mesh skim's and the examples' included),
+   path, the serving plane's, the mesh skim's, the examples' and the
+   non-finite store's included),
    then the device line last.
 
-It imports ``repro_torch`` only (never JAX or the JAX package), needs one
-card, and exits non-zero without a result where there is no card or no
+It imports ``repro_torch`` and the query corpus of
+``tools/skimlint/fixtures.py`` (plain data) only, never JAX or the JAX
+package, needs one card, and exits non-zero without a result where there is no card or no
 ``src/repro_torch`` beside it.
 """
 
@@ -261,6 +281,153 @@ def make_era_store(n_events: int, seed: int = 7, basket_events: int = 4096,
         cols, jagged=jagged, basket_events=basket_events, codec="bitpack",
         device=device,
     )
+
+
+# ---------------------------------------------------------------------------
+# non-finite values (NaN, ±inf, -0.0): the stores and queries of phase 3g
+# ---------------------------------------------------------------------------
+
+NONFINITE_VALUES = (float("nan"), float("inf"), float("-inf"), -0.0)
+NONFINITE_EVENTS = 200_000
+NONFINITE_SHAPE = {"n_hlt": 8, "n_filler": 2}  # make_nanoaod_like's shape
+
+
+def _event_query(*selections) -> dict:
+    return {"branches": ["MET_pt"], "selection": {"event": list(selections)}}
+
+
+# beyond the skimlint corpus: pairs with no object cuts whose leading
+# objects a NaN pt moves (a same-collection mass and ΔR over jets), and
+# expressions whose min / max meet two zeros of opposite sign
+NONFINITE_EXTRA_QUERIES = {
+    "mass-jets": _event_query({"type": "mass", "collections": ["Jet", "Jet"],
+                               "window": [60.0, 120.0]}),
+    "delta-r-jets": _event_query({"type": "deltaR", "collections": ["Jet", "Jet"],
+                                  "op": "<", "value": 2.0}),
+    "expr-signed-zero": _event_query(
+        {"type": "expr", "expr": "MET_pt / min(MET_phi - MET_phi, Filler_000)",
+         "op": ">", "value": 0.0},
+        {"type": "expr", "expr": "MET_pt / max(Filler_001, MET_phi - MET_phi)",
+         "op": ">", "value": 0.0}),
+}
+
+
+def nonfinite_queries(n_events: int) -> dict:
+    """Phase 3g's queries by name: the skimlint corpus
+    (``tools/skimlint/fixtures.py``, plain data), :data:`NONFINITE_EXTRA_QUERIES`,
+    and the quickstart and Z->ee queries."""
+    from tools.skimlint.fixtures import FIXTURE_QUERIES
+
+    queries = {d["name"]: {k: v for k, v in d.items() if k != "name"}
+               for d in FIXTURE_QUERIES}
+    return queries | NONFINITE_EXTRA_QUERIES | {
+        "quickstart": QUICKSTART_QUERY, "zee": zee_query(n_events)}
+
+
+def nonfinite_columns(store, seed: int = 1, every: int = 50):
+    """``store``'s columns read back, with ``len // every`` entries of each
+    float branch set in turn to NaN, +inf, -inf and -0.0 (positions drawn
+    without replacement from ``default_rng(seed)``, branch by branch in
+    ``store.branches`` order).  Takes a store of either package; returns
+    (columns, jagged) for ``EventStore.from_arrays``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    columns, jagged = {}, {}
+    for name, br in store.branches.items():
+        if br.jagged:
+            values = np.array(store.read_jagged(name)[0])
+            jagged[name] = br.counts_branch
+        else:
+            values = np.array(store.read_flat(name))
+        if values.dtype.kind == "f":
+            pos = rng.choice(len(values), len(values) // every, replace=False)
+            values[pos] = np.resize(np.array(NONFINITE_VALUES, values.dtype), len(pos))
+        columns[name] = values
+    return columns, jagged
+
+
+def make_nonfinite_stores(n_events: int) -> list:
+    """``make_nanoaod_like(n_events, n_hlt=8, n_filler=2)`` through
+    :func:`nonfinite_columns`, built again on the card and on the host."""
+    from repro_torch.data.store import EventStore
+    from repro_torch.data.synth import make_nanoaod_like
+
+    base = make_nanoaod_like(n_events, **NONFINITE_SHAPE, device="cpu")
+    columns, jagged = nonfinite_columns(base)
+    return [EventStore.from_arrays(columns, jagged=jagged,
+                                   basket_events=base.basket_events, device=d)
+            for d in (None, "cpu")]
+
+
+def nonfinite_window():
+    """Eight events, each a case of the leading-object, HT and min / max
+    rules on non-finite values, as (columns, jagged) for
+    ``EventStore.from_arrays``: Electron and Jet objects (pt, eta, phi,
+    mass) and the flat MET_pt, MET_phi, Filler_000 and Filler_001."""
+    import numpy as np
+
+    nan, inf = float("nan"), float("inf")
+    electrons = [  # (pt, eta, phi, mass) per object, per event
+        [(nan, 0.5, -1.0, 0.0), (30.0, -0.5, -2.0, 0.0), (50.0, 1.1, 0.4, 0.0)],
+        [(nan, 0.2, 0.1, 0.0), (nan, -1.0, 2.5, 0.0)],  # every pt NaN
+        [],  # no object
+        [(-inf, 0.4, 0.3, 0.0), (25.0, 0.9, -1.2, 0.0)],  # a valid -inf pt
+        [(-0.0, 1.5, 2.0, 0.0), (0.0, -1.5, -2.0, 0.0), (10.0, 0.0, 0.0, 0.0)],
+        [(20.0, 0.1, 0.2, 0.0), (nan, 0.1, 0.2, 0.0), (20.0, -0.7, -0.3, 0.0)],
+        [(35.0, inf, 1.0, 0.0)],  # an infinite eta
+        [(15.0, 0.2, -0.6, 0.0), (60.0, -0.4, 2.9, 0.0)],
+    ]
+    jets = [
+        [(40.0, 0.5, -1.0, 5.0)],
+        [(nan, 0.0, 0.0, 5.0)],
+        [],
+        [(-inf, 1.0, 1.0, 5.0), (60.0, 0.2, 0.8, 6.0)],  # HT: -inf fails pt > 30
+        [(inf, 0.2, 0.3, 5.0), (5.0, 0.1, 0.1, 5.0)],
+        [(nan, 1.0, 1.0, 5.0), (45.0, 0.3, -2.0, 8.0), (45.0, -0.3, 2.0, 8.0)],
+        [(10.0, 0.1, 0.2, 5.0), (nan, 0.0, 0.0, 5.0), (70.0, 1.2, -0.4, 4.0)],
+        [(50.0, 0.6, 1.5, 9.0), (40.0, -0.6, -1.5, 7.0), (inf, 2.0, 0.0, 1.0)],
+    ]
+    columns = {
+        "MET_pt": np.array([50, 60, 70, 80, 90, 100, 110, 120], np.float32),
+        "MET_phi": np.array([0.1, nan, 0.3, inf, 0.5, -0.0, 0.7, 0.8], np.float32),
+        "Filler_000": np.array([-0.0, 1.0, -0.0, -2.0, 0.0, -0.0, 3.0, -0.0],
+                               np.float32),
+        "Filler_001": np.array([0.0, -0.0, 2.0, -0.0, -1.0, 0.0, -0.0, 1.0],
+                               np.float32),
+    }
+    jagged = {}
+    for coll, objs in (("Electron", electrons), ("Jet", jets)):
+        columns[f"n{coll}"] = np.array([len(o) for o in objs], np.int32)
+        flat = np.array([x for o in objs for x in o], np.float32).reshape(-1, 4)
+        for i, var in enumerate(("pt", "eta", "phi", "mass")):
+            columns[f"{coll}_{var}"] = np.ascontiguousarray(flat[:, i])
+            jagged[f"{coll}_{var}"] = f"n{coll}"
+    return columns, jagged
+
+
+# the queries :func:`nonfinite_window`'s events are run through
+NONFINITE_WINDOW_QUERIES = {
+    "delta-r": _event_query({"type": "deltaR", "collections": ["Electron", "Jet"],
+                             "op": ">", "value": 0.4}),
+    "delta-r-same": _event_query({"type": "deltaR", "collections": [
+        "Electron", "Electron"], "op": ">", "value": 0.5}),
+    "mass-same": _event_query({"type": "mass", "collections": [
+        "Electron", "Electron"], "window": [0.0, 1000.0]}),
+    "mass-jets": _event_query({"type": "mass", "collections": ["Jet", "Jet"],
+                               "window": [0.0, 1000.0]}),
+    "ht": _event_query({"type": "ht", "collection": "Jet", "var": "pt",
+                        "object_cuts": [{"var": "pt", "op": ">", "value": 30.0}],
+                        "op": ">", "value": 40.0}),
+    "ht-eta": _event_query({"type": "ht", "collection": "Jet", "var": "pt",
+                            "object_cuts": [{"var": "eta", "op": "abs<", "value": 1.0}],
+                            "op": ">", "value": 40.0}),
+    "count": {"branches": ["MET_pt"], "selection": {"object": [
+        {"collection": "Electron", "min_count": 1, "cuts": [
+            {"var": "pt", "op": ">", "value": 20.0},
+            {"var": "eta", "op": "abs<", "value": 2.4}]}]}},
+    "expr-signed-zero": NONFINITE_EXTRA_QUERIES["expr-signed-zero"],
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -2279,6 +2446,185 @@ extern "C" int parent_attn_launch(const void* q, const void* k, const void* v, v
 """
 PARENT_CU += PARENT_ATTN_CU
 
+# The earlier lead selection (argmax: NaN maximal, invalid slots at -inf)
+# and min / max (fminf / fmaxf), swapped into copies of this tree's sources
+# to build rows 1, 3, 4 and 6's timing baseline (:func:`start_lead_build`):
+# (file, the first line of this tree's block, the line after it, the
+# earlier block)
+PARENT_LEAD = (
+    ("predicate.cuh", "// min/max as the host evaluator's",
+     "__device__ __forceinline__ const float* row(", r"""// NaN-propagating min/max, as jnp.minimum / torch.minimum
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fminf(a, b);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
+}
+
+"""),
+    ("predicate.cuh", "// whether candidate x displaces", "__device__ int count_valid(",
+     r"""// first maximal slot of pt among the valid ones (argmax semantics: NaN is
+// maximal, ties and an all-invalid row go to the lowest slot)
+__device__ int lead_slot(const float* pt, const float* vg, int K, bool second,
+                         int exclude) {
+  float best = -INFINITY;
+  int idx = 0;
+  for (int k = 0; k < K; ++k) {
+    bool v = second ? (vg[k] >= 2.0f) : (floor_mod(vg[k], 2.0f) >= 1.0f);
+    float x = (v && k != exclude) ? pt[k] : -INFINITY;
+    if (!isnan(best) && (isnan(x) || x > best)) {
+      best = x;
+      idx = k;
+    }
+  }
+  return idx;
+}
+
+"""),
+    ("predicate_eval.cu", "// lead_slot over the event's lanes",
+     "__device__ int count_valid_lanes(", r"""// first maximal slot of pt among the valid ones (lead_slot's argmax: NaN
+// is maximal, ties and an all-invalid row go to the lowest slot), scanned
+// in slot order by every lane of the event
+__device__ int lead_slot_lanes(const float* pt, const float* vg, bool second,
+                               int exclude, const Lanes& ln, int K) {
+  float best = -INFINITY;
+  int idx = 0;
+  for (int j = 0; j < ln.J; ++j) {
+    const int k = j * ln.L + ln.sub;
+    float x = -INFINITY;
+    if (k < K) {
+      const bool v = second ? (vg[k] >= 2.0f) : (floor_mod(vg[k], 2.0f) >= 1.0f);
+      if (v && k != exclude) x = pt[k];
+    }
+    const int w = ln.width(j, K);
+#pragma unroll 8
+    for (int kk = 0; kk < w; ++kk) {
+      const float y = __shfl_sync(kFull, x, ln.lead + kk);
+      if (!isnan(best) && (isnan(y) || y > best)) {
+        best = y;
+        idx = j * ln.L + kk;
+      }
+    }
+  }
+  return idx;
+}
+
+"""),
+)
+PARENT_LEAD_KERNELS = ("skim_fused", "predicate_eval")
+
+
+def start_lead_build():
+    """Start ``nvcc`` on ``skim_fused.cu`` and ``predicate_eval.cu`` copied
+    with every source of ``csrc/`` into ``build/``, :data:`PARENT_LEAD`'s
+    blocks swapped in; returns [(process or None, kernel, library path)]."""
+    import hashlib
+
+    from repro_torch.kernels import _build
+
+    texts = {f.name: f.read_text() for f in sorted(_build._CSRC.iterdir())
+             if f.suffix in (".cu", ".cuh")}
+    for fname, first, after, old in PARENT_LEAD:
+        src = texts[fname]
+        a, b = src.find(first), src.find(after)
+        if a < 0 or b < a:
+            raise SmokeFailure(f"PARENT_LEAD: {first!r} not found in {fname}")
+        texts[fname] = src[:a] + old + src[b:]
+    digest = hashlib.sha256("".join(texts[k] for k in sorted(texts)).encode()
+                            + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
+    root = _build.build_dir() / f"lead-{digest}"
+    root.mkdir(parents=True, exist_ok=True)
+    for name, text in texts.items():
+        (root / name).write_text(text)
+    out = []
+    for name in PARENT_LEAD_KERNELS:
+        lib = root / f"{name}.so"
+        proc = None if lib.exists() else subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(root), "-o", str(lib),
+             str(root / _build.SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        out.append((proc, name, lib))
+    return out
+
+
+def finish_lead_build(procs) -> dict:
+    """Wait for :func:`start_lead_build`; returns {kernel: the loaded library}."""
+    import ctypes
+
+    libs = {}
+    for proc, name, lib in procs:
+        if proc is not None:
+            out, err = proc.communicate()
+            check(proc.returncode == 0,
+                  f"the build of {name} with the argmax lead selection failed:\n{out}{err}")
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def time_lead_ab(skim_cases, stage_cases, batch_cases, lead_libs) -> dict:
+    """Rows 1, 3, 4 and 6 at the path's shapes (:func:`time_kernels`'
+    cases: each skim call, each cascade stage of the first 16-window batch
+    with the carried mask restored before each call and the copy's time
+    taken off, window 0 of each batch as ``predicate_eval``, each batch of
+    ``skim_fused_batch``), device ms of this tree's kernels beside the same
+    sources built with the argmax lead selection and fminf / fmaxf
+    (``lead_libs``, from :func:`finish_lead_build`), in turns: argmax, this
+    tree, this tree, argmax.  Returns {row: {"ms", "argmax_ms", "spread_ms",
+    "argmax_spread_ms", "cases"}}: means over the cases of each side's two
+    readings and of the gap between them."""
+    import contextlib
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import predicate_eval as pe
+    from repro_torch.kernels import skim_fused as sf
+
+    @contextlib.contextmanager
+    def argmax():
+        saved = {n: _build._LIBS.get(n) for n in lead_libs}
+        _build._LIBS.update(lead_libs)
+        try:
+            yield
+        finally:
+            for n, lib in saved.items():
+                if lib is None:
+                    _build._LIBS.pop(n, None)
+                else:
+                    _build._LIBS[n] = lib
+
+    def turns(fn, offset=0.0):
+        with argmax():
+            first = device_ms(fn)
+        new = (device_ms(fn), device_ms(fn))
+        with argmax():
+            last = device_ms(fn)
+        return (sum(new) / 2 - offset, (first + last) / 2 - offset,
+                abs(new[0] - new[1]), abs(first - last))
+
+    pairs = {"skim_fused": [], "predicate_eval_batch": [], "predicate_eval": [],
+             "skim_fused_batch": []}
+    for program, (t, v, w, p), _ in skim_cases:
+        pairs["skim_fused"].append(
+            turns(lambda: sf.skim_fused(t, v, w, p, program)))
+    for program, nb, (t, v, w), packed0, seg, st in stage_cases:
+        pk = packed0.clone()
+
+        def stage(pk=pk, packed0=packed0, st=st, seg=seg, program=program, nb=nb):
+            pk.copy_(packed0)
+            return pe.cascade_stage_windows(st["planes"], st["rows"], pk, seg,
+                                            program, nb)
+
+        copy_ms = device_ms(lambda: pk.copy_(packed0))
+        pairs["predicate_eval_batch"].append(turns(stage, copy_ms))
+        pairs["predicate_eval"].append(
+            turns(lambda: pe.predicate_eval(t[0], v[0], w[0], program)))
+    for program, t, v, w, p in batch_cases:
+        pairs["skim_fused_batch"].append(
+            turns(lambda: sf.skim_fused_batch(t, v, w, p, program)))
+    keys = ("ms", "argmax_ms", "spread_ms", "argmax_spread_ms")
+    return {row: {k: sum(g[i] for g in got) / len(got) for i, k in enumerate(keys)}
+            | {"cases": len(got)} for row, got in pairs.items() if got}
+
+
 def start_parent_build():
     """Start ``nvcc`` on :data:`PARENT_CU` (beside the package's builds,
     which run at the same time); returns (process, library path)."""
@@ -2625,6 +2971,135 @@ def check_skim_fused_batch(rng, device, names=None) -> tuple[float, int]:
         f"version except {edge} events at a mass/ΔR cut's edge; max |err| {max_err}")
     check_skim_payloads(rng, device, batch=True)
     return max_err, edge
+
+
+def nonfinite_programs():
+    """:func:`sweep_programs` and two EXPR groups whose ``min`` / ``max``
+    meet zeros of opposite sign: ``F_z / min(F_y - F_y, F_x) > 0`` and
+    ``F_z / max(F_x, F_y - F_y) > 0`` (``F_y - F_y`` is +0.0 where F_y is
+    finite)."""
+    from repro_torch.core.expr import RPN_BRANCH, RPN_DIV, RPN_MAX, RPN_MIN, RPN_SUB
+    from repro_torch.kernels.program import GROUP_EXPR, OP_IDS, Group, Program
+
+    zero = ((RPN_BRANCH, 1), (RPN_BRANCH, 1), (RPN_SUB, None))
+    x = ((RPN_BRANCH, 2),)
+    groups = tuple(
+        Group(GROUP_EXPR, (0, 1, 2), (), (), cmp_op=OP_IDS[">"], cmp_thr=0.0,
+              rpn=((RPN_BRANCH, 0),) + args + ((op, None), (RPN_DIV, None)))
+        for op, args in ((RPN_MIN, zero + x), (RPN_MAX, x + zero)))
+    signed_zero = Program(groups, ("F_z", "F_y", "F_x"), (None, None), (None, None))
+    return sweep_programs() + [("expr_signed_zero", signed_zero)]
+
+
+def nonfinite_inputs(rng, program, E: int, K: int, D: int, share: float = 0.1):
+    """:func:`sweep_inputs` with a ``share`` of the term planes' entries
+    (valid slots and padding alike) set to NaN, +inf, -inf or -0.0, HT
+    weights taken again from the poisoned terms, and payload columns past
+    the event index poisoned the same way."""
+    import numpy as np
+
+    from repro_torch.kernels.program import GROUP_HT
+
+    terms, valid, weights, payload = sweep_inputs(rng, program, E, K, D)
+    values = np.array(NONFINITE_VALUES, np.float32)
+
+    def poison(x):
+        hit = rng.random(x.shape) < share
+        x[hit] = values[rng.integers(0, len(values), int(hit.sum()))]
+
+    poison(terms)
+    poison(payload[:, 1:])
+    for g, grp in enumerate(program.groups):
+        if grp.kind == GROUP_HT:
+            weights[g] = terms[grp.term_ids[0]]
+    return terms, valid, weights, payload
+
+
+def check_nonfinite_kernels(rng, device) -> float:
+    """The five kernels that evaluate the program or move rows, bit for bit
+    against their plain versions on :func:`nonfinite_inputs` (every sweep
+    program and the signed-zero EXPR program): ``predicate_eval``,
+    ``skim_fused`` and ``stream_compact`` (the poisoned payload by the
+    plain mask) at E in 512/4097 and K in 1/4/16, ``cascade_stage`` and
+    ``skim_fused_batch`` at B = 3, E = 4096, K in 1/8.  Masks may differ
+    only at a mass/ΔR cut's edge, as in the finite checks.  Returns the
+    largest bit-pattern difference (0.0: all bit-identical)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import predicate_eval as pe
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import skim_fused as sf
+    from repro_torch.kernels import stream_compact as sc
+
+    cases = edge = 0
+    max_err = 0.0
+
+    def same(got, want) -> bool:
+        return got.shape == want.shape and bit_err(got.cpu(), want.cpu()) == 0.0
+
+    for name, program in nonfinite_programs():
+        for E in (512, 4097):
+            for K in (1, 4, 16):
+                host = nonfinite_inputs(rng, program, E, K, 3)
+                t, v, w, p = (torch.from_numpy(x).to(device) for x in host)
+                want_mask = ref.predicate_eval_ref(t, v, w, program).to(torch.int32)
+                mask = pe.predicate_eval(t, v, w, program)
+                want, want_n = ref.skim_fused_ref(t, v, w, p, program)
+                got, n = sf.skim_fused(t, v, w, p, program)
+                packed, m = sc.stream_compact(p, want_mask)
+                want_packed, want_m = ref.stream_compact_ref(p, want_mask)
+                torch.cuda.synchronize()
+                cases += 1
+                what = f"{name} E={E} K={K}"
+                check(int(m) == int(want_m) and same(packed, want_packed),
+                      f"stream_compact on non-finite rows {what}: not bit for bit")
+                if not torch.equal(mask, want_mask):
+                    max_err = max(max_err, float((mask - want_mask).abs().max()))
+                    edge += _mask_edges(program, t[None], v[None], mask[None],
+                                        want_mask[None])
+                if int(n) != int(want_n) or not same(got, want):
+                    max_err = max(max_err, bit_err(got.cpu(), want.cpu()))
+                    edge += packed_edges(f"skim_fused on non-finite inputs {what}",
+                                         program, t, v, got, n, want, want_n)
+        for K in (1, 8):
+            B, E = 3, 4096
+            batch = [nonfinite_inputs(rng, program, E, K, 3) for _ in range(B)]
+            t, v, w, p = (torch.from_numpy(np.stack([b[i] for b in batch])).to(device)
+                          for i in range(4))
+            got, counts = sf.skim_fused_batch(t, v, w, p, program)
+            want, want_counts = ref.skim_fused_batch_ref(t, v, w, p, program)
+            alive = torch.from_numpy(rng.random((B, E)) < 0.7).to(device)
+            packed = ref.pack_bits(alive)
+            seg = (torch.arange(E, device=device, dtype=torch.int32) // 1024).expand(B, E)
+            seg = seg.contiguous()
+            w_packed, *w_out = ref.cascade_stage_ref(t, v, w, packed.clone(), seg,
+                                                     program, 4)
+            s_packed, s_out = pe.cascade_stage(t, v, w, packed, seg, program, 4)
+            torch.cuda.synchronize()
+            cases += 1
+            what = f"{name} B={B} E={E} K={K}"
+            for b in range(B):
+                if int(counts[b]) != int(want_counts[b]) or not same(got[b], want[b]):
+                    max_err = max(max_err, bit_err(got[b].cpu(), want[b].cpu()))
+                    edge += packed_edges(f"skim_fused_batch on non-finite inputs "
+                                         f"{what} window {b}", program, t[b], v[b],
+                                         got[b], counts[b], want[b], want_counts[b])
+            want_out = torch.cat([w_out[0], w_out[1][:, None]], dim=1)
+            if not (torch.equal(s_packed, w_packed) and torch.equal(s_out, want_out)):
+                m_got, m_want = ref.unpack_bits(s_packed, E), ref.unpack_bits(w_packed, E)
+                max_err = max(max_err, float((m_got.int() - m_want.int()).abs().max()))
+                n = _mask_edges(program, t, v, m_got, m_want)
+                check(n > 0, f"cascade_stage on non-finite inputs {what}: basket "
+                      "bits or counts differ where the masks agree")
+                edge += n
+    log(f"  non-finite inputs: {cases} cases (every sweep program and the "
+        "signed-zero EXPR program; a tenth of every term plane NaN, +inf, -inf "
+        "or -0.0, HT weights from the poisoned terms); predicate_eval, "
+        "skim_fused, skim_fused_batch and cascade_stage equal to their plain "
+        f"versions except {edge} events at a mass/ΔR cut's edge; stream_compact "
+        "of the poisoned rows bit for bit")
+    return max_err
 
 
 FLASH_SHAPES = ((1, 1, 128, 32), (2, 3, 256, 64), (1, 2, 512, 128))  # tests/test_kernels.py
@@ -4467,6 +4942,182 @@ def run_examples() -> tuple[dict, dict]:
     return out, placement_table(out["skim_service"])
 
 
+# ---------------------------------------------------------------------------
+# phase 3g: non-finite values (NaN, ±inf, -0.0) on the card
+# ---------------------------------------------------------------------------
+
+
+def check_nonfinite_window(backend: str, device) -> dict:
+    """:func:`nonfinite_window`'s eight events through ``fused_window_skim``
+    for each of :data:`NONFINITE_WINDOW_QUERIES`, at the K the engine picks
+    and at K = 8: the mask of ``backend`` equal to the host evaluator's.
+    Returns the host masks by query."""
+    import numpy as np
+
+    from repro_torch.core.neardata import fused_window_skim
+    from repro_torch.core.planner import plan_skim
+    from repro_torch.core.query import parse_query
+    from repro_torch.data.store import EventStore
+
+    columns, jagged = nonfinite_window()
+    n = len(columns["MET_pt"])
+    store = EventStore.from_arrays(columns, jagged=jagged, basket_events=n,
+                                   device="cpu")
+    masks = {}
+    for name, q in NONFINITE_WINDOW_QUERIES.items():
+        plan = plan_skim(parse_query(q), store)
+        program = plan.compiled_program()
+        data = {b: columns[b] for b in plan.filter_branches}
+        want, _ = fused_window_skim(data, program, store, backend="host")
+        for K in (None, 8):
+            got, _ = fused_window_skim(data, program, store, backend=backend, K=K,
+                                       device=device)
+            check(np.array_equal(got, want),
+                  f"non-finite window, {name}, K={K}: {backend} keeps "
+                  f"{np.nonzero(got)[0].tolist()}, the host evaluator "
+                  f"{np.nonzero(want)[0].tolist()}")
+        masks[name] = np.nonzero(want)[0].tolist()
+    return masks
+
+
+def float32_edges(label, store, query) -> int:
+    """Events of ``store`` that the padded float32 evaluation (the kernels'
+    plain version) and the host evaluator (float64, the staged semantics)
+    decide differently for ``query``, over the whole store as one window.
+    Fails unless each lies within 2 ulp of a mass/ΔR cut; logs each with
+    its group's value in both.  Returns the plain version's survivors
+    less the host evaluator's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.expr import leading_delta_r, leading_pair_mass
+    from repro_torch.core.neardata import (build_padded_inputs, fused_window_skim,
+                                           window_pad_K)
+    from repro_torch.core.planner import plan_skim
+    from repro_torch.core.query import parse_query
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.program import GROUP_DR, GROUP_MASS
+
+    plan = plan_skim(parse_query(query), store)
+    program = plan.compiled_program()
+    data = {b: store.read_jagged(b)[0] if store.branches[b].jagged
+            else store.read_flat(b) for b in plan.filter_branches}
+    host, _ = fused_window_skim(data, program, store, backend="host")
+    plain, _ = fused_window_skim(data, program, store, backend="torch", device="cpu")
+    diff = np.nonzero(host != plain)[0]
+    padded = build_padded_inputs(data, program, store, K=window_pad_K(data, program, store),
+                                 to_device=False)
+    terms, valid = (torch.as_tensor(np.asarray(x)) for x in (padded.terms, padded.valid))
+    check(len(diff) > 0 and edge_events(program, terms, valid, diff),
+          f"{label}: the plain version and the host evaluator differ at events "
+          f"{diff[:8].tolist()}, away from any mass/ΔR cut")
+    for g, grp in enumerate(program.groups):
+        if grp.kind not in (GROUP_MASS, GROUP_DR):
+            continue
+        pair = leading_pair_mass if grp.kind == GROUP_MASS else leading_delta_r
+        v32 = ref.pair_group_value(program, g, terms, valid)[0].numpy()
+        v64 = pair(data, program.group_collections[g], program.group_collections2[g])[0]
+        for e in diff[:8].tolist():
+            log(f"  {label}: event {e} kept by the float32 evaluation "
+                f"{bool(plain[e])}, by the host's {bool(host[e])}; group {g}'s value "
+                f"{float(v32[e])!r} in float32, {float(v64[e])!r} in float64")
+    return int(plain.sum()) - int(host.sum())
+
+
+def run_nonfinite_path(device, n_events: int = NONFINITE_EVENTS, batch: int = 16) -> dict:
+    """Phase 3g: a store of ``n_events`` holding NaN, ±inf and -0.0
+    (:func:`make_nonfinite_stores`) through ``run_skim`` on the card, per
+    window and with ``device_batch=batch``, decode on the card, for every
+    query of :func:`nonfinite_queries`.  Each card run equals the host run
+    of the same path through the kernels' plain versions
+    (``fused_backend="torch"`` per window; the batched path's plain version)
+    in survivors, output bytes, FetchStats, cascade ledgers and plan, and
+    keeps fetched + cascade-skipped == the preload run's fetched bytes.
+    Those host runs equal the port's staged run in survivors and output
+    bytes, except where the float32 evaluation decides an event at a
+    mass/ΔR cut's edge otherwise than the staged run's float64
+    (:func:`float32_edges`, logged).  Launches are counted from 0 around
+    each card run."""
+    import torch
+
+    from repro_torch.core import run_skim
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    store, host = make_nonfinite_stores(n_events)
+    store.decode_backend = "device"
+    log(f"  store: {n_events:,} events, {len(store.branch_names())} branches, "
+        f"{store.compressed_bytes() / 1e6:.1f} MB compressed, built twice in "
+        f"{time.perf_counter() - t0:.1f} s")
+    masks = check_nonfinite_window("cuda", device)
+    log("  the eight-event window: masks of the CUDA kernel equal the host "
+        "evaluator's for every query, at the engine's K and at K = 8: "
+        + json.dumps(masks))
+    stats0 = store.decode_backend_stats()
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    survivors, edges = {}, {}
+    card_s = 0.0
+    for name, q in nonfinite_queries(n_events).items():
+        staged = run_skim(host, q, fused=False, pipeline=False, device="cpu")
+        preload = run_skim(host, q, device="cpu", cascade=False)
+        runs = {"staged": staged.n_passed}
+        for label, kw in (("per window", {"fused_backend": "torch"}),
+                          (f"device_batch={batch}", {"device_batch": batch})):
+            plain = run_skim(host, q, device="cpu", **kw)
+            card_kw = {k: v for k, v in kw.items() if k != "fused_backend"}
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = run_skim(store, q, **card_kw)
+            torch.cuda.synchronize()
+            card_s += time.perf_counter() - t1
+            for k, v in ops.launch_counts().items():
+                launches[k] += v
+            what = f"non-finite store, {name}, {label}"
+            check(res.n_passed == plain.n_passed,
+                  f"{what}: {res.n_passed} survivors vs {plain.n_passed} (plain version)")
+            check(res.output.manifest_hash() == plain.output.manifest_hash()
+                  and res.output._blobs == plain.output._blobs,
+                  f"{what}: output columns differ from the plain version's host run")
+            check(fetch_row(res.stats) == fetch_row(plain.stats),
+                  f"{what}: FetchStats differ from the plain version's host run")
+            for key in ("cascade_order", "cascade_stages"):
+                check(res.extras.get(key) == plain.extras.get(key),
+                      f"{what}: {key} differs from the plain version's host run")
+            check(res.plan.describe() == plain.plan.describe(),
+                  f"{what}: the plan differs from the host run's")
+            check(res.stats.bytes_fetched + res.stats.cascade_bytes_skipped
+                  == preload.stats.bytes_fetched,
+                  f"{what}: fetched + cascade-skipped != the preload run's fetched")
+            if (plain.n_passed != staged.n_passed
+                    or plain.output._blobs != staged.output._blobs):
+                if name not in edges:
+                    edges[name] = float32_edges(name, host, q)
+                check(plain.n_passed - staged.n_passed == edges[name],
+                      f"{what}: {plain.n_passed} survivors vs {staged.n_passed} "
+                      f"(staged), not the {edges[name]:+d} of float32 cut edges")
+            runs[label] = res.n_passed
+        survivors[name] = runs
+    dec = store.decode_backend_stats()
+    check(dec["device_baskets"] > stats0["device_baskets"] and dec["fallbacks"] == 0,
+          f"non-finite store: decode on the card {dec}")
+    for kernel in ("skim_fused", "cascade_stage", "basket_decode"):
+        check(launches[kernel] > 0, f"non-finite store: {kernel} never launched")
+    exact = [n for n in survivors if n not in edges]
+    log(f"  {len(survivors)} queries: every card run equals the host run of its path "
+        "through the plain versions (survivors, output bytes, FetchStats, cascade "
+        f"ledgers, plan); {len(exact)} of them equal the staged reference in "
+        "survivors and every output byte; at a float32 mass/ΔR cut's edge "
+        f"(survivors against staged): {json.dumps(edges)}; card runs {card_s:.3f} s "
+        f"in all; launches {json.dumps(launches)}; decode tier "
+        f"{dec['device_baskets'] - stats0['device_baskets']} device baskets, "
+        f"{dec['fallbacks']} fallbacks")
+    log("  survivors (staged, card per window, card batched): "
+        + json.dumps(survivors))
+    return {"launches": launches, "survivors": survivors, "edges": edges,
+            "card_s": card_s}
+
+
 def device_busy(label, query, store, **kw) -> None:
     """One more run of the main path under ``torch.profiler``: the device
     time of every kernel over the run's wall time, and the kernels that
@@ -4535,10 +5186,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     parent_build = start_parent_build()
+    lead_build = start_lead_build()
     ptxas = start_ptxas_report()
     build_s = _build.build_all()
     ops.load_kernels()
     parent = finish_parent_build(*parent_build)
+    lead_libs = finish_lead_build(lead_build)
     log(f"  kernels built in {build_s:.1f} s into {_build.build_dir()}; with the "
         f"earlier designs (the timing baselines) {time.perf_counter() - t0:.1f} s")
     finish_ptxas_report(ptxas)
@@ -4556,6 +5209,7 @@ def main() -> int:
     batch_err, _ = check_skim_fused_batch(rng, device)
     flash_err = check_flash_attention(rng, device)
     check_numpy_entries(rng, device)
+    nonfinite_err = check_nonfinite_kernels(np.random.default_rng(1), device)
 
     log(f"== building the {N_EVENTS:,}-event stores ==")
     from repro_torch.data.synth import make_nanoaod_like
@@ -4581,8 +5235,9 @@ def main() -> int:
         "first 16 windows) ==")
     stage_cases = {label: path_stage_cases(st, [q], device)
                    for label, q, st, _ in cells}
+    skim_cases = path_skim_cases(store, [q for _, q, *_ in cells[:2]], device)
     timing = time_kernels(
-        path_skim_cases(store, [q for _, q, *_ in cells[:2]], device),
+        skim_cases,
         path_decode_cases(store, [(label, q) for label, q, *_ in cells[:2]], device),
         [c for cases in stage_cases.values() for c in cases],
         pred_cases=[bench_predicate(rng, E, device) for E in PREDICATE_BENCH_E],
@@ -4633,6 +5288,12 @@ def main() -> int:
         attn_cases=attention["cases"],
         parent=parent,
     ))
+    log("== 3c. rows 1, 3, 4 and 6 beside the same sources with the argmax lead "
+        "selection and fminf / fmaxf (device ms, in turns: argmax, this tree, "
+        "this tree, argmax) ==")
+    lead_ab = time_lead_ab(skim_cases, [c for cases in stage_cases.values() for c in cases],
+                           [r["case"] for r in fused_batch.values()], lead_libs)
+    log(f"  lead selection A/B ({card}): " + json.dumps(lead_ab))
 
     log("== 3d. the serving plane: shared scan, job service, cluster, on the "
         f"{N_EVENTS:,}-event NanoAOD-like store ==")
@@ -4662,11 +5323,21 @@ def main() -> int:
             totals[k] += v
     log(f"  phase 3f took {examples_s:.1f} s ({card})")
 
+    log(f"== 3g. non-finite values: a {NONFINITE_EVENTS:,}-event NanoAOD-like store "
+        "holding NaN, +inf, -inf and -0.0, every skimlint fixture query, "
+        "quickstart and Z->ee, per window and with device_batch=16 ==")
+    t0 = time.perf_counter()
+    nonfinite = run_nonfinite_path(device)
+    nonfinite_s = time.perf_counter() - t0
+    for k, v in nonfinite["launches"].items():
+        totals[k] += v
+    log(f"  phase 3g took {nonfinite_s:.1f} s ({card})")
+
     kernels = [
         {"name": "skim_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/skim_fused.cu",
          "replaces": "src/repro/kernels/skim_fused.py:151",
-         "launches": totals["skim_fused"], "max_abs_err": skim_err,
+         "launches": totals["skim_fused"], "max_abs_err": max(skim_err, nonfinite_err),
          **bounds(timing["skim_fused"])},
         {"name": "basket_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/basket_decode.cu",
@@ -4677,7 +5348,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/predicate_eval.cu",
          "replaces": "src/repro/kernels/predicate_eval.py:270",
          "launches": totals["cascade_stage"] + totals["predicate_eval_batch"],
-         "max_abs_err": max(stage_err, pred_err),
+         "max_abs_err": max(stage_err, pred_err, nonfinite_err),
          **bounds(timing["predicate_eval_batch"])},
         # the four below have no caller in run_skim: their launches are
         # those of their own paths, the ops entry points of phase 3c and,
@@ -4687,20 +5358,21 @@ def main() -> int:
          "replaces": "src/repro/kernels/predicate_eval.py:304",
          "launches": sum(r["launches"] for r in predicate.values())
          + mesh["launches"]["predicate_eval"],
-         "max_abs_err": max([pred_err, mesh["max_abs_err"]]
+         "max_abs_err": max([pred_err, nonfinite_err, mesh["max_abs_err"]]
                             + [r["max_abs_err"] for r in predicate.values()]),
          **bounds(timing["predicate_eval"])},
         {"name": "skim_fused_batch", "route": "cuda",
          "source": "src/repro_torch/csrc/skim_fused.cu",
          "replaces": "src/repro/kernels/skim_fused.py:119",
          "launches": sum(r["launches"] for r in fused_batch.values()),
-         "max_abs_err": max([batch_err] + [r["max_abs_err"] for r in fused_batch.values()]),
+         "max_abs_err": max([batch_err, nonfinite_err]
+                            + [r["max_abs_err"] for r in fused_batch.values()]),
          **bounds(timing["skim_fused_batch"])},
         {"name": "stream_compact", "route": "cuda",
          "source": "src/repro_torch/csrc/stream_compact.cu",
          "replaces": "src/repro/kernels/stream_compact.py:58",
          "launches": compact["launches"] + mesh["launches"]["stream_compact"],
-         "max_abs_err": compact_err,
+         "max_abs_err": max(compact_err, nonfinite_err),
          **bounds(timing["stream_compact"])},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -4738,6 +5410,11 @@ def main() -> int:
                    "build_cluster_basket_decode": p["card"]["builds"]}
             for name, p in examples.items()}}, sort_keys=True))
     log("placements (" + card + "; links modeled): " + json.dumps(placements, sort_keys=True))
+    log("lead selection A/B (" + card + "; device ms): " + json.dumps(lead_ab))
+    log("non-finite store (" + card + "): " + json.dumps(
+        {"seconds": nonfinite_s, "card_s": nonfinite["card_s"],
+         "launches": nonfinite["launches"], "survivors": nonfinite["survivors"],
+         "float32_edges": nonfinite["edges"]}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -25,8 +25,9 @@ Conventions:
     exactly like HT); ``X`` must follow the NanoAOD ``Coll_var`` naming so
     its counts branch is ``nColl`` (:func:`counts_name`) — the same
     convention the ``object``/``ht`` nodes already rely on;
-  * "leading" objects are highest-``pt`` first, ties broken by storage
-    order (what ``argmax`` picks on device).
+  * "leading" objects are highest-``pt`` first, NaN after every number,
+    ties broken by storage order (the padded evaluation's ``lead_slot``
+    picks the same).
 """
 
 from __future__ import annotations
@@ -377,7 +378,8 @@ def eval_expr_np(rpn, data: dict) -> np.ndarray:
 
 def _leading_indices(pt: np.ndarray, counts: np.ndarray, k: int):
     """Global value-array indices of the ``k`` highest-``pt`` objects per
-    event (ties -> storage order, matching device ``argmax``).  Returns a
+    event (NaN last, ties -> storage order, as the padded evaluation's
+    ``lead_slot`` picks them).  Returns a
     list of ``k`` index arrays plus the per-event "has >= j objects"
     masks; indices are clamped safe where the mask is False.
     """

@@ -94,12 +94,14 @@ __device__ __forceinline__ float floor_mod(float x, float y) {
   return r;
 }
 
-// NaN-propagating min/max, as jnp.minimum / torch.minimum
+// min/max as the host evaluator's np.minimum / np.maximum: NaN if either
+// is NaN, else a if it is strictly smaller (larger), else b, so of two
+// equal zeros the second wins (fminf leaves the sign of zero open)
 __device__ __forceinline__ float nan_min(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : fminf(a, b);
+  return (isnan(a) || isnan(b)) ? a + b : (a < b ? a : b);
 }
 __device__ __forceinline__ float nan_max(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
+  return (isnan(a) || isnan(b)) ? a + b : (a > b ? a : b);
 }
 
 __device__ __forceinline__ const float* row(const float* base, int plane,
@@ -107,21 +109,28 @@ __device__ __forceinline__ const float* row(const float* base, int plane,
   return base + ((long long)plane * in.E + e) * in.K;
 }
 
-// first maximal slot of pt among the valid ones (argmax semantics: NaN is
-// maximal, ties and an all-invalid row go to the lowest slot)
+// whether candidate x displaces the leader so far (none yet: idx < 0) in
+// the host evaluator's order (core/expr.py::_leading_indices): pt
+// descending, NaN after every number (-inf included), ties to the lower
+// slot, which is scanned first
+__device__ __forceinline__ bool leads(float x, float best, int idx) {
+  return idx < 0 || (!isnan(x) && (isnan(best) || x > best));
+}
+
+// the leading slot of pt among the valid ones but `exclude`, in leads()'s
+// order; a row with no such slot takes slot 0
 __device__ int lead_slot(const float* pt, const float* vg, int K, bool second,
                          int exclude) {
-  float best = -INFINITY;
-  int idx = 0;
+  float best = 0.0f;
+  int idx = -1;
   for (int k = 0; k < K; ++k) {
-    bool v = second ? (vg[k] >= 2.0f) : (floor_mod(vg[k], 2.0f) >= 1.0f);
-    float x = (v && k != exclude) ? pt[k] : -INFINITY;
-    if (!isnan(best) && (isnan(x) || x > best)) {
-      best = x;
+    const bool v = second ? (vg[k] >= 2.0f) : (floor_mod(vg[k], 2.0f) >= 1.0f);
+    if (v && k != exclude && leads(pt[k], best, idx)) {
+      best = pt[k];
       idx = k;
     }
   }
-  return idx;
+  return idx < 0 ? 0 : idx;
 }
 
 __device__ int count_valid(const float* vg, int K, bool second) {

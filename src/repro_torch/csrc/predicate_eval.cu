@@ -176,31 +176,34 @@ __device__ __forceinline__ float add_chunk(float acc, float x, const Lanes& ln, 
   return acc;
 }
 
-// first maximal slot of pt among the valid ones (lead_slot's argmax: NaN
-// is maximal, ties and an all-invalid row go to the lowest slot), scanned
-// in slot order by every lane of the event
+// lead_slot over the event's lanes: the leading valid slot but `exclude`
+// in leads()'s order (slot 0 if there is none), scanned in slot order by
+// every lane of the event; a ballot carries which slots are candidates
 __device__ int lead_slot_lanes(const float* pt, const float* vg, bool second,
                                int exclude, const Lanes& ln, int K) {
-  float best = -INFINITY;
-  int idx = 0;
+  float best = 0.0f;
+  int idx = -1;
   for (int j = 0; j < ln.J; ++j) {
     const int k = j * ln.L + ln.sub;
-    float x = -INFINITY;
+    bool c = false;
+    float x = 0.0f;
     if (k < K) {
       const bool v = second ? (vg[k] >= 2.0f) : (floor_mod(vg[k], 2.0f) >= 1.0f);
-      if (v && k != exclude) x = pt[k];
+      c = v && k != exclude;
+      if (c) x = pt[k];
     }
+    const unsigned cand = __ballot_sync(kFull, c);
     const int w = ln.width(j, K);
 #pragma unroll 8
     for (int kk = 0; kk < w; ++kk) {
       const float y = __shfl_sync(kFull, x, ln.lead + kk);
-      if (!isnan(best) && (isnan(y) || y > best)) {
+      if (((cand >> (ln.lead + kk)) & 1u) && leads(y, best, idx)) {
         best = y;
         idx = j * ln.L + kk;
       }
     }
   }
-  return idx;
+  return idx < 0 ? 0 : idx;
 }
 
 __device__ int count_valid_lanes(const float* vg, bool second, const Lanes& ln, int K) {

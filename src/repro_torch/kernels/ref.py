@@ -102,24 +102,29 @@ def _unpack_validity(vg: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.remainder(vg, 2.0) >= 1.0, vg >= 2.0
 
 
-def _lead_slot(masked_pt: torch.Tensor) -> torch.Tensor:
-    """(E, K) -> (E, 1) index of each event's first maximal slot."""
-    return torch.argmax(masked_pt, dim=-1, keepdim=True)
+def _lead_slot(pt: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(E, K) -> (E, 1) each event's leading valid slot, in the host
+    evaluator's order (``core.expr._leading_indices``): pt descending,
+    NaN after every number (-inf included), ties to the lower slot.  An
+    event with no valid slot takes slot 0."""
+    num = valid & ~torch.isnan(pt)
+    top = torch.where(num, pt, float("-inf")).amax(dim=-1, keepdim=True)
+    # the first valid number equal to the largest, else the first valid slot
+    pick = torch.where(num.any(dim=-1, keepdim=True), num & (pt == top), valid)
+    return torch.argmax(pick.to(torch.int8), dim=-1, keepdim=True)
 
 
 def _pair_slots(pt_a, va, pt_b, vb, same: bool):
     """Leading-pair selection: (i1, i2, ok).  Same-collection pairs take
-    the two highest-pt objects of A; otherwise each collection's leading
+    the two leading objects of A; otherwise each collection's leading
     object.  ``ok`` marks events with a full pair."""
-    neg = torch.full_like(pt_a, float("-inf"))
-    ma = torch.where(va, pt_a, neg)
-    i1 = _lead_slot(ma)
+    i1 = _lead_slot(pt_a, va)
     if same:
-        iota = torch.arange(ma.shape[1], device=ma.device)[None, :]
-        i2 = _lead_slot(torch.where(iota == i1, neg, ma))
+        iota = torch.arange(va.shape[1], device=va.device)[None, :]
+        i2 = _lead_slot(pt_a, va & (iota != i1))
         ok = va.sum(dim=-1) >= 2
     else:
-        i2 = _lead_slot(torch.where(vb, pt_b, neg))
+        i2 = _lead_slot(pt_b, vb)
         ok = (va.sum(dim=-1) >= 1) & (vb.sum(dim=-1) >= 1)
     return i1, i2, ok
 
@@ -167,6 +172,15 @@ def pair_group_value(program, g: int, terms, valid):
     return torch.sqrt(deta * deta + dphi * dphi), ok
 
 
+def _np_minmax(a, b, take_a):
+    """``np.minimum`` / ``np.maximum`` as the host evaluator has them: NaN
+    if either is NaN, else ``a`` where ``take_a`` and ``b`` otherwise, so
+    of two equal zeros the second wins.  ``torch.minimum`` returns the
+    first on its scalar path and the second on its vector path."""
+    nan = torch.isnan(a) | torch.isnan(b)
+    return torch.where(nan, a + b, torch.where(take_a, a, b))
+
+
 def _group_expr(grp, terms):
     """Stack-program evaluation over term slots: flat branches read slot 0,
     sum() reductions sum the zero-padded slots in slot order."""
@@ -194,9 +208,9 @@ def _group_expr(grp, terms):
             elif op == RPN_DIV:
                 stack.append(a / b)
             elif op == RPN_MIN:
-                stack.append(torch.minimum(a, b))
+                stack.append(_np_minmax(a, b, a < b))
             elif op == RPN_MAX:
-                stack.append(torch.maximum(a, b))
+                stack.append(_np_minmax(a, b, a > b))
             else:
                 raise ValueError(f"unknown RPN op {op}")
     return apply_op(stack[-1].expand(terms.shape[1]), grp.cmp_op, grp.cmp_thr)

@@ -641,3 +641,36 @@ def test_cuda_example_matches_the_host(cuda_device, name):
     assert pair["launches"]["basket_decode"] > 0
     assert pair["launches"]["skim_fused"] > 0
     assert not any(pair["host"]["launches"].values())
+
+
+@pytest.mark.cuda
+def test_cuda_nonfinite_inputs_match_plain(cuda_device):
+    """predicate_eval, cascade_stage, skim_fused, skim_fused_batch and
+    stream_compact bit for bit against their plain versions where a tenth
+    of every term plane is NaN, +inf, -inf or -0.0 (the sweep programs and
+    an EXPR group whose min / max meet zeros of opposite sign)."""
+    assert chip_smoke.check_nonfinite_kernels(np.random.default_rng(1), cuda_device) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_nonfinite_window_matches_the_host(cuda_device):
+    """The eight cases of ``chip_smoke.nonfinite_window`` through the CUDA
+    skim: a NaN pt among valid objects, every pt NaN, no object, a valid
+    -inf pt, zeros of opposite sign, equal pts, HT with NaN and ±inf on
+    slots failing their cut, min / max of two zeros; each query's mask
+    equal to the host evaluator's."""
+    masks = chip_smoke.check_nonfinite_window("cuda", cuda_device)
+    assert masks["delta-r"] and masks["mass-jets"] and masks["ht"]
+
+
+@pytest.mark.cuda
+def test_cuda_nonfinite_store_matches_the_host(cuda_device):
+    """Phase 3g at 20,000 events: every query of
+    ``chip_smoke.nonfinite_queries`` per window and batched on the card,
+    equal to the host runs through the plain versions and to the staged
+    run (float32 cut edges excepted and checked)."""
+    out = chip_smoke.run_nonfinite_path(cuda_device, n_events=20_000)
+    assert out["launches"]["skim_fused"] > 0 and out["launches"]["cascade_stage"] > 0
+    for name, runs in out["survivors"].items():
+        if name not in out["edges"]:
+            assert len(set(runs.values())) == 1, (name, runs)
