@@ -11,7 +11,10 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    ``predicate_eval`` and ``stream_compact`` the script keeps as timing
    baselines (:data:`PARENT_CU`), and the attention
    library's SASS (``cuobjdump``): its 16-bit routes must hold ``HGMMA``
-   (wgmma) and its float32 route tf32 ``HMMA`` (mma.sync).
+   (wgmma) and its float32 route tf32 ``HMMA`` (mma.sync); ptxas's
+   registers and spills of the attention, skim and predicate kernels, and
+   of the skim and predicate kernels' float32 build
+   (:data:`FLOAT32_REAL`), built beside them as a timing baseline.
 2. Kernels against their plain PyTorch versions, on the card:
    ``basket_decode`` bit for bit (same-shaped batches, mixed-kind rounds
    in one launch each, rounds of real blobs through
@@ -40,7 +43,10 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    then ``predicate_eval``, ``cascade_stage``, ``skim_fused``,
    ``skim_fused_batch`` and ``stream_compact`` bit for bit on inputs with
    a tenth of every term plane NaN, +inf, -inf or -0.0
-   (:func:`check_nonfinite_kernels`).
+   (:func:`check_nonfinite_kernels`); then the four that evaluate the
+   program on :func:`edge_window`'s events at float32 cut edges, against
+   their plain versions and the host evaluator (:func:`check_edge_kernels`:
+   equal but for MASS events within :data:`MASS_RESIDUE_N`).
    Then each skim kernel's median time beside its plain version's and
    its bound, at the shapes the main path gives it (window 0's decode
    rounds and skim calls; the batch of the first 16 windows), with the
@@ -116,18 +122,17 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    and 100 Gb/s (modeled links), card and host.
    Phase 3c also times ``skim_fused``, ``cascade_stage``,
    ``predicate_eval`` and ``skim_fused_batch`` beside the same sources
-   built with the argmax lead selection and fminf / fmaxf they replaced
-   (:data:`PARENT_LEAD`),
-   in turns (:func:`time_lead_ab`).
+   built with the group values in float32 (:data:`FLOAT32_REAL`), in
+   turns (:func:`time_float32_ab`).
    Then phase 3g, non-finite values: the eight cases of
    :func:`nonfinite_window` through the CUDA skim against the host
    evaluator, then a 200,000-event NanoAOD-like store with 2% of every
    float branch NaN, +inf, -inf or -0.0 through ``run_skim`` on the card,
    per window and with ``device_batch=16``, decode on the card, for the
    skimlint corpus, three pair and expression queries, quickstart and
-   Z->ee: each run equal to the host run of its path through the plain
-   versions, and to the staged reference except events the float32
-   evaluation decides otherwise at a mass/ΔR cut's edge (checked, logged).
+   Z->ee: each host run through the plain versions equal to the staged
+   reference, each card run to the host run of its path, except MASS
+   events within the residue (:data:`MASS_RESIDUE_N`; checked, logged).
 4. One JSON line listing each kernel (its launches those of every main
    path, the serving plane's, the mesh skim's, the examples' and the
    non-finite store's included),
@@ -430,6 +435,209 @@ NONFINITE_WINDOW_QUERIES = {
 }
 
 
+# ---------------------------------------------------------------------------
+# float32 cut edges: events a float32 evaluation of the group values decides
+# otherwise than the host evaluator's float64 (ROADMAP C8)
+# ---------------------------------------------------------------------------
+
+EDGE_EVENTS = 64  # the edge window's events, edge and ordinary ones mixed
+EDGE_BASKET = 16  # its basket size: four baskets
+
+# the queries of the edge window, each with a cut float32 evaluation can
+# decide otherwise: MASS at both ends, ΔR under < and >, HT against a cut
+# float32 cannot hold, EXPR with sum() and with a constant float32 cannot
+# hold; "object-cut" keeps an object float32 keeps and float64 would not
+EDGE_QUERIES = {
+    "mass-jets": _event_query({"type": "mass", "collections": ["Jet", "Jet"],
+                               "window": [60.0, 120.0]}),
+    "delta-r-lt": _event_query({"type": "deltaR", "collections": ["Electron", "Jet"],
+                                "op": "<", "value": 0.4}),
+    "delta-r-gt": _event_query({"type": "deltaR", "collections": ["Electron", "Jet"],
+                                "op": ">", "value": 0.4}),
+    "ht": _event_query({"type": "ht", "collection": "Jet", "var": "pt",
+                        "object_cuts": [{"var": "pt", "op": ">", "value": 20.0}],
+                        "op": ">", "value": 200.3}),
+    "expr-sum": _event_query({"type": "expr", "expr": "MET_pt + 0.5*sum(Jet_pt)",
+                              "op": ">", "value": 150.3}),
+    "expr-const": _event_query({"type": "expr", "expr": "0.1*MET_pt", "op": ">",
+                                "value": 3.3}),
+    "object-cut": {"branches": ["MET_pt"], "selection": {"object": [
+        {"collection": "Jet", "min_count": 1,
+         "cuts": [{"var": "pt", "op": ">=", "value": 20.3}]}]}},
+}
+
+
+def _f32_mass(j1, j2):
+    """The invariant mass of two (pt, eta, phi, mass) float32 tensors of
+    objects, in float32 as the padded route's plain version computed it
+    before float64 (PyTorch's CPU float32 functions)."""
+    import torch
+
+    def p4(pt, eta, phi, mass):
+        ch = torch.cosh(eta)
+        return (pt * torch.cos(phi), pt * torch.sin(phi), pt * torch.sinh(eta),
+                torch.sqrt(mass * mass + pt * pt * ch * ch))
+
+    (x1, y1, z1, e1), (x2, y2, z2, e2) = p4(*j1), p4(*j2)
+    m2 = ((e1 + e2) * (e1 + e2) - (x1 + x2) * (x1 + x2) - (y1 + y2) * (y1 + y2)
+          - (z1 + z2) * (z1 + z2))
+    return torch.sqrt(torch.maximum(m2, torch.zeros_like(m2)))
+
+
+def _f32_delta_r(eta1, phi1, eta2, phi2):
+    """ΔR in float32 as the earlier plain version computed it."""
+    import numpy as np
+    import torch
+
+    pi = torch.tensor(np.float32(np.pi))
+    dphi = torch.remainder(phi1 - phi2 + pi, 2.0 * pi) - pi
+    deta = eta1 - eta2
+    return torch.sqrt(deta * deta + dphi * dphi)
+
+
+def float32_edge_events(seed: int = 0) -> list:
+    """Events at float32 cut edges, by a seeded search: for each case of
+    :data:`EDGE_QUERIES`, up to two events each way (float64 keeps and
+    float32 drops, and the other way round) whose decision the float32
+    evaluation (:func:`_f32_mass`, :func:`_f32_delta_r`, float32 sums and
+    constants) and the host's float64 formulas (``core.expr``) differ on.
+    MASS's pairs are collinear jets at eta = phi = 0, where every cos, sin,
+    sinh and cosh is exact, so the card's value is the host's too.  Returns
+    [(query, kept by the host, {"met": (pt, phi), "electrons": [...],
+    "jets": [...]})], each object (pt, eta, phi, mass) in float32."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.expr import leading_delta_r, leading_pair_mass
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    n = 100_000
+    found = []
+
+    def take(query, keep64, keep32, build):
+        for want in (True, False):
+            idx = np.nonzero((keep64 == want) & (keep32 != want))[0][:2]
+            found.extend((query, want, build(i)) for i in idx)
+
+    def pairs(data_a, data_b, count_a, count_b):
+        data = {"nA": count_a, "nB": count_b}
+        data |= {f"A_{k}": v for k, v in data_a.items()}
+        data |= {f"B_{k}": v for k, v in data_b.items()}
+        return data
+
+    # MASS: collinear jets, velocities matched so m ~ m1 + m2 at each end
+    for lo_end, target in ((True, 60.0), (False, 120.0)):
+        m1 = rng.uniform(0.3, 0.7, n) * target
+        m2 = target - m1 + rng.uniform(-2e-3, 2e-3, n)
+        pt1 = rng.uniform(150.0, 600.0, n)
+        pt2 = pt1 * m2 / m1 * rng.uniform(0.98, 1.02, n)
+        j1 = [x.astype(f32) for x in (pt1, np.zeros(n), np.zeros(n), m1)]
+        j2 = [x.astype(f32) for x in (pt2, np.zeros(n), np.zeros(n), m2)]
+        m32 = _f32_mass([torch.from_numpy(x) for x in j1],
+                        [torch.from_numpy(x) for x in j2]).numpy()
+        ones = np.ones(n, np.int64)
+        m64, _ = leading_pair_mass(
+            pairs(dict(zip(("pt", "eta", "phi", "mass"), j1)),
+                  dict(zip(("pt", "eta", "phi", "mass"), j2)), ones, ones), "A", "B")
+        if lo_end:
+            keep64, keep32 = m64 >= target, m32 >= f32(target)
+        else:
+            keep64, keep32 = m64 <= target, m32 <= f32(target)
+        take("mass-jets", keep64, keep32, lambda i, j1=j1, j2=j2: {
+            "jets": [tuple(x[i] for x in j1), tuple(x[i] for x in j2)]})
+
+    # ΔR: an electron and a jet 0.4 apart, to within 1e-6
+    eta1 = rng.uniform(-2.0, 2.0, n).astype(f32)
+    phi1 = rng.uniform(-np.pi, np.pi, n).astype(f32)
+    theta = rng.uniform(0.0, 2.0 * np.pi, n)
+    r = 0.4 + rng.uniform(-1e-6, 1e-6, n)
+    eta2 = (eta1 + r * np.cos(theta)).astype(f32)
+    phi2 = np.remainder(phi1 + r * np.sin(theta) + np.pi, 2.0 * np.pi) - np.pi
+    phi2 = phi2.astype(f32)
+    dr32 = _f32_delta_r(*(torch.from_numpy(x) for x in (eta1, phi1, eta2, phi2))).numpy()
+    ones = np.ones(n, np.int64)
+    dr64, _ = leading_delta_r(pairs({"pt": np.full(n, 30.0, f32), "eta": eta1, "phi": phi1},
+                                    {"pt": np.full(n, 40.0, f32), "eta": eta2, "phi": phi2},
+                                    ones, ones), "A", "B")
+
+    def dr_event(i):
+        return {"electrons": [(f32(30.0), eta1[i], phi1[i], f32(0.000511))],
+                "jets": [(f32(40.0), eta2[i], phi2[i], f32(5.0))]}
+
+    take("delta-r-lt", dr64 < 0.4, dr32 < f32(0.4), dr_event)
+    take("delta-r-gt", dr64 > 0.4, dr32 > f32(0.4), dr_event)
+
+    # HT: four jets passing pt > 20 whose pts sum to 200.3, to within 5e-5
+    pts = rng.uniform(21.0, 55.0, (n, 4))
+    pts[:, 3] = 200.3 - pts[:, :3].sum(axis=1) + rng.uniform(-5e-5, 5e-5, n)
+    pts = pts.astype(f32)
+    ht32 = ((pts[:, 0] + pts[:, 1]) + pts[:, 2]) + pts[:, 3]
+    ht64 = ((pts[:, 0].astype(np.float64) + pts[:, 1]) + pts[:, 2]) + pts[:, 3]
+
+    def jets_event(i, met=(f32(40.0), f32(0.5))):
+        return {"met": met, "jets": [(p, f32(0.3 * k - 0.5), f32(k - 1.5), f32(5.0))
+                                     for k, p in enumerate(pts[i])]}
+
+    take("ht", ht64 > 200.3, ht32 > f32(200.3), jets_event)
+
+    # EXPR with sum(): MET_pt + 0.5 * sum(Jet_pt) at 150.3, to within 2e-5
+    pts = rng.uniform(20.0, 80.0, (n, 3)).astype(f32)
+    s32 = (pts[:, 0] + pts[:, 1]) + pts[:, 2]
+    s64 = (pts[:, 0].astype(np.float64) + pts[:, 1]) + pts[:, 2]
+    met = (150.3 - 0.5 * s64 + rng.uniform(-2e-5, 2e-5, n)).astype(f32)
+    take("expr-sum", met.astype(np.float64) + 0.5 * s64 > 150.3,
+         met + f32(0.5) * s32 > f32(150.3),
+         lambda i: jets_event(i, (met[i], f32(0.5))))
+
+    # EXPR with a constant: 0.1 * MET_pt at 3.3
+    met = (33.0 + rng.uniform(-1e-5, 1e-5, n)).astype(f32)
+    take("expr-const", 0.1 * met.astype(np.float64) > 3.3, f32(0.1) * met > f32(3.3),
+         lambda i: {"met": (met[i], f32(-0.5))})
+
+    # a jet of pt float32(20.3), which pt >= 20.3 keeps in float32 and not in
+    # float64
+    found.append(("object-cut", True, {"jets": [(f32(20.3), f32(0.0), f32(1.0), f32(5.0))]}))
+    return found
+
+
+def edge_window(seed: int = 0):
+    """:data:`EDGE_EVENTS` events, :func:`float32_edge_events` among ordinary ones
+    at seeded positions, as (columns, jagged, edges) for
+    ``EventStore.from_arrays`` (Electron and Jet objects, MET_pt and
+    MET_phi); ``edges`` maps each query of :data:`EDGE_QUERIES` to its
+    edge events' [(index, kept by the host evaluator)]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    cases = float32_edge_events(seed)
+    slots = rng.permutation(EDGE_EVENTS)[: len(cases)]
+    events = []
+    for _ in range(EDGE_EVENTS):
+        objs = {c: [(f32(rng.uniform(5, 100)), f32(rng.uniform(-2.5, 2.5)),
+                     f32(rng.uniform(-np.pi, np.pi)), f32(m))
+                    for _ in range(rng.integers(0, n_max + 1))]
+                for c, n_max, m in (("electrons", 2, 0.000511), ("jets", 4, 6.0))}
+        events.append({"met": (f32(rng.uniform(10, 100)), f32(rng.uniform(-3, 3))),
+                       **objs})
+    edges = {q: [] for q in EDGE_QUERIES}
+    for slot, (query, kept, event) in zip(slots.tolist(), cases):
+        events[slot] = {"met": (f32(50.0), f32(0.5)), "electrons": [], "jets": [],
+                        **event}
+        edges[query].append((slot, kept))
+    columns = {"MET_pt": np.array([e["met"][0] for e in events], f32),
+               "MET_phi": np.array([e["met"][1] for e in events], f32)}
+    jagged = {}
+    for coll, key in (("Electron", "electrons"), ("Jet", "jets")):
+        columns[f"n{coll}"] = np.array([len(e[key]) for e in events], np.int32)
+        flat = np.array([x for e in events for o in e[key] for x in o], f32).reshape(-1, 4)
+        for i, var in enumerate(("pt", "eta", "phi", "mass")):
+            columns[f"{coll}_{var}"] = np.ascontiguousarray(flat[:, i])
+            jagged[f"{coll}_{var}"] = f"n{coll}"
+    return columns, jagged, edges
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -557,40 +765,58 @@ def profiled_kernels(fn) -> list[str] | str:
     return "not measured"
 
 
+PTXAS_KERNELS = ("flash_attention", "skim_fused", "predicate_eval")
+
+
 def start_ptxas_report():
-    """Start ``nvcc -Xptxas -v`` on ``csrc/flash_attention.cu`` beside the
-    builds (into a library of its own that nothing loads): ptxas's report
-    of each kernel's registers and spills, and of wgmma it serialises
-    (warning C7515)."""
+    """Start ``nvcc -Xptxas -v`` on the sources of :data:`PTXAS_KERNELS`
+    beside the builds (into libraries of their own that nothing loads):
+    ptxas's report of each kernel's registers and spills, and of wgmma it
+    serialises (warning C7515).  Returns [(kernel, process)]."""
     from repro_torch.kernels import _build
 
     _build.build_dir().mkdir(parents=True, exist_ok=True)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_build._CSRC),
-           "-o", str(_build.build_dir() / "flash_attention-ptxas-report.so"),
-           str(_build._CSRC / _build.SOURCES["flash_attention"])]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return [(name, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_build._CSRC),
+         "-o", str(_build.build_dir() / f"{name}-ptxas-report.so"),
+         str(_build._CSRC / _build.SOURCES[name])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name in PTXAS_KERNELS]
 
 
-def finish_ptxas_report(proc) -> dict:
-    """Wait for :func:`start_ptxas_report`; logs the registers and spills
-    of each attention kernel and fails on a C7515 warning (a wgmma issued
-    where ptxas cannot pipeline it: the products run one at a time).
-    Returns {kernel: report line}."""
-    out, err = proc.communicate()
-    check(proc.returncode == 0, f"nvcc -Xptxas -v failed on flash_attention.cu:\n{out}{err}")
-    lines = (out + err).splitlines()
-    serialised = [ln.strip() for ln in lines if "C7515" in ln]
+def ptxas_entries(text: str) -> dict:
+    """ptxas's ``-v`` report -> {entry function: its registers, shared
+    memory and spill lines, joined}."""
     report, entry = {}, None
-    for ln in lines:
+    for ln in text.splitlines():
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln.strip()
         elif entry and ("registers" in ln or "spill" in ln):
             report[entry] = (report.get(entry, "") + " " + ln.split(":", 1)[-1].strip()).strip()
-    for name, line in sorted(report.items()):
-        log(f"  ptxas {name}: {line}")
-    log(f"  flash_attention.cu: {len(serialised)} C7515 warnings (serialised wgmma)")
-    check(not serialised, "ptxas serialised wgmma in flash_attention.cu: " + "; ".join(serialised))
     return report
+
+
+def finish_ptxas_report(procs) -> dict:
+    """Wait for :func:`start_ptxas_report`; logs the registers and spills
+    of each kernel and fails on a C7515 warning in the attention kernels
+    (a wgmma issued where ptxas cannot pipeline it: the products run one at
+    a time).  Returns {kernel: {entry function: report line}}."""
+    from repro_torch.kernels import _build
+
+    reports = {}
+    for name, proc in procs:
+        out, err = proc.communicate()
+        source = _build.SOURCES[name]
+        check(proc.returncode == 0, f"nvcc -Xptxas -v failed on {source}:\n{out}{err}")
+        reports[name] = ptxas_entries(out + err)
+        for entry, line in sorted(reports[name].items()):
+            log(f"  ptxas {name} {entry}: {line}")
+        if name == "flash_attention":
+            serialised = [ln.strip() for ln in (out + err).splitlines() if "C7515" in ln]
+            log(f"  {source}: {len(serialised)} C7515 warnings (serialised wgmma)")
+            check(not serialised, f"ptxas serialised wgmma in {source}: "
+                  + "; ".join(serialised))
+    return reports
 
 
 def check_tensor_core_sass() -> dict:
@@ -919,7 +1145,11 @@ def sweep_inputs(rng, program, E: int, K: int, D: int):
         return (v * mask).astype(np.float32)
 
     T, G = program.n_terms, program.n_groups
-    terms = np.stack([values(b) for b in program.term_branches])
+    columns = {}  # a branch named twice (a same-collection pair) holds one column
+    for b in program.term_branches:
+        if b not in columns:
+            columns[b] = values(b)
+    terms = np.stack([columns[b] for b in program.term_branches])
     valid = np.zeros((G, E, K), np.float32)
     weights = np.zeros((G, E, K), np.float32)
     for g, grp in enumerate(program.groups):
@@ -938,30 +1168,55 @@ def sweep_inputs(rng, program, E: int, K: int, D: int):
     return terms, valid, weights, payload
 
 
+# The card's MASS against the host's, at most: CUDA's double cos, sin, sinh
+# (2 ulp) and cosh (1 ulp), the host's float64 ones taken at 2 ulp each,
+# carried through core/expr.py's formula (PERF.md, "the MASS residue"):
+# |m²(card) - m²(host)| <= 116 u (E1 + E2)², u = 2^-53, plus 2 u for the
+# square root's rounding at the cut.  Every other group value is the
+# host's bit for bit.
+MASS_RESIDUE_N = 118
+
+
+def mass_scale(program, g, terms, valid):
+    """MASS group ``g`` by the plain version: (float64 mass, ok, (E1 +
+    E2)², the scale its square is the difference of)."""
+    from repro_torch.kernels import ref
+
+    grp = program.groups[g]
+    ids = grp.term_ids
+    va, vb = ref._unpack_validity(valid[g])
+    same = program.group_collections[g] == ref._coll2(program, g)
+    i1, i2, ok = ref._pair_slots(terms[ids[0]], va, terms[ids[4]], vb, same)
+    e1 = ref._p4(*(ref._sel(terms[i], i1) for i in ids[:4]))[3]
+    e2 = ref._p4(*(ref._sel(terms[i], i2) for i in ids[4:]))[3]
+    m, _ = ref.pair_group_value(program, g, terms, valid)
+    return m, ok, (e1 + e2) * (e1 + e2)
+
+
 def edge_events(program, terms, valid, events) -> bool:
-    """True when every event of ``events`` has a mass/ΔR value within 2 ulp
-    of one of its group's cuts (the plain version's value)."""
+    """True when every event of ``events`` has a MASS value whose square
+    lies within :data:`MASS_RESIDUE_N` u (E1 + E2)² of a cut's square (the
+    plain version's value): the only events the card may decide otherwise
+    than the plain version and the host."""
     import numpy as np
 
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.program import GROUP_DR, GROUP_MASS
+    from repro_torch.kernels.program import GROUP_MASS
 
     near = np.zeros(len(events), bool)
     for g, grp in enumerate(program.groups):
-        if grp.kind not in (GROUP_MASS, GROUP_DR):
+        if grp.kind != GROUP_MASS:
             continue
-        v, _ = ref.pair_group_value(program, g, terms, valid)
-        v = v.cpu().numpy()[events]
-        for cut in (grp.cmp_thr, grp.cmp_thr2) if grp.kind == GROUP_MASS else (grp.cmp_thr,):
-            c = np.float32(cut)
-            near |= np.abs(v - c) <= 2 * np.spacing(c)
+        m, _, scale = (x.cpu().numpy()[events] for x in mass_scale(program, g, terms, valid))
+        slack = MASS_RESIDUE_N * 2.0 ** -53 * scale
+        for cut in (grp.cmp_thr, grp.cmp_thr2):
+            near |= np.abs(m * m - cut * cut) <= slack
     return bool(near.all())
 
 
 def packed_edges(what, program, t, v, got, count, want, want_count) -> int:
     """Events kept by one of two packed outputs (payload column 0 the
     event index) and not the other; fails unless there are some and every
-    one lies within 2 ulp of a mass/ΔR cut.  Returns how many."""
+    one lies within the MASS residue.  Returns how many."""
     import numpy as np
 
     E = got.shape[0]
@@ -973,7 +1228,7 @@ def packed_edges(what, program, t, v, got, count, want, want_count) -> int:
     check(len(diff) > 0 and edge_events(program, t, v, diff),
           f"{what}: kernel and plain version disagree ({int(count)} vs "
           f"{int(want_count)} survivors)")
-    log(f"  {what}: {len(diff)} events differ within 2 ulp of a mass/ΔR cut: "
+    log(f"  {what}: {len(diff)} events differ within the MASS residue: "
         f"{diff[:8].tolist()}")
     return len(diff)
 
@@ -1010,7 +1265,7 @@ def check_skim_fused(rng, device) -> tuple[float, int]:
     log(f"  skim_fused: {cases} cases (all 8 ops, COUNT/HT/ANY/MASS/ΔR/EXPR, "
         f"E in 512/4096/4608, K in 1/4/16, D in 1/5, empty and full masks); "
         f"packed and count equal to the plain version except {edge} events "
-        "at a mass/ΔR cut's edge")
+        "within the MASS residue")
     max_err = max(max_err, check_skim_fused_sizes(rng, device))
     check_skim_payloads(rng, device, batch=False)
     return max_err, edge
@@ -1029,8 +1284,8 @@ def check_skim_payloads(rng, device, batch: bool) -> int:
     rows in the payload's type, zero tail included, bit for bit the plain
     compaction's (``ref.stream_compact_ref``) by the same survivors.  The
     survivors are the kernel's on the same inputs with a float32
-    event-index payload, held to the plain version's but for events at a
-    mass/ΔR cut's edge (as :func:`check_skim_fused`).  Returns the number
+    event-index payload, held to the plain version's but for events within
+    the MASS residue (as :func:`check_skim_fused`).  Returns the number
     of calls."""
     import torch
 
@@ -1287,7 +1542,7 @@ def staged_batch(rng, program, B: int, E: int, K: int, basket_events: int, rows,
 
 def _mask_edges(program, t, v, got, want) -> int:
     """Events where two (B, E) masks differ; every one must lie within
-    2 ulp of a mass/ΔR cut (checked), else the run fails."""
+    the MASS residue (checked), else the run fails."""
     import numpy as np
 
     diff = (got != want).cpu().numpy()
@@ -1296,7 +1551,7 @@ def _mask_edges(program, t, v, got, want) -> int:
         events = np.nonzero(diff[b])[0]
         check(edge_events(program, t[b], v[b], events),
               f"{program.term_branches}: window {b} differs at events "
-              f"{events[:8].tolist()}, away from any mass/ΔR cut")
+              f"{events[:8].tolist()}, outside the MASS residue")
         n += len(events)
     return n
 
@@ -1304,10 +1559,10 @@ def _mask_edges(program, t, v, got, want) -> int:
 def check_cascade_stage(rng, device, names=None) -> tuple[float, int]:
     """``cascade_stage`` against its plain version: the new mask (in place),
     the basket bits and the counts, over the sweep programs, B in 1/3/16,
-    E in 512/4096.  Where the masks differ (only at a mass/ΔR cut's edge),
+    E in 512/4096.  Where the masks differ (only within the MASS residue),
     the kernel's basket bits and counts must be those of its own mask.
     Returns (max |kernel - plain| over mask bits, basket bits and counts;
-    events that differ at a mass/ΔR cut's edge)."""
+    events that differ within the MASS residue)."""
     import torch
 
     from repro_torch.kernels import predicate_eval as pe
@@ -1351,12 +1606,12 @@ def check_cascade_stage(rng, device, names=None) -> tuple[float, int]:
                     check(torch.equal(got[:, nb], m_got.sum(dim=1, dtype=torch.int32)),
                           f"cascade_stage {name}: counts do not follow the mask")
                     log(f"  cascade_stage {name} B={B} E={E} K={K}: events "
-                        "differ within 2 ulp of a mass/ΔR cut")
+                        "differ within the MASS residue")
     log(f"  cascade_stage: {cases} cases (all 8 ops, COUNT/HT/ANY/MASS/ΔR/EXPR, "
         "B in 1/3/16, E in 512/4096, K in 1/8, random carried masks with an "
         "all-dead window, unaligned window starts); mask, basket bits and "
-        f"counts equal to the plain version except {edge} events at a "
-        f"mass/ΔR cut's edge; max |err| {max_err}")
+        f"counts equal to the plain version except {edge} events within "
+        f"the MASS residue; max |err| {max_err}")
     return max_err, edge
 
 
@@ -1413,7 +1668,7 @@ def check_cascade_stage_windows(rng, device, names=None) -> tuple[float, int]:
     stay as they are; then a misaligned buffer (4-byte ``cp.async``) and a
     shape too large for shared memory (read from device memory).
     Returns (max |kernel - plain| over words and the (B, nb+1) buffer;
-    events that differ at a mass/ΔR cut's edge)."""
+    events that differ within the MASS residue)."""
     import torch
 
     from repro_torch.kernels import predicate_eval as pe
@@ -1434,7 +1689,7 @@ def check_cascade_stage_windows(rng, device, names=None) -> tuple[float, int]:
         max_err = max(max_err, err)
         cases += 1
         if err:
-            # only mass/ΔR events at a cut's edge may differ; the kernel's
+            # only MASS events within the residue may differ; the kernel's
             # bits and counts then follow its own mask
             from repro_torch.kernels import ref
 
@@ -1498,7 +1753,7 @@ def check_cascade_stage_windows(rng, device, names=None) -> tuple[float, int]:
         "staged, spans from event 37, a dead 512-event run, a live row not "
         "staged; bulk copies, 4-byte cp.async on a misaligned buffer, device "
         f"memory at K = 512); equal to the plain version except {edge} events "
-        f"at a mass/ΔR cut's edge; max |err| {max_err}")
+        f"within the MASS residue; max |err| {max_err}")
     return max_err, edge
 
 
@@ -1593,7 +1848,7 @@ def check_predicate_eval(rng, device, names=None) -> tuple[float, int]:
         "batches of 2/3/16 at E = 1/40/300/301/1000/4097, K = 1/3/4/8/512: bulk "
         "copies, 4-byte cp.async on a misaligned stride or a shifted buffer, device "
         "memory; bench_kernels' program at E = 2^17 and 2^20, K = 8); equal to the "
-        f"plain version except {edge} events at a mass/ΔR cut's edge; max |err| "
+        f"plain version except {edge} events within the MASS residue; max |err| "
         f"{max_err}")
     return max_err, edge
 
@@ -1779,8 +2034,8 @@ extern "C" int parent_skim_launch(
     const float* terms, const float* valid, const float* weights,
     const float* payload, int B, int T, int G, long long E, int K, int D,
     const int* groups, const int* term_ids, const int* ops, const float* thrs,
-    const float* cmp_thrs, const int* rpn_op, const int* rpn_term,
-    const float* rpn_const, unsigned long long* status, unsigned* tickets,
+    const double* cmp_thrs, const int* rpn_op, const int* rpn_term,
+    const double* rpn_const, unsigned long long* status, unsigned* tickets,
     unsigned epoch, float* out, int* totals, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (epoch == 0 || epoch >= (1u << 30)) return (int)cudaErrorInvalidValue;
@@ -1795,8 +2050,8 @@ extern "C" int parent_skim_launch(
 extern "C" int parent_stage_launch(
     const float* terms, const float* valid, const float* weights, int B,
     int T, int G, long long E, int K, const int* groups, const int* term_ids,
-    const int* ops, const float* thrs, const float* cmp_thrs,
-    const int* rpn_op, const int* rpn_term, const float* rpn_const,
+    const int* ops, const float* thrs, const double* cmp_thrs,
+    const int* rpn_op, const int* rpn_term, const double* rpn_const,
     uint32_t* packed, const int* seg_ids, int nb, int* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
@@ -1811,8 +2066,8 @@ extern "C" int parent_stage_launch(
 extern "C" int parent_mask_launch(
     const float* terms, const float* valid, const float* weights, int B,
     int T, int G, long long E, int K, const int* groups, const int* term_ids,
-    const int* ops, const float* thrs, const float* cmp_thrs,
-    const int* rpn_op, const int* rpn_term, const float* rpn_const, int* out,
+    const int* ops, const float* thrs, const double* cmp_thrs,
+    const int* rpn_op, const int* rpn_term, const double* rpn_const, int* out,
     void* stream) {
   Program p{groups, term_ids, ops, thrs, cmp_thrs, rpn_op, rpn_term, rpn_const, G};
   Inputs batch{terms, valid, weights, E, K};
@@ -2446,109 +2701,51 @@ extern "C" int parent_attn_launch(const void* q, const void* k, const void* v, v
 """
 PARENT_CU += PARENT_ATTN_CU
 
-# The earlier lead selection (argmax: NaN maximal, invalid slots at -inf)
-# and min / max (fminf / fmaxf), swapped into copies of this tree's sources
-# to build rows 1, 3, 4 and 6's timing baseline (:func:`start_lead_build`):
-# (file, the first line of this tree's block, the line after it, the
-# earlier block)
-PARENT_LEAD = (
-    ("predicate.cuh", "// min/max as the host evaluator's",
-     "__device__ __forceinline__ const float* row(", r"""// NaN-propagating min/max, as jnp.minimum / torch.minimum
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : fminf(a, b);
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
-}
-
-"""),
-    ("predicate.cuh", "// whether candidate x displaces", "__device__ int count_valid(",
-     r"""// first maximal slot of pt among the valid ones (argmax semantics: NaN is
-// maximal, ties and an all-invalid row go to the lowest slot)
-__device__ int lead_slot(const float* pt, const float* vg, int K, bool second,
-                         int exclude) {
-  float best = -INFINITY;
-  int idx = 0;
-  for (int k = 0; k < K; ++k) {
-    bool v = second ? (vg[k] >= 2.0f) : (floor_mod(vg[k], 2.0f) >= 1.0f);
-    float x = (v && k != exclude) ? pt[k] : -INFINITY;
-    if (!isnan(best) && (isnan(x) || x > best)) {
-      best = x;
-      idx = k;
-    }
-  }
-  return idx;
-}
-
-"""),
-    ("predicate_eval.cu", "// lead_slot over the event's lanes",
-     "__device__ int count_valid_lanes(", r"""// first maximal slot of pt among the valid ones (lead_slot's argmax: NaN
-// is maximal, ties and an all-invalid row go to the lowest slot), scanned
-// in slot order by every lane of the event
-__device__ int lead_slot_lanes(const float* pt, const float* vg, bool second,
-                               int exclude, const Lanes& ln, int K) {
-  float best = -INFINITY;
-  int idx = 0;
-  for (int j = 0; j < ln.J; ++j) {
-    const int k = j * ln.L + ln.sub;
-    float x = -INFINITY;
-    if (k < K) {
-      const bool v = second ? (vg[k] >= 2.0f) : (floor_mod(vg[k], 2.0f) >= 1.0f);
-      if (v && k != exclude) x = pt[k];
-    }
-    const int w = ln.width(j, K);
-#pragma unroll 8
-    for (int kk = 0; kk < w; ++kk) {
-      const float y = __shfl_sync(kFull, x, ln.lead + kk);
-      if (!isnan(best) && (isnan(y) || y > best)) {
-        best = y;
-        idx = j * ln.L + kk;
-      }
-    }
-  }
-  return idx;
-}
-
-"""),
-)
-PARENT_LEAD_KERNELS = ("skim_fused", "predicate_eval")
+# The float32 build: this tree's skim_fused.cu and predicate_eval.cu with
+# predicate.cuh's type of the group values set to float, which is the
+# padded route's evaluation before it took float64 (the cuts and constants
+# read from the same float64 descriptors are rounded to float32, as the
+# float32 descriptors held them): rows 1, 3, 4 and 6's timing baseline
+# (:func:`start_float32_build`).  (file, this tree's line, its float32 line)
+FLOAT32_REAL = ("predicate.cuh", "using Real = double;", "using Real = float;")
+FLOAT32_KERNELS = ("skim_fused", "predicate_eval")
 
 
-def start_lead_build():
-    """Start ``nvcc`` on ``skim_fused.cu`` and ``predicate_eval.cu`` copied
-    with every source of ``csrc/`` into ``build/``, :data:`PARENT_LEAD`'s
-    blocks swapped in; returns [(process or None, kernel, library path)]."""
+def start_float32_build():
+    """Start ``nvcc -Xptxas -v`` on ``skim_fused.cu`` and
+    ``predicate_eval.cu`` copied with every source of ``csrc/`` into
+    ``build/``, :data:`FLOAT32_REAL` swapped in; returns [(process or None,
+    kernel, library path)]."""
     import hashlib
 
     from repro_torch.kernels import _build
 
     texts = {f.name: f.read_text() for f in sorted(_build._CSRC.iterdir())
              if f.suffix in (".cu", ".cuh")}
-    for fname, first, after, old in PARENT_LEAD:
-        src = texts[fname]
-        a, b = src.find(first), src.find(after)
-        if a < 0 or b < a:
-            raise SmokeFailure(f"PARENT_LEAD: {first!r} not found in {fname}")
-        texts[fname] = src[:a] + old + src[b:]
+    fname, line, float_line = FLOAT32_REAL
+    if texts[fname].count(line) != 1:
+        raise SmokeFailure(f"FLOAT32_REAL: {line!r} is not in {fname} once")
+    texts[fname] = texts[fname].replace(line, float_line)
     digest = hashlib.sha256("".join(texts[k] for k in sorted(texts)).encode()
                             + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
-    root = _build.build_dir() / f"lead-{digest}"
+    root = _build.build_dir() / f"float32-{digest}"
     root.mkdir(parents=True, exist_ok=True)
     for name, text in texts.items():
         (root / name).write_text(text)
     out = []
-    for name in PARENT_LEAD_KERNELS:
+    for name in FLOAT32_KERNELS:
         lib = root / f"{name}.so"
         proc = None if lib.exists() else subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(root), "-o", str(lib),
-             str(root / _build.SOURCES[name])],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(root),
+             "-o", str(lib), str(root / _build.SOURCES[name])],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         out.append((proc, name, lib))
     return out
 
 
-def finish_lead_build(procs) -> dict:
-    """Wait for :func:`start_lead_build`; returns {kernel: the loaded library}."""
+def finish_float32_build(procs) -> dict:
+    """Wait for :func:`start_float32_build`; logs ptxas's registers and
+    spills of each kernel; returns {kernel: the loaded library}."""
     import ctypes
 
     libs = {}
@@ -2556,21 +2753,23 @@ def finish_lead_build(procs) -> dict:
         if proc is not None:
             out, err = proc.communicate()
             check(proc.returncode == 0,
-                  f"the build of {name} with the argmax lead selection failed:\n{out}{err}")
+                  f"the float32 build of {name} failed:\n{out}{err}")
+            for entry, line in sorted(ptxas_entries(out + err).items()):
+                log(f"  ptxas, float32 build, {name} {entry}: {line}")
         libs[name] = ctypes.CDLL(str(lib))
     return libs
 
 
-def time_lead_ab(skim_cases, stage_cases, batch_cases, lead_libs) -> dict:
+def time_float32_ab(skim_cases, stage_cases, batch_cases, float32_libs) -> dict:
     """Rows 1, 3, 4 and 6 at the path's shapes (:func:`time_kernels`'
     cases: each skim call, each cascade stage of the first 16-window batch
     with the carried mask restored before each call and the copy's time
     taken off, window 0 of each batch as ``predicate_eval``, each batch of
     ``skim_fused_batch``), device ms of this tree's kernels beside the same
-    sources built with the argmax lead selection and fminf / fmaxf
-    (``lead_libs``, from :func:`finish_lead_build`), in turns: argmax, this
-    tree, this tree, argmax.  Returns {row: {"ms", "argmax_ms", "spread_ms",
-    "argmax_spread_ms", "cases"}}: means over the cases of each side's two
+    sources' float32 build (``float32_libs``, from
+    :func:`finish_float32_build`), in turns: float32, this tree, this tree,
+    float32.  Returns {row: {"ms", "float32_ms", "spread_ms",
+    "float32_spread_ms", "cases"}}: means over the cases of each side's two
     readings and of the gap between them."""
     import contextlib
 
@@ -2579,9 +2778,9 @@ def time_lead_ab(skim_cases, stage_cases, batch_cases, lead_libs) -> dict:
     from repro_torch.kernels import skim_fused as sf
 
     @contextlib.contextmanager
-    def argmax():
-        saved = {n: _build._LIBS.get(n) for n in lead_libs}
-        _build._LIBS.update(lead_libs)
+    def float32():
+        saved = {n: _build._LIBS.get(n) for n in float32_libs}
+        _build._LIBS.update(float32_libs)
         try:
             yield
         finally:
@@ -2592,10 +2791,10 @@ def time_lead_ab(skim_cases, stage_cases, batch_cases, lead_libs) -> dict:
                     _build._LIBS[n] = lib
 
     def turns(fn, offset=0.0):
-        with argmax():
+        with float32():
             first = device_ms(fn)
         new = (device_ms(fn), device_ms(fn))
-        with argmax():
+        with float32():
             last = device_ms(fn)
         return (sum(new) / 2 - offset, (first + last) / 2 - offset,
                 abs(new[0] - new[1]), abs(first - last))
@@ -2620,7 +2819,7 @@ def time_lead_ab(skim_cases, stage_cases, batch_cases, lead_libs) -> dict:
     for program, t, v, w, p in batch_cases:
         pairs["skim_fused_batch"].append(
             turns(lambda: sf.skim_fused_batch(t, v, w, p, program)))
-    keys = ("ms", "argmax_ms", "spread_ms", "argmax_spread_ms")
+    keys = ("ms", "float32_ms", "spread_ms", "float32_spread_ms")
     return {row: {k: sum(g[i] for g in got) / len(got) for i, k in enumerate(keys)}
             | {"cases": len(got)} for row, got in pairs.items() if got}
 
@@ -2924,7 +3123,7 @@ def batch_sweep_inputs(rng, program, B: int, E: int, K: int, D: int = 2):
 def check_skim_fused_batch(rng, device, names=None) -> tuple[float, int]:
     """``skim_fused_batch`` against its plain version over the sweep
     programs, B in 1/3/16, E in 512/4096, K in 1/8: packed rows and counts
-    bit for bit, except events at a mass/ΔR cut's edge (as
+    bit for bit, except events within the MASS residue (as
     :func:`check_skim_fused`).  Returns (max |kernel - plain|, edge
     events)."""
     import torch
@@ -2968,7 +3167,7 @@ def check_skim_fused_batch(rng, device, names=None) -> tuple[float, int]:
                             program, t[b], v[b], got[b], n, want[b], wn)
     log(f"  skim_fused_batch: {cases} cases (every sweep program, B in 1/3/16, "
         f"E in 512/4096, K in 1/8); packed rows and counts equal to the plain "
-        f"version except {edge} events at a mass/ΔR cut's edge; max |err| {max_err}")
+        f"version except {edge} events within the MASS residue; max |err| {max_err}")
     check_skim_payloads(rng, device, batch=True)
     return max_err, edge
 
@@ -3022,7 +3221,7 @@ def check_nonfinite_kernels(rng, device) -> float:
     ``skim_fused`` and ``stream_compact`` (the poisoned payload by the
     plain mask) at E in 512/4097 and K in 1/4/16, ``cascade_stage`` and
     ``skim_fused_batch`` at B = 3, E = 4096, K in 1/8.  Masks may differ
-    only at a mass/ΔR cut's edge, as in the finite checks.  Returns the
+    only within the MASS residue, as in the finite checks.  Returns the
     largest bit-pattern difference (0.0: all bit-identical)."""
     import numpy as np
     import torch
@@ -3097,8 +3296,91 @@ def check_nonfinite_kernels(rng, device) -> float:
         "signed-zero EXPR program; a tenth of every term plane NaN, +inf, -inf "
         "or -0.0, HT weights from the poisoned terms); predicate_eval, "
         "skim_fused, skim_fused_batch and cascade_stage equal to their plain "
-        f"versions except {edge} events at a mass/ΔR cut's edge; stream_compact "
+        f"versions except {edge} events within the MASS residue; stream_compact "
         "of the poisoned rows bit for bit")
+    return max_err
+
+
+def check_edge_kernels(device) -> float:
+    """The four kernels that evaluate the program, on :func:`edge_window`'s
+    padded inputs for every query of :data:`EDGE_QUERIES` (the whole window
+    one launch, at the K that truncates no object), against their plain
+    versions on the same card tensors and against the host evaluator:
+    ``predicate_eval``'s mask, ``cascade_stage``'s mask, basket bits and
+    count (every event live), ``skim_fused``'s and ``skim_fused_batch``'s
+    survivors (payload column 0 the event index).  The plain version on
+    the card may differ from the host, and a kernel from either, only at
+    MASS events within the residue (:func:`edge_events`; counted, logged).
+    Returns the largest |kernel - plain| over masks and counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.neardata import (build_padded_inputs, fused_window_skim,
+                                           window_pad_K)
+    from repro_torch.core.planner import plan_skim
+    from repro_torch.core.query import parse_query
+    from repro_torch.data.store import EventStore
+    from repro_torch.kernels import predicate_eval as pe
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import skim_fused as sf
+
+    columns, jagged, edges = edge_window()
+    store = EventStore.from_arrays(columns, jagged=jagged, basket_events=EDGE_BASKET,
+                                   device="cpu")
+    E, nb = EDGE_EVENTS, EDGE_EVENTS // EDGE_BASKET
+    seg = (torch.arange(E, dtype=torch.int32, device=device) // EDGE_BASKET)[None]
+    max_err, residue = 0.0, {}
+
+    def kept(packed, count):
+        mask = torch.zeros(E, dtype=torch.bool)
+        mask[packed[: int(count), 0].long().cpu()] = True
+        return mask
+
+    for name, q in EDGE_QUERIES.items():
+        plan = plan_skim(parse_query(q), store)
+        program = plan.compiled_program()
+        data = {b: store.read_jagged(b)[0] if store.branches[b].jagged
+                else store.read_flat(b) for b in plan.filter_branches}
+        host = torch.from_numpy(fused_window_skim(data, program, store, backend="host")[0])
+        pb = build_padded_inputs(data, program, store, K=window_pad_K(data, program, store),
+                                 include_index=True, to_device=False)
+        t, v, w, p = (torch.from_numpy(np.asarray(x)).to(device)
+                      for x in (pb.terms, pb.valid, pb.weights, pb.payload))
+        plain = ref.predicate_eval_ref(t, v, w, program).cpu()
+        packed = ref.pack_bits(torch.ones((1, E), dtype=torch.bool, device=device))
+        words, out = pe.cascade_stage(t[None], v[None], w[None], packed, seg, program, nb)
+        sk, n = sf.skim_fused(t, v, w, p, program)
+        skb, nbt = sf.skim_fused_batch(t[None], v[None], w[None], p[None], program)
+        torch.cuda.synchronize()
+        stage_mask = ref.unpack_bits(words, E)[0].cpu()
+        got = {"predicate_eval": pe.predicate_eval(t, v, w, program).cpu().bool(),
+               "cascade_stage": stage_mask, "skim_fused": kept(sk, n),
+               "skim_fused_batch": kept(skb[0], nbt[0])}
+        check(int(out[0, nb]) == int(stage_mask.sum()) and torch.equal(
+            out[0, :nb].cpu(), stage_mask.reshape(nb, -1).any(dim=1).int()),
+            f"edge window, {name}: cascade_stage's basket bits or count do not "
+            "follow its mask")
+        n_res = 0
+        for who, mask in [("plain version", plain)] + list(got.items()):
+            for other, want in (("host evaluator", host), ("plain version", plain)):
+                diff = torch.nonzero(mask != want).flatten().numpy()
+                if who != "plain version":
+                    max_err = max(max_err, float((mask != plain).any()))
+                if len(diff) == 0:
+                    continue
+                check(edge_events(program, t.cpu(), v.cpu(), diff),
+                      f"edge window, {name}: the {who} and the {other} differ at "
+                      f"events {diff[:8].tolist()}, outside the MASS residue")
+                n_res = max(n_res, len(diff))
+        residue[name] = n_res
+        for event, keep in edges[name]:
+            check(bool(host[event]) == keep,
+                  f"edge window, {name}: the host evaluator decides event {event} "
+                  f"otherwise than the float64 formulas ({keep})")
+    log(f"  edge window ({E} events, {sum(len(c) for c in edges.values())} at float32 "
+        f"cut edges over {len(EDGE_QUERIES)} queries): predicate_eval, cascade_stage, "
+        "skim_fused and skim_fused_batch equal their plain versions on the card and "
+        f"the host evaluator except MASS events within the residue: {json.dumps(residue)}")
     return max_err
 
 
@@ -4021,8 +4303,8 @@ def run_fused_batch_path(label, stage_case, device) -> dict:
     them), payload column 0 the local event index.  Each window must equal
     ``ops.fused_skim`` (the per-window kernel) on the same window, bit for
     bit: the reference's own contract.  Each window is also held against
-    the plain version on the same tensors, bit for bit but for events at a
-    mass/ΔR cut's edge (as :func:`check_skim_fused_batch`)."""
+    the plain version on the same tensors, bit for bit but for events within
+    the MASS residue (as :func:`check_skim_fused_batch`)."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -4056,7 +4338,7 @@ def run_fused_batch_path(label, stage_case, device) -> dict:
                              program, t[b], v[b], packed[b], n, want[b], wn)
     log(f"  [{label}] fused_skim_batch B={B} T={T} E={E} K={K}: survivors per "
         f"window {counts.tolist()}; every window equals fused_skim bit for bit "
-        f"and the plain version but for {edge} events at a mass/ΔR cut's edge; "
+        f"and the plain version but for {edge} events within the MASS residue; "
         f"launches {launches}")
     return {"launches": launches, "max_abs_err": max_err,
             "case": (program, t, v, w, payload)}
@@ -4116,7 +4398,7 @@ def run_predicate_path(label, stage_case, device) -> dict:
     """``ops.predicate_eval`` on each window of a cell's first cascade stage
     over its first 16 windows (as ``run_window_batch`` stages them), one
     call a window, held against the plain version: bit for bit but for
-    events at a mass/ΔR cut's edge (:func:`_mask_edges`)."""
+    events within the MASS residue (:func:`_mask_edges`)."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -4133,7 +4415,7 @@ def run_predicate_path(label, stage_case, device) -> dict:
     edge = _mask_edges(program, t, v, got, want) if err else 0
     log(f"  [{label}] predicate_eval on each of the first stage's {B} windows (T={T} "
         f"E={E} K={K}): {int(got.sum())} events pass, equal to the plain version but "
-        f"for {edge} events at a mass/ΔR cut's edge; launches {launches}")
+        f"for {edge} events within the MASS residue; launches {launches}")
     return {"launches": launches, "max_abs_err": err}
 
 
@@ -4980,23 +5262,21 @@ def check_nonfinite_window(backend: str, device) -> dict:
     return masks
 
 
-def float32_edges(label, store, query) -> int:
-    """Events of ``store`` that the padded float32 evaluation (the kernels'
-    plain version) and the host evaluator (float64, the staged semantics)
-    decide differently for ``query``, over the whole store as one window.
-    Fails unless each lies within 2 ulp of a mass/ΔR cut; logs each with
-    its group's value in both.  Returns the plain version's survivors
-    less the host evaluator's."""
+def mass_residue(label, store, query, device) -> int:
+    """Events of the host ``store`` that the card (the CUDA skim over the
+    whole store as one window) and the host evaluator decide differently
+    for ``query``.  The plain version must equal the host evaluator
+    exactly; each card difference must be a MASS event within the residue
+    (:func:`edge_events`) and is logged with the host's value and the
+    bound.  Returns the card's survivors less the host evaluator's."""
     import numpy as np
     import torch
 
-    from repro_torch.core.expr import leading_delta_r, leading_pair_mass
     from repro_torch.core.neardata import (build_padded_inputs, fused_window_skim,
                                            window_pad_K)
     from repro_torch.core.planner import plan_skim
     from repro_torch.core.query import parse_query
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.program import GROUP_DR, GROUP_MASS
+    from repro_torch.kernels.program import GROUP_MASS
 
     plan = plan_skim(parse_query(query), store)
     program = plan.compiled_program()
@@ -5004,40 +5284,43 @@ def float32_edges(label, store, query) -> int:
             else store.read_flat(b) for b in plan.filter_branches}
     host, _ = fused_window_skim(data, program, store, backend="host")
     plain, _ = fused_window_skim(data, program, store, backend="torch", device="cpu")
-    diff = np.nonzero(host != plain)[0]
+    check(np.array_equal(plain, host),
+          f"{label}: the plain version and the host evaluator differ at events "
+          f"{np.nonzero(plain != host)[0][:8].tolist()}")
+    card, _ = fused_window_skim(data, program, store, backend="cuda", device=device)
+    diff = np.nonzero(card != host)[0]
+    if len(diff) == 0:
+        return 0
     padded = build_padded_inputs(data, program, store, K=window_pad_K(data, program, store),
                                  to_device=False)
     terms, valid = (torch.as_tensor(np.asarray(x)) for x in (padded.terms, padded.valid))
-    check(len(diff) > 0 and edge_events(program, terms, valid, diff),
-          f"{label}: the plain version and the host evaluator differ at events "
-          f"{diff[:8].tolist()}, away from any mass/ΔR cut")
+    check(edge_events(program, terms, valid, diff),
+          f"{label}: the card and the host evaluator differ at events "
+          f"{diff[:8].tolist()}, outside the MASS residue")
     for g, grp in enumerate(program.groups):
-        if grp.kind not in (GROUP_MASS, GROUP_DR):
+        if grp.kind != GROUP_MASS:
             continue
-        pair = leading_pair_mass if grp.kind == GROUP_MASS else leading_delta_r
-        v32 = ref.pair_group_value(program, g, terms, valid)[0].numpy()
-        v64 = pair(data, program.group_collections[g], program.group_collections2[g])[0]
+        m, _, scale = (x.numpy() for x in mass_scale(program, g, terms, valid))
         for e in diff[:8].tolist():
-            log(f"  {label}: event {e} kept by the float32 evaluation "
-                f"{bool(plain[e])}, by the host's {bool(host[e])}; group {g}'s value "
-                f"{float(v32[e])!r} in float32, {float(v64[e])!r} in float64")
-    return int(plain.sum()) - int(host.sum())
+            log(f"  {label}: event {e} kept by the card {bool(card[e])}, by the host "
+                f"{bool(host[e])}; group {g}'s mass {float(m[e])!r} (host), the "
+                f"residue's bound on its square {MASS_RESIDUE_N * 2.0 ** -53 * scale[e]!r}")
+    return int(card.sum()) - int(host.sum())
 
 
 def run_nonfinite_path(device, n_events: int = NONFINITE_EVENTS, batch: int = 16) -> dict:
     """Phase 3g: a store of ``n_events`` holding NaN, ±inf and -0.0
     (:func:`make_nonfinite_stores`) through ``run_skim`` on the card, per
     window and with ``device_batch=batch``, decode on the card, for every
-    query of :func:`nonfinite_queries`.  Each card run equals the host run
-    of the same path through the kernels' plain versions
-    (``fused_backend="torch"`` per window; the batched path's plain version)
-    in survivors, output bytes, FetchStats, cascade ledgers and plan, and
-    keeps fetched + cascade-skipped == the preload run's fetched bytes.
-    Those host runs equal the port's staged run in survivors and output
-    bytes, except where the float32 evaluation decides an event at a
-    mass/ΔR cut's edge otherwise than the staged run's float64
-    (:func:`float32_edges`, logged).  Launches are counted from 0 around
-    each card run."""
+    query of :func:`nonfinite_queries`.  The host runs of the same paths
+    through the kernels' plain versions (``fused_backend="torch"`` per
+    window; the batched path's plain version) equal the port's staged run
+    in survivors and output bytes.  Each card run equals the host run of
+    its path in survivors, output bytes, FetchStats, cascade ledgers and
+    plan, and keeps fetched + cascade-skipped == the preload run's fetched
+    bytes; where it does not, every event the card decides otherwise must
+    be a MASS event within the residue (:func:`mass_residue`, logged).
+    Launches are counted from 0 around each card run."""
     import torch
 
     from repro_torch.core import run_skim
@@ -5055,7 +5338,7 @@ def run_nonfinite_path(device, n_events: int = NONFINITE_EVENTS, batch: int = 16
         + json.dumps(masks))
     stats0 = store.decode_backend_stats()
     launches = dict.fromkeys(ops.launch_counts(), 0)
-    survivors, edges = {}, {}
+    survivors, residues = {}, {}
     card_s = 0.0
     for name, q in nonfinite_queries(n_events).items():
         staged = run_skim(host, q, fused=False, pipeline=False, device="cpu")
@@ -5063,7 +5346,12 @@ def run_nonfinite_path(device, n_events: int = NONFINITE_EVENTS, batch: int = 16
         runs = {"staged": staged.n_passed}
         for label, kw in (("per window", {"fused_backend": "torch"}),
                           (f"device_batch={batch}", {"device_batch": batch})):
+            what = f"non-finite store, {name}, {label}"
             plain = run_skim(host, q, device="cpu", **kw)
+            check(plain.n_passed == staged.n_passed
+                  and plain.output._blobs == staged.output._blobs,
+                  f"{what}: the plain version's host run keeps {plain.n_passed} "
+                  f"events, the staged run {staged.n_passed}, or their bytes differ")
             card_kw = {k: v for k, v in kw.items() if k != "fused_backend"}
             ops.reset_launch_counts()
             torch.cuda.synchronize()
@@ -5073,11 +5361,16 @@ def run_nonfinite_path(device, n_events: int = NONFINITE_EVENTS, batch: int = 16
             card_s += time.perf_counter() - t1
             for k, v in ops.launch_counts().items():
                 launches[k] += v
-            what = f"non-finite store, {name}, {label}"
-            check(res.n_passed == plain.n_passed,
-                  f"{what}: {res.n_passed} survivors vs {plain.n_passed} (plain version)")
-            check(res.output.manifest_hash() == plain.output.manifest_hash()
-                  and res.output._blobs == plain.output._blobs,
+            runs[label] = res.n_passed
+            if (res.n_passed != plain.n_passed
+                    or res.output._blobs != plain.output._blobs):
+                if name not in residues:
+                    residues[name] = mass_residue(name, host, q, device)
+                check(res.n_passed - plain.n_passed == residues[name] != 0,
+                      f"{what}: {res.n_passed} survivors vs {plain.n_passed} (plain "
+                      f"version), not the {residues[name]:+d} of the MASS residue")
+                continue
+            check(res.output.manifest_hash() == plain.output.manifest_hash(),
                   f"{what}: output columns differ from the plain version's host run")
             check(fetch_row(res.stats) == fetch_row(plain.stats),
                   f"{what}: FetchStats differ from the plain version's host run")
@@ -5089,32 +5382,25 @@ def run_nonfinite_path(device, n_events: int = NONFINITE_EVENTS, batch: int = 16
             check(res.stats.bytes_fetched + res.stats.cascade_bytes_skipped
                   == preload.stats.bytes_fetched,
                   f"{what}: fetched + cascade-skipped != the preload run's fetched")
-            if (plain.n_passed != staged.n_passed
-                    or plain.output._blobs != staged.output._blobs):
-                if name not in edges:
-                    edges[name] = float32_edges(name, host, q)
-                check(plain.n_passed - staged.n_passed == edges[name],
-                      f"{what}: {plain.n_passed} survivors vs {staged.n_passed} "
-                      f"(staged), not the {edges[name]:+d} of float32 cut edges")
-            runs[label] = res.n_passed
         survivors[name] = runs
     dec = store.decode_backend_stats()
     check(dec["device_baskets"] > stats0["device_baskets"] and dec["fallbacks"] == 0,
           f"non-finite store: decode on the card {dec}")
     for kernel in ("skim_fused", "cascade_stage", "basket_decode"):
         check(launches[kernel] > 0, f"non-finite store: {kernel} never launched")
-    exact = [n for n in survivors if n not in edges]
-    log(f"  {len(survivors)} queries: every card run equals the host run of its path "
-        "through the plain versions (survivors, output bytes, FetchStats, cascade "
-        f"ledgers, plan); {len(exact)} of them equal the staged reference in "
-        "survivors and every output byte; at a float32 mass/ΔR cut's edge "
-        f"(survivors against staged): {json.dumps(edges)}; card runs {card_s:.3f} s "
-        f"in all; launches {json.dumps(launches)}; decode tier "
+    exact = [n for n in survivors if n not in residues]
+    log(f"  {len(survivors)} queries: every host run through the plain versions "
+        "equals the staged reference in survivors and output bytes; the card runs "
+        f"of {len(exact)} equal the host runs of their paths (survivors, output "
+        "bytes, FetchStats, cascade ledgers, plan); within the MASS residue "
+        f"(survivors against the host): {json.dumps(residues)}; mass-jets "
+        f"{json.dumps(survivors.get('mass-jets'))}; card runs {card_s:.3f} s in all; "
+        f"launches {json.dumps(launches)}; decode tier "
         f"{dec['device_baskets'] - stats0['device_baskets']} device baskets, "
         f"{dec['fallbacks']} fallbacks")
     log("  survivors (staged, card per window, card batched): "
         + json.dumps(survivors))
-    return {"launches": launches, "survivors": survivors, "edges": edges,
+    return {"launches": launches, "survivors": survivors, "residues": residues,
             "card_s": card_s}
 
 
@@ -5186,12 +5472,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     parent_build = start_parent_build()
-    lead_build = start_lead_build()
+    float32_build = start_float32_build()
     ptxas = start_ptxas_report()
     build_s = _build.build_all()
     ops.load_kernels()
     parent = finish_parent_build(*parent_build)
-    lead_libs = finish_lead_build(lead_build)
+    float32_libs = finish_float32_build(float32_build)
     log(f"  kernels built in {build_s:.1f} s into {_build.build_dir()}; with the "
         f"earlier designs (the timing baselines) {time.perf_counter() - t0:.1f} s")
     finish_ptxas_report(ptxas)
@@ -5210,6 +5496,7 @@ def main() -> int:
     flash_err = check_flash_attention(rng, device)
     check_numpy_entries(rng, device)
     nonfinite_err = check_nonfinite_kernels(np.random.default_rng(1), device)
+    edge_err = check_edge_kernels(device)
 
     log(f"== building the {N_EVENTS:,}-event stores ==")
     from repro_torch.data.synth import make_nanoaod_like
@@ -5288,12 +5575,12 @@ def main() -> int:
         attn_cases=attention["cases"],
         parent=parent,
     ))
-    log("== 3c. rows 1, 3, 4 and 6 beside the same sources with the argmax lead "
-        "selection and fminf / fmaxf (device ms, in turns: argmax, this tree, "
-        "this tree, argmax) ==")
-    lead_ab = time_lead_ab(skim_cases, [c for cases in stage_cases.values() for c in cases],
-                           [r["case"] for r in fused_batch.values()], lead_libs)
-    log(f"  lead selection A/B ({card}): " + json.dumps(lead_ab))
+    log("== 3c. rows 1, 3, 4 and 6 beside the same sources' float32 build (device "
+        "ms, in turns: float32, this tree, this tree, float32) ==")
+    float32_ab = time_float32_ab(
+        skim_cases, [c for cases in stage_cases.values() for c in cases],
+        [r["case"] for r in fused_batch.values()], float32_libs)
+    log(f"  float32 build A/B ({card}): " + json.dumps(float32_ab))
 
     log("== 3d. the serving plane: shared scan, job service, cluster, on the "
         f"{N_EVENTS:,}-event NanoAOD-like store ==")
@@ -5337,7 +5624,7 @@ def main() -> int:
         {"name": "skim_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/skim_fused.cu",
          "replaces": "src/repro/kernels/skim_fused.py:151",
-         "launches": totals["skim_fused"], "max_abs_err": max(skim_err, nonfinite_err),
+         "launches": totals["skim_fused"], "max_abs_err": max(skim_err, nonfinite_err, edge_err),
          **bounds(timing["skim_fused"])},
         {"name": "basket_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/basket_decode.cu",
@@ -5348,7 +5635,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/predicate_eval.cu",
          "replaces": "src/repro/kernels/predicate_eval.py:270",
          "launches": totals["cascade_stage"] + totals["predicate_eval_batch"],
-         "max_abs_err": max(stage_err, pred_err, nonfinite_err),
+         "max_abs_err": max(stage_err, pred_err, nonfinite_err, edge_err),
          **bounds(timing["predicate_eval_batch"])},
         # the four below have no caller in run_skim: their launches are
         # those of their own paths, the ops entry points of phase 3c and,
@@ -5358,14 +5645,14 @@ def main() -> int:
          "replaces": "src/repro/kernels/predicate_eval.py:304",
          "launches": sum(r["launches"] for r in predicate.values())
          + mesh["launches"]["predicate_eval"],
-         "max_abs_err": max([pred_err, nonfinite_err, mesh["max_abs_err"]]
+         "max_abs_err": max([pred_err, nonfinite_err, edge_err, mesh["max_abs_err"]]
                             + [r["max_abs_err"] for r in predicate.values()]),
          **bounds(timing["predicate_eval"])},
         {"name": "skim_fused_batch", "route": "cuda",
          "source": "src/repro_torch/csrc/skim_fused.cu",
          "replaces": "src/repro/kernels/skim_fused.py:119",
          "launches": sum(r["launches"] for r in fused_batch.values()),
-         "max_abs_err": max([batch_err, nonfinite_err]
+         "max_abs_err": max([batch_err, nonfinite_err, edge_err]
                             + [r["max_abs_err"] for r in fused_batch.values()]),
          **bounds(timing["skim_fused_batch"])},
         {"name": "stream_compact", "route": "cuda",
@@ -5410,11 +5697,11 @@ def main() -> int:
                    "build_cluster_basket_decode": p["card"]["builds"]}
             for name, p in examples.items()}}, sort_keys=True))
     log("placements (" + card + "; links modeled): " + json.dumps(placements, sort_keys=True))
-    log("lead selection A/B (" + card + "; device ms): " + json.dumps(lead_ab))
+    log("float32 build A/B (" + card + "; device ms): " + json.dumps(float32_ab))
     log("non-finite store (" + card + "): " + json.dumps(
         {"seconds": nonfinite_s, "card_s": nonfinite["card_s"],
          "launches": nonfinite["launches"], "survivors": nonfinite["survivors"],
-         "float32_edges": nonfinite["edges"]}))
+         "mass_residue": nonfinite["residues"]}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

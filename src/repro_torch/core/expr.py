@@ -14,9 +14,11 @@ branches against constants.  This module is the host half of that tier:
     evaluator (``repro_torch.core.query.eval_node``) and the fused program
     interpreter (``repro_torch.core.neardata.program_eval_np``).
 
-Everything here is float64 NumPy; the device kernels mirror the same
-formulas in float32 (the HT precedent: bit-identical on the repo
-fixtures, where no value sits within float32 noise of a threshold).
+Everything here is float64 NumPy, and the padded route evaluates the
+same formulas in float64 in the same operation order (the kernels' plain
+versions and the CUDA kernels), so it decides every event as this module
+does; only MASS's cos, sin, sinh and cosh on the card are CUDA's and not
+numpy's (a few ulp, checked on the card).
 
 Conventions:
 
@@ -449,8 +451,8 @@ def leading_pair_mass(
     """Invariant mass of the leading pair -> ``(m (n,), ok (n,))``.
 
     ``m`` is garbage (zeros) where ``ok`` is False — callers gate on
-    ``ok``.  Formula mirrored term-for-term by the float32 device kernel
-    (kernels/ref.py)."""
+    ``ok``.  Formula mirrored term-for-term, in float64, by the padded
+    route (kernels/ref.py, csrc/predicate.cuh)."""
     a, b, ok = _pair_kinematics(data, coll_a, coll_b,
                                 ("pt", "eta", "phi", "mass"))
 

@@ -249,8 +249,8 @@ def program_eval_np(
     This is the fused executor's CPU fallback: one pass over the compiled
     groups, semantically identical to ``repro_torch.core.query.eval_stage`` run
     over every stage (same float64 segment accumulation, so masks are
-    bit-identical to the reference path) and to the device kernels modulo
-    their float32 reductions.  On jagged data it skips the (T, E, K)
+    bit-identical to the reference path) and to the padded route, which
+    evaluates the group values in float64 too.  On jagged data it skips the (T, E, K)
     densification entirely, which is what makes ``fused=True`` at least
     as fast as the staged evaluator on backends without a real
     accelerator.

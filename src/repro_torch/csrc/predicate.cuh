@@ -9,12 +9,21 @@
 // (lanes over the slots, the tile in shared memory).
 //
 // The program reaches the card as data: the host flattens the frozen
-// Program into small int32/float32 descriptor arrays
+// Program into small int32/float32/float64 descriptor arrays
 // (repro_torch/kernels/skim_fused.py::flatten_program).  eval_event walks
-// the groups and the K slots in order; HT and sum() accumulate slot by
-// slot, left to right, as the reference's float32 reduction does.  Built
-// without FMA contraction (--fmad=false) and without fast math, every
-// product and sum rounds as it does in the reference.
+// the groups and the K slots in order.
+//
+// It decides an event as the host evaluator does
+// (repro_torch/core/neardata.py::program_eval_np, the staged semantics):
+// per-object cuts compare the float32 value with the float32 cut; the
+// group values (MASS, ΔR, HT, EXPR) are evaluated in `Real`, float64, from
+// the float32 planes widened exactly, in the host's operation order, and
+// meet the float64 cut.  HT and sum() accumulate slot by slot, left to
+// right, from +0.0, as the host's bincount does.  Built without FMA
+// contraction (--fmad=false) and without fast math, every product and sum
+// rounds as the host's does, so ΔR, HT and EXPR are the host's bit for
+// bit; MASS's cos, sin, sinh and cosh are CUDA's (2, 2, 2 and 1 ulp at
+// most), the one place the card's value can differ from the host's.
 //
 // Each kernel source builds into its own library, so every includer gets
 // its own copy of these internal-linkage functions.
@@ -39,19 +48,24 @@ enum {
 enum { GD_KIND, GD_TERM_OFF, GD_N_TERMS, GD_MIN_COUNT, GD_CMP_OP, GD_SAME,
        GD_RPN_OFF, GD_RPN_LEN };
 
-// float32(pi), the reference's jnp.float32(np.pi)
-constexpr float kPi = 3.14159274101257324f;
+// the type of the group values: the host evaluator's float64
+using Real = double;
+constexpr Real kPi = 3.141592653589793;  // np.pi
 
 struct Program {
-  const int* groups;      // (G, kGroupFields)
-  const int* term_ids;    // flat, per group at GD_TERM_OFF
-  const int* ops;         // aligned with term_ids
-  const float* thrs;      // aligned with term_ids
-  const float* cmp_thrs;  // (G, 2): cmp_thr, cmp_thr2
-  const int* rpn_op;      // flat, per group at GD_RPN_OFF
-  const int* rpn_term;    // term slot of RPN_BRANCH / RPN_SUM
-  const float* rpn_const; // value of RPN_CONST
+  const int* groups;       // (G, kGroupFields)
+  const int* term_ids;     // flat, per group at GD_TERM_OFF
+  const int* ops;          // aligned with term_ids
+  const float* thrs;       // aligned with term_ids
+  const double* cmp_thrs;  // (G, 2): cmp_thr, cmp_thr2
+  const int* rpn_op;       // flat, per group at GD_RPN_OFF
+  const int* rpn_term;     // term slot of RPN_BRANCH / RPN_SUM
+  const double* rpn_const; // value of RPN_CONST
   int G;
+  // group g's cut (i = 0) or upper cut (i = 1) of a MASS window
+  __device__ __forceinline__ Real cut(int g, int i = 0) const {
+    return static_cast<Real>(cmp_thrs[2 * g + i]);
+  }
 };
 
 struct Inputs {
@@ -72,7 +86,9 @@ __device__ __forceinline__ Inputs window_inputs(const Inputs& batch,
                 batch.weights + b * G * plane, batch.E, batch.K};
 }
 
-__device__ __forceinline__ bool apply_op(float x, int op, float thr) {
+// a comparison, in float32 for a per-object cut, in Real for a group's
+template <typename T>
+__device__ __forceinline__ bool apply_op(T x, int op, T thr) {
   switch (op) {
     case OP_GT: return x > thr;
     case OP_GE: return x >= thr;
@@ -80,28 +96,45 @@ __device__ __forceinline__ bool apply_op(float x, int op, float thr) {
     case OP_LE: return x <= thr;
     case OP_EQ: return x == thr;
     case OP_NE: return x != thr;
-    case OP_ABSLT: return fabsf(x) < thr;
-    case OP_ABSGT: return fabsf(x) > thr;
+    case OP_ABSLT: return fabs(x) < thr;
+    case OP_ABSGT: return fabs(x) > thr;
   }
   return false;
 }
 
-// floor modulo, as jnp.mod / torch.remainder: fmodf, then moved to the
-// divisor's sign
-__device__ __forceinline__ float floor_mod(float x, float y) {
-  float r = fmodf(x, y);
-  if (r != 0.0f && ((r < 0.0f) != (y < 0.0f))) r += y;
+// floor modulo, as numpy's remainder: fmod, moved by one period where its
+// sign differs from the divisor's, and a zero with the divisor's sign
+template <typename T>
+__device__ __forceinline__ T floor_mod(T x, T y) {
+  T r = fmod(x, y);
+  if (r != T(0)) {
+    if ((r < T(0)) != (y < T(0))) r += y;
+  } else {
+    r = copysign(T(0), y);
+  }
   return r;
 }
 
 // min/max as the host evaluator's np.minimum / np.maximum: NaN if either
 // is NaN, else a if it is strictly smaller (larger), else b, so of two
-// equal zeros the second wins (fminf leaves the sign of zero open)
-__device__ __forceinline__ float nan_min(float a, float b) {
+// equal zeros the second wins (fmin leaves the sign of zero open)
+__device__ __forceinline__ Real nan_min(Real a, Real b) {
   return (isnan(a) || isnan(b)) ? a + b : (a < b ? a : b);
 }
-__device__ __forceinline__ float nan_max(float a, float b) {
+__device__ __forceinline__ Real nan_max(Real a, Real b) {
   return (isnan(a) || isnan(b)) ? a + b : (a > b ? a : b);
+}
+
+// a binary RPN operation on two group values
+__device__ __forceinline__ Real rpn_binary(int op, Real a, Real b) {
+  switch (op) {
+    case RPN_ADD: return a + b;
+    case RPN_SUB: return a - b;
+    case RPN_MUL: return a * b;
+    case RPN_DIV: return a / b;
+    case RPN_MIN: return nan_min(a, b);
+  }
+  return nan_max(a, b);
 }
 
 __device__ __forceinline__ const float* row(const float* base, int plane,
@@ -140,13 +173,42 @@ __device__ int count_valid(const float* vg, int K, bool second) {
   return n;
 }
 
-__device__ void p4(float pt, float eta, float phi, float mass, float* px,
-                   float* py, float* pz, float* e) {
-  *px = pt * cosf(phi);
-  *py = pt * sinf(phi);
-  *pz = pt * sinhf(eta);
-  float ch = coshf(eta);
-  *e = sqrtf(mass * mass + pt * pt * ch * ch);
+// the four-vector of one object, as core/expr.py::leading_pair_mass's p4
+__device__ void p4(Real pt, Real eta, Real phi, Real mass, Real* px, Real* py,
+                   Real* pz, Real* e) {
+  *px = pt * cos(phi);
+  *py = pt * sin(phi);
+  *pz = pt * sinh(eta);
+  const Real ch = cosh(eta);
+  *e = sqrt(mass * mass + pt * pt * ch * ch);
+}
+
+// the invariant mass of the pair (slot i1 of terms 0-3, slot i2 of terms
+// 4-7; sel(t, slot) reads one), as leading_pair_mass computes it
+template <typename Sel>
+__device__ Real pair_mass(const Sel& sel, int i1, int i2) {
+  Real px1, py1, pz1, e1, px2, py2, pz2, e2;
+  p4(sel(0, i1), sel(1, i1), sel(2, i1), sel(3, i1), &px1, &py1, &pz1, &e1);
+  p4(sel(4, i2), sel(5, i2), sel(6, i2), sel(7, i2), &px2, &py2, &pz2, &e2);
+  const Real se = e1 + e2, sx = px1 + px2, sy = py1 + py2, sz = pz1 + pz2;
+  const Real m2 = se * se - sx * sx - sy * sy - sz * sz;
+  return sqrt(isnan(m2) ? m2 : fmax(m2, Real(0)));
+}
+
+// ΔR of the pair (slot i1 of terms 0-2, slot i2 of terms 3-5), as
+// core/expr.py::leading_delta_r computes it
+template <typename Sel>
+__device__ Real pair_delta_r(const Sel& sel, int i1, int i2) {
+  const Real deta = sel(1, i1) - sel(4, i2);
+  const Real dphi = floor_mod(sel(2, i1) - sel(5, i2) + kPi, 2 * kPi) - kPi;
+  return sqrt(deta * deta + dphi * dphi);
+}
+
+// whether group g (MASS or ΔR) passes with value v
+__device__ __forceinline__ bool pair_passes(const Program& p, int g, int kind, int op,
+                                            Real v) {
+  if (kind == G_MASS) return v >= p.cut(g, 0) && v <= p.cut(g, 1);
+  return apply_op(v, op, p.cut(g));
 }
 
 __device__ bool eval_pair(const Program& p, int g, long long e,
@@ -171,27 +233,15 @@ __device__ bool eval_pair(const Program& p, int g, long long e,
     ok = count_valid(vg, K, false) >= 1 && count_valid(vg, K, true) >= 1;
   }
   if (!ok) return false;
-  auto sel = [&](int t, int slot) { return row(in.terms, ids[t], e, in)[slot]; };
-  if (kind == G_MASS) {
-    float px1, py1, pz1, e1, px2, py2, pz2, e2;
-    p4(sel(0, i1), sel(1, i1), sel(2, i1), sel(3, i1), &px1, &py1, &pz1, &e1);
-    p4(sel(4, i2), sel(5, i2), sel(6, i2), sel(7, i2), &px2, &py2, &pz2, &e2);
-    float se = e1 + e2, sx = px1 + px2, sy = py1 + py2, sz = pz1 + pz2;
-    float m2 = se * se - sx * sx - sy * sy - sz * sz;
-    float m = sqrtf(isnan(m2) ? m2 : fmaxf(m2, 0.0f));
-    const float* thr = p.cmp_thrs + 2 * g;
-    return m >= thr[0] && m <= thr[1];
-  }
-  float deta = sel(1, i1) - sel(4, i2);
-  float dphi = floor_mod(sel(2, i1) - sel(5, i2) + kPi, 2.0f * kPi) - kPi;
-  float dr = sqrtf(deta * deta + dphi * dphi);
-  return apply_op(dr, gd[GD_CMP_OP], p.cmp_thrs[2 * g]);
+  auto sel = [&](int t, int slot) -> Real { return row(in.terms, ids[t], e, in)[slot]; };
+  const Real v = kind == G_MASS ? pair_mass(sel, i1, i2) : pair_delta_r(sel, i1, i2);
+  return pair_passes(p, g, kind, gd[GD_CMP_OP], v);
 }
 
 __device__ bool eval_expr(const Program& p, int g, long long e,
                           const Inputs& in) {
   const int* gd = p.groups + g * kGroupFields;
-  float stack[kMaxStack];
+  Real stack[kMaxStack];
   int sp = 0;
   const int off = gd[GD_RPN_OFF];
   for (int i = 0; i < gd[GD_RPN_LEN]; ++i) {
@@ -200,7 +250,7 @@ __device__ bool eval_expr(const Program& p, int g, long long e,
       stack[sp++] = row(in.terms, p.rpn_term[off + i], e, in)[0];
     } else if (op == RPN_SUM) {
       const float* x = row(in.terms, p.rpn_term[off + i], e, in);
-      float acc = 0.0f;
+      Real acc = 0;
       for (int k = 0; k < in.K; ++k) acc = acc + x[k];
       stack[sp++] = acc;
     } else if (op == RPN_CONST) {
@@ -208,23 +258,13 @@ __device__ bool eval_expr(const Program& p, int g, long long e,
     } else if (op == RPN_NEG) {
       stack[sp - 1] = -stack[sp - 1];
     } else if (op == RPN_ABS) {
-      stack[sp - 1] = fabsf(stack[sp - 1]);
+      stack[sp - 1] = fabs(stack[sp - 1]);
     } else {
-      const float b = stack[--sp];
-      const float a = stack[sp - 1];
-      float r;
-      switch (op) {
-        case RPN_ADD: r = a + b; break;
-        case RPN_SUB: r = a - b; break;
-        case RPN_MUL: r = a * b; break;
-        case RPN_DIV: r = a / b; break;
-        case RPN_MIN: r = nan_min(a, b); break;
-        default: r = nan_max(a, b); break;
-      }
-      stack[sp - 1] = r;
+      const Real b = stack[--sp];
+      stack[sp - 1] = rpn_binary(op, stack[sp - 1], b);
     }
   }
-  return apply_op(stack[sp - 1], gd[GD_CMP_OP], p.cmp_thrs[2 * g]);
+  return apply_op(stack[sp - 1], gd[GD_CMP_OP], p.cut(g));
 }
 
 __device__ bool eval_event(const Program& p, long long e, const Inputs& in) {
@@ -247,7 +287,7 @@ __device__ bool eval_event(const Program& p, long long e, const Inputs& in) {
       const float* vg = row(in.valid, g, e, in);
       const float* w = row(in.weights, g, e, in);
       int count = 0;
-      float ht = 0.0f;
+      Real ht = 0;
       for (int k = 0; k < in.K; ++k) {
         bool obj = true;
         for (int i = 0; i < nt; ++i)
@@ -255,10 +295,10 @@ __device__ bool eval_event(const Program& p, long long e, const Inputs& in) {
                                 p.ops[off + i], p.thrs[off + i]);
         obj = obj && (vg[k] > 0.0f);
         count += obj;
-        ht = ht + w[k] * (obj ? 1.0f : 0.0f);
+        ht = ht + Real(w[k]) * Real(obj ? 1 : 0);
       }
       pass = kind == G_COUNT ? count >= gd[GD_MIN_COUNT]
-                             : apply_op(ht, gd[GD_CMP_OP], p.cmp_thrs[2 * g]);
+                             : apply_op(ht, gd[GD_CMP_OP], p.cut(g));
     }
     if (!pass) return false;
   }

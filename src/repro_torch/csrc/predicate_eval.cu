@@ -25,8 +25,9 @@
 //    every event live: the (B, E) int32 mask.  Any E.
 //
 // What bounds it on an H100: bytes.  Each input element is read once and
-// feeds a few float32 compares, far below the card's compute/bandwidth
-// ratio, so the least time is the bytes the program needs over 3.35 TB/s:
+// feeds a few compares (or a float64 add), far below the card's
+// compute/bandwidth ratio, so the least time is the bytes the program needs
+// over 3.35 TB/s:
 // the K slots of every plane it reads (for the stage, of the live events
 // only, with their mask words and seg_ids), and the outputs.
 //
@@ -61,10 +62,11 @@
 //    warp's 32 lanes read 32 consecutive words of a plane: no bank
 //    conflicts.  Per-object flags are computed in parallel and a count is
 //    __popc of the flags' ballot.  Sums in slot order (HT's w[k]*obj,
-//    EXPR's sum()) go left to right, one shuffle and one add a slot, in
-//    every lane of the event: the reference's float32 order, with no tree.
-//    A pair group's leading slot is the same ordered scan.  Built with
-//    --fmad=false, every product and sum rounds as the reference's.
+//    EXPR's sum()) go left to right in float64, two shuffles (a double's
+//    halves) and one add a slot, in every lane of the event: the host's
+//    order, with no tree.  A pair group's leading slot is the same ordered
+//    scan.  Group values are float64 as in predicate.cuh; built with
+//    --fmad=false, every product and sum rounds as the host's.
 //    In the stage, a program with a mass or ΔR group at K <= 8 takes L = 1
 //    instead (an event a lane, the same code, a tile of at least 256
 //    events so every warp has events): its per-event four-vectors and trig
@@ -154,8 +156,8 @@ struct Lanes {
 // gets the sum).  The shuffles do not wait for the sum, so the unrolled
 // loop issues them all before the chain of adds.
 template <int W>
-__device__ __forceinline__ float add_slots(float acc, float x, int lead) {
-  float v[W];
+__device__ __forceinline__ Real add_slots(Real acc, Real x, int lead) {
+  Real v[W];
 #pragma unroll
   for (int kk = 0; kk < W; ++kk) v[kk] = __shfl_sync(kFull, x, lead + kk);
 #pragma unroll
@@ -164,7 +166,7 @@ __device__ __forceinline__ float add_slots(float acc, float x, int lead) {
 }
 
 // add_slots over one chunk of w slots (w = L but for a short last chunk)
-__device__ __forceinline__ float add_chunk(float acc, float x, const Lanes& ln, int w) {
+__device__ __forceinline__ Real add_chunk(Real acc, Real x, const Lanes& ln, int w) {
   switch (w) {
     case 32: return add_slots<32>(acc, x, ln.lead);
     case 16: return add_slots<16>(acc, x, ln.lead);
@@ -239,27 +241,16 @@ __device__ bool pair_lanes(const Program& p, int g, const Tile& t, int i,
     ok = n1 >= 1 && n2 >= 1;
   }
   if (!ok) return false;
-  auto sel = [&](int term, int slot) { return t.at(ids[term], i)[slot]; };
-  if (gd[GD_KIND] == G_MASS) {
-    float px1, py1, pz1, e1, px2, py2, pz2, e2;
-    p4(sel(0, i1), sel(1, i1), sel(2, i1), sel(3, i1), &px1, &py1, &pz1, &e1);
-    p4(sel(4, i2), sel(5, i2), sel(6, i2), sel(7, i2), &px2, &py2, &pz2, &e2);
-    float se = e1 + e2, sx = px1 + px2, sy = py1 + py2, sz = pz1 + pz2;
-    float m2 = se * se - sx * sx - sy * sy - sz * sz;
-    float m = sqrtf(isnan(m2) ? m2 : fmaxf(m2, 0.0f));
-    const float* thr = p.cmp_thrs + 2 * g;
-    return m >= thr[0] && m <= thr[1];
-  }
-  float deta = sel(1, i1) - sel(4, i2);
-  float dphi = floor_mod(sel(2, i1) - sel(5, i2) + kPi, 2.0f * kPi) - kPi;
-  float dr = sqrtf(deta * deta + dphi * dphi);
-  return apply_op(dr, gd[GD_CMP_OP], p.cmp_thrs[2 * g]);
+  auto sel = [&](int term, int slot) -> Real { return t.at(ids[term], i)[slot]; };
+  const int kind = gd[GD_KIND];
+  const Real v = kind == G_MASS ? pair_mass(sel, i1, i2) : pair_delta_r(sel, i1, i2);
+  return pair_passes(p, g, kind, gd[GD_CMP_OP], v);
 }
 
 __device__ bool expr_lanes(const Program& p, int g, const Tile& t, int i,
                            const Lanes& ln) {
   const int* gd = p.groups + g * kGroupFields;
-  float stack[kMaxStack];
+  Real stack[kMaxStack];
   int sp = 0;
   const int off = gd[GD_RPN_OFF];
   for (int r = 0; r < gd[GD_RPN_LEN]; ++r) {
@@ -268,10 +259,10 @@ __device__ bool expr_lanes(const Program& p, int g, const Tile& t, int i,
       stack[sp++] = t.at(p.rpn_term[off + r], i)[0];
     } else if (op == RPN_SUM) {
       const float* x = t.at(p.rpn_term[off + r], i);
-      float acc = 0.0f;
+      Real acc = 0;
       for (int j = 0; j < ln.J; ++j) {
         const int k = j * ln.L + ln.sub;
-        acc = add_chunk(acc, k < t.K ? x[k] : 0.0f, ln, ln.width(j, t.K));
+        acc = add_chunk(acc, k < t.K ? Real(x[k]) : Real(0), ln, ln.width(j, t.K));
       }
       stack[sp++] = acc;
     } else if (op == RPN_CONST) {
@@ -279,23 +270,13 @@ __device__ bool expr_lanes(const Program& p, int g, const Tile& t, int i,
     } else if (op == RPN_NEG) {
       stack[sp - 1] = -stack[sp - 1];
     } else if (op == RPN_ABS) {
-      stack[sp - 1] = fabsf(stack[sp - 1]);
+      stack[sp - 1] = fabs(stack[sp - 1]);
     } else {
-      const float b = stack[--sp];
-      const float a = stack[sp - 1];
-      float r2;
-      switch (op) {
-        case RPN_ADD: r2 = a + b; break;
-        case RPN_SUB: r2 = a - b; break;
-        case RPN_MUL: r2 = a * b; break;
-        case RPN_DIV: r2 = a / b; break;
-        case RPN_MIN: r2 = nan_min(a, b); break;
-        default: r2 = nan_max(a, b); break;
-      }
-      stack[sp - 1] = r2;
+      const Real b = stack[--sp];
+      stack[sp - 1] = rpn_binary(op, stack[sp - 1], b);
     }
   }
-  return apply_op(stack[sp - 1], gd[GD_CMP_OP], p.cmp_thrs[2 * g]);
+  return apply_op(stack[sp - 1], gd[GD_CMP_OP], p.cut(g));
 }
 
 // The program for tile-local event i, evaluated by the event's lanes;
@@ -323,7 +304,7 @@ __device__ bool eval_lanes(const Program& p, const Tile& t, int i, const Lanes& 
       const float* vg = t.at(T + g, i);
       const float* w = t.at(T + p.G + g, i);
       int count = 0;
-      float ht = 0.0f;
+      Real ht = 0;
       for (int j = 0; j < ln.J; ++j) {
         const int k = j * ln.L + ln.sub;
         bool obj = k < K;
@@ -332,11 +313,11 @@ __device__ bool eval_lanes(const Program& p, const Tile& t, int i, const Lanes& 
         obj = obj && (vg[k] > 0.0f);
         count += __popc(__ballot_sync(kFull, obj) & ln.mask);
         if (kind == G_HT)
-          ht = add_chunk(ht, k < K ? w[k] * (obj ? 1.0f : 0.0f) : 0.0f, ln,
+          ht = add_chunk(ht, k < K ? Real(w[k]) * Real(obj ? 1 : 0) : Real(0), ln,
                          ln.width(j, K));
       }
       pass = kind == G_COUNT ? count >= gd[GD_MIN_COUNT]
-                             : apply_op(ht, gd[GD_CMP_OP], p.cmp_thrs[2 * g]);
+                             : apply_op(ht, gd[GD_CMP_OP], p.cut(g));
     }
     all = all && pass;
   }
@@ -510,8 +491,8 @@ extern "C" int cascade_stage_launch(
     int G, long long E, int K, int tile, int mode, int smem_bytes, int lanes,
     unsigned long long planes_read,
     const int* groups, const int* term_ids, const int* ops, const float* thrs,
-    const float* cmp_thrs, const int* rpn_op, const int* rpn_term,
-    const float* rpn_const, uint32_t* packed, const int* seg_ids, int nb,
+    const double* cmp_thrs, const int* rpn_op, const int* rpn_term,
+    const double* rpn_const, uint32_t* packed, const int* seg_ids, int nb,
     int* out, int B, void* stream) {
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   cudaError_t err =
@@ -531,8 +512,8 @@ extern "C" int predicate_eval_launch(
     long long t_stride, long long g_stride, int B, int T, int G, long long E, int K,
     int tile, int mode, int smem_bytes, int lanes, unsigned long long planes_read,
     const int* groups, const int* term_ids, const int* ops, const float* thrs,
-    const float* cmp_thrs, const int* rpn_op, const int* rpn_term,
-    const float* rpn_const, int* out, void* stream) {
+    const double* cmp_thrs, const int* rpn_op, const int* rpn_term,
+    const double* rpn_const, int* out, void* stream) {
   if (B == 0 || E == 0) return (int)cudaSuccess;
   Program p{groups, term_ids, ops, thrs, cmp_thrs, rpn_op, rpn_term, rpn_const, G};
   Stage st{terms, valid, weights, t_stride, g_stride, nullptr, E, T, K, tile, mode, lanes,

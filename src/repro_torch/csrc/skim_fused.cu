@@ -15,7 +15,8 @@
 // float64): its rows move as raw bits of that width.
 //
 // What bounds it on an H100: bytes.  Each input element is read once and
-// used in a handful of float32 compares; the work per byte is far below
+// used in a handful of compares (float64 ones for the group values); the
+// work per byte is far below
 // the card's compute/bandwidth ratio, so the least time is the bytes over
 // 3.35 TB/s.  At the main path's shapes (E = 4096, D = 1) the inputs are
 // tens of KiB and the launch dominates: the design's aim is one launch
@@ -23,7 +24,7 @@
 //
 // Design:
 //  * The program is data, not code: the host flattens the frozen Program
-//    into small int32/float32 descriptor arrays (see
+//    into small int32/float32/float64 descriptor arrays (see
 //    repro_torch/kernels/skim_fused.py), so this one build serves every
 //    cascade stage and every padded E.  The reference instead specializes
 //    its kernel per program.
@@ -128,8 +129,8 @@ extern "C" int skim_fused_launch(
     const float* terms, const float* valid, const float* weights,
     const void* payload, int B, int T, int G, long long E, int K, int D, int elem_bytes,
     const int* groups, const int* term_ids, const int* ops, const float* thrs,
-    const float* cmp_thrs, const int* rpn_op, const int* rpn_term,
-    const float* rpn_const, unsigned long long* status, unsigned* tickets,
+    const double* cmp_thrs, const int* rpn_op, const int* rpn_term,
+    const double* rpn_const, unsigned long long* status, unsigned* tickets,
     unsigned epoch, void* out, int* totals,
     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

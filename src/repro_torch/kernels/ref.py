@@ -7,18 +7,31 @@ card, the oracle the kernels are held against by the tests and by
 ``chip_smoke.py``.  Nothing on the main path calls them when a card is
 present.
 
-Two rules keep them bit-identical to the JAX package's ``kernels/ref.py``:
+The predicate decides every event as the host evaluator does
+(``repro_torch.core.neardata.program_eval_np``, the staged semantics):
 
-* Sums over the ``K`` object slots run left to right, slot by slot.
-  ``torch.sum`` reduces in another order and can flip an HT or ``sum()``
-  cut at its edge; XLA on the CPU sums in slot order, and so do the loops
-  below and the CUDA kernel.
-* Bit patterns are held as ``int64`` and masked to 32 bits after each
-  step: PyTorch has no ``uint32`` shifts on the CPU, and an ``int32``
-  right shift is arithmetic, which would smear bit 31.
+* Per-object cuts (ANY, COUNT, HT's object cuts) compare a float32 value
+  with the cut read in float32, as numpy compares a float32 column with a
+  Python float.
+* Group values (MASS, ΔR, HT, EXPR) are evaluated in float64 from the
+  float32 planes widened exactly, in the host's operation order, and
+  compared with the float64 cut: every operation but MASS's ``cos``,
+  ``sin``, ``sinh`` and ``cosh`` is correctly rounded, so the value is the
+  host's bit for bit.  On the CPU those four are numpy's own, so MASS is
+  the host's too; on the card they are CUDA's, which may differ by a few
+  ulp (the kernels' only residue against the host).
+* Sums over the ``K`` object slots (HT, ``sum()``) run left to right,
+  slot by slot, from +0.0: the host's ``bincount`` order.  ``torch.sum``
+  reduces in another order.
+
+Bit patterns are held as ``int64`` and masked to 32 bits after each step:
+PyTorch has no ``uint32`` shifts on the CPU, and an ``int32`` right shift
+is arithmetic, which would smear bit 31.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -53,22 +66,20 @@ from repro_torch.kernels.program import (
     OP_NE,
 )
 
-# float32(pi), as the JAX oracle's ``jnp.float32(np.pi)``
-PI_F32 = float(np.float32(np.pi))
-
 # ---------------------------------------------------------------------------
 # predicate program
 # ---------------------------------------------------------------------------
 
 
-def _f32(x: torch.Tensor, value: float) -> torch.Tensor:
-    """A float32 scalar on ``x``'s device (comparisons and arithmetic with
-    it stay in float32, as JAX's weakly typed Python floats do)."""
-    return torch.tensor(value, dtype=torch.float32, device=x.device)
+def _scalar(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``value`` as a scalar of ``x``'s type on its device: read in float32
+    beside a float32 plane (as numpy reads a Python float beside a float32
+    column), exactly beside a float64 group value."""
+    return torch.tensor(value, dtype=x.dtype, device=x.device)
 
 
 def apply_op(x: torch.Tensor, op_id: int, thr: float) -> torch.Tensor:
-    t = _f32(x, thr)
+    t = _scalar(x, thr)
     if op_id == OP_GT:
         return x > t
     if op_id == OP_GE:
@@ -89,8 +100,9 @@ def apply_op(x: torch.Tensor, op_id: int, thr: float) -> torch.Tensor:
 
 
 def slot_sum(x: torch.Tensor) -> torch.Tensor:
-    """(E, K) -> (E,) float32 sum in slot order (see the module note)."""
-    acc = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    """(E, K) -> (E,) sum in slot order from +0.0, in ``x``'s type (see
+    the module note)."""
+    acc = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
     for k in range(x.shape[1]):
         acc = acc + x[:, k]
     return acc
@@ -130,20 +142,46 @@ def _pair_slots(pt_a, va, pt_b, vb, same: bool):
 
 
 def _sel(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return torch.gather(x, 1, idx)[:, 0]
+    """The slot ``idx`` of each event, widened to float64."""
+    return torch.gather(x, 1, idx)[:, 0].to(torch.float64)
+
+
+def _unary(np_fn, torch_fn, x: torch.Tensor) -> torch.Tensor:
+    """A float64 function as the host evaluator has it: numpy's own on a
+    CPU tensor, PyTorch's (CUDA's) on the card.  numpy's ``cos``, ``sin``,
+    ``sinh`` and ``cosh`` are not correctly rounded, so only the same
+    function gives the same bits; PyTorch's CPU ``sqrt`` is not either."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np_fn(x.numpy()))
+    return torch_fn(x)
 
 
 def _p4(pt, eta, phi, mass):
-    px = pt * torch.cos(phi)
-    py = pt * torch.sin(phi)
-    pz = pt * torch.sinh(eta)
-    ch = torch.cosh(eta)
-    e = torch.sqrt(mass * mass + pt * pt * ch * ch)
+    px = pt * _unary(np.cos, torch.cos, phi)
+    py = pt * _unary(np.sin, torch.sin, phi)
+    pz = pt * _unary(np.sinh, torch.sinh, eta)
+    ch = _unary(np.cosh, torch.cosh, eta)
+    e = _sqrt(mass * mass + pt * pt * ch * ch)
     return px, py, pz, e
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    return _unary(np.sqrt, torch.sqrt, x)
+
+
+def _floor_mod(x: torch.Tensor, y: float) -> torch.Tensor:
+    """numpy's ``remainder``: ``fmod``, moved by one period where its sign
+    differs from the divisor's, and a zero with the divisor's sign.
+    ``torch.remainder`` can return -0.0 where numpy returns +0.0."""
+    r = torch.fmod(x, y)
+    r = torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
+    return torch.where(r == 0, _scalar(r, math.copysign(0.0, y)), r)
+
+
 def pair_group_value(program, g: int, terms, valid):
-    """Invariant mass or ΔR of group ``g``'s leading pair -> (value, ok).
+    """Invariant mass or ΔR of group ``g``'s leading pair -> (value, ok),
+    the value in float64 as the host evaluator computes it
+    (``core.expr.leading_pair_mass`` / ``leading_delta_r``).
 
     ``value`` is garbage where ``ok`` is False.  Exposed so a check can
     tell a disagreement at a cut's edge (transcendental rounding) from a
@@ -163,13 +201,12 @@ def pair_group_value(program, g: int, terms, valid):
             - (py1 + py2) * (py1 + py2)
             - (pz1 + pz2) * (pz1 + pz2)
         )
-        return torch.sqrt(torch.maximum(m2, torch.zeros_like(m2))), ok
+        return _sqrt(torch.maximum(m2, torch.zeros_like(m2))), ok
     deta = _sel(terms[ids[1]], i1) - _sel(terms[ids[4]], i2)
-    pi = _f32(deta, PI_F32)
-    dphi = torch.remainder(
-        _sel(terms[ids[2]], i1) - _sel(terms[ids[5]], i2) + pi, 2.0 * pi
-    ) - pi
-    return torch.sqrt(deta * deta + dphi * dphi), ok
+    dphi = _floor_mod(
+        _sel(terms[ids[2]], i1) - _sel(terms[ids[5]], i2) + math.pi, 2.0 * math.pi
+    ) - math.pi
+    return _sqrt(deta * deta + dphi * dphi), ok
 
 
 def _np_minmax(a, b, take_a):
@@ -182,16 +219,18 @@ def _np_minmax(a, b, take_a):
 
 
 def _group_expr(grp, terms):
-    """Stack-program evaluation over term slots: flat branches read slot 0,
-    sum() reductions sum the zero-padded slots in slot order."""
+    """Stack-program evaluation over term slots in float64, the host's
+    ``expr.eval_rpn`` walk: flat branches read slot 0, sum() reductions sum
+    the zero-padded slots in slot order, constants are float64."""
     stack: list = []
     for op, arg in grp.rpn:
         if op == RPN_BRANCH:
-            stack.append(terms[int(arg)][:, 0])
+            stack.append(terms[int(arg)][:, 0].to(torch.float64))
         elif op == RPN_SUM:
-            stack.append(slot_sum(terms[int(arg)]))
+            stack.append(slot_sum(terms[int(arg)].to(torch.float64)))
         elif op == RPN_CONST:
-            stack.append(_f32(terms, float(arg)))
+            stack.append(torch.tensor(float(arg), dtype=torch.float64,
+                                      device=terms.device))
         elif op == RPN_NEG:
             stack.append(-stack.pop())
         elif op == RPN_ABS:
@@ -243,7 +282,7 @@ def predicate_mask(program, terms, valid, weights) -> torch.Tensor:
         elif grp.kind == GROUP_MASS:
             m, ok = pair_group_value(program, g, terms, valid)
             gpass = (
-                ok & (m >= _f32(m, grp.cmp_thr)) & (m <= _f32(m, grp.cmp_thr2))
+                ok & (m >= _scalar(m, grp.cmp_thr)) & (m <= _scalar(m, grp.cmp_thr2))
             )
         elif grp.kind == GROUP_DR:
             dr, ok = pair_group_value(program, g, terms, valid)
@@ -256,7 +295,7 @@ def predicate_mask(program, terms, valid, weights) -> torch.Tensor:
             if grp.kind == GROUP_COUNT:
                 gpass = obj.sum(dim=-1) >= grp.min_count
             elif grp.kind == GROUP_HT:
-                ht = slot_sum(weights[g] * obj.to(torch.float32))
+                ht = slot_sum(weights[g].to(torch.float64) * obj.to(torch.float64))
                 gpass = apply_op(ht, grp.cmp_op, grp.cmp_thr)
             else:
                 raise ValueError(grp.kind)

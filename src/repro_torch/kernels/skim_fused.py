@@ -15,7 +15,7 @@ the kernel itself), and writes the counts and the packed rows into one
 allocation (:func:`launch`), so a caller can read both back in one copy.
 
 The program reaches the kernel as data: :func:`program_descriptor`
-flattens a frozen :class:`Program` into small int32/float32 arrays,
+flattens a frozen :class:`Program` into small int32/float32/float64 arrays,
 uploaded once per (program, device) and cached by the program's
 identity for as long as the program lives, so one build serves every
 cascade stage and a call hashes nothing.  The look-back's status words
@@ -65,14 +65,17 @@ def _stack_depth(rpn) -> int:
     return peak
 
 
-def flatten_program(program: Program) -> tuple[np.ndarray, np.ndarray, dict]:
-    """Program -> (int32 array, float32 array, offsets of each segment).
+def flatten_program(program: Program) -> tuple[np.ndarray, np.ndarray, np.ndarray, dict]:
+    """Program -> (int32 array, float32 array, float64 array, offsets of
+    each segment in its array).
 
     int32: groups (G, 8) = kind, term offset, term count, min_count,
     cmp_op, same-collection flag, RPN offset, RPN length; then term ids,
     ops (aligned with the term ids), RPN opcodes, RPN term slots.
-    float32: thresholds (aligned with the term ids), (cmp_thr, cmp_thr2)
-    per group, RPN constants.
+    float32: the per-object thresholds (aligned with the term ids), which
+    the kernels compare with float32 values.  float64: (cmp_thr, cmp_thr2)
+    per group and the RPN constants, exact: the group values they meet are
+    evaluated in float64.
     """
     groups, term_ids, ops, thrs, cmp_thrs = [], [], [], [], []
     rpn_op, rpn_term, rpn_const = [], [], []
@@ -94,20 +97,21 @@ def flatten_program(program: Program) -> tuple[np.ndarray, np.ndarray, dict]:
             rpn_op.append(op)
             rpn_term.append(int(arg) if op in (RPN_BRANCH, RPN_SUM) else 0)
             rpn_const.append(float(arg) if op == RPN_CONST else 0.0)
-    segs_i = [np.asarray(groups, np.int64).reshape(-1), term_ids, ops, rpn_op, rpn_term]
-    segs_f = [thrs, cmp_thrs, rpn_const]
-    offsets, ints, floats = {}, [], []
-    for name, seg in zip(("groups", "term_ids", "ops", "rpn_op", "rpn_term"), segs_i):
-        offsets[name] = len(ints)
-        ints.extend(int(x) for x in seg)
-    for name, seg in zip(("thrs", "cmp_thrs", "rpn_const"), segs_f):
-        offsets[name] = len(floats)
-        floats.extend(float(x) for x in seg)
-    return (
-        np.asarray(ints + [0], np.int32),
-        np.asarray(floats + [0.0], np.float32),
-        offsets,
+    segments = (
+        (np.int32, (("groups", np.asarray(groups, np.int64).reshape(-1)),
+                    ("term_ids", term_ids), ("ops", ops), ("rpn_op", rpn_op),
+                    ("rpn_term", rpn_term))),
+        (np.float32, (("thrs", thrs),)),
+        (np.float64, (("cmp_thrs", cmp_thrs), ("rpn_const", rpn_const))),
     )
+    offsets, arrays = {}, []
+    for dtype, segs in segments:
+        values = []
+        for name, seg in segs:
+            offsets[name] = len(values)
+            values.extend(seg)
+        arrays.append(np.asarray(values + [0], dtype))
+    return (*arrays, offsets)
 
 
 def program_descriptor(program: Program, device: torch.device):
@@ -122,22 +126,21 @@ def program_args(program: Program, device: torch.device):
 
 
 def _descriptor_entry(program: Program, device: torch.device):
-    """((ints, floats, offsets), the eight kernel pointer arguments),
-    cached by ``id(program)`` while the program lives."""
+    """((ints, floats, doubles, offsets), the eight kernel pointer
+    arguments), cached by ``id(program)`` while the program lives."""
     key = (id(program), device)
     entry = _DESCRIPTORS.get(key)
     if entry is None:
-        ints, floats, offsets = flatten_program(program)
-        ints = torch.from_numpy(ints).to(device)
-        floats = torch.from_numpy(floats).to(device)
+        *arrays, offsets = flatten_program(program)
+        ints, floats, doubles = (torch.from_numpy(a).to(device) for a in arrays)
 
         def at(base, name):
-            return ctypes.c_void_p(base.data_ptr() + 4 * offsets[name])
+            return ctypes.c_void_p(base.data_ptr() + base.element_size() * offsets[name])
 
         args = (at(ints, "groups"), at(ints, "term_ids"), at(ints, "ops"),
-                at(floats, "thrs"), at(floats, "cmp_thrs"), at(ints, "rpn_op"),
-                at(ints, "rpn_term"), at(floats, "rpn_const"))
-        entry = ((ints, floats, offsets), args)
+                at(floats, "thrs"), at(doubles, "cmp_thrs"), at(ints, "rpn_op"),
+                at(ints, "rpn_term"), at(doubles, "rpn_const"))
+        entry = ((ints, floats, doubles, offsets), args)
         _DESCRIPTORS[key] = entry
         weakref.finalize(program, _DESCRIPTORS.pop, key, None)
     return entry

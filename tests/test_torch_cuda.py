@@ -667,10 +667,20 @@ def test_cuda_nonfinite_window_matches_the_host(cuda_device):
 def test_cuda_nonfinite_store_matches_the_host(cuda_device):
     """Phase 3g at 20,000 events: every query of
     ``chip_smoke.nonfinite_queries`` per window and batched on the card,
-    equal to the host runs through the plain versions and to the staged
-    run (float32 cut edges excepted and checked)."""
+    equal to the host runs through the plain versions, which equal the
+    staged run (MASS events within the residue excepted and checked)."""
     out = chip_smoke.run_nonfinite_path(cuda_device, n_events=20_000)
     assert out["launches"]["skim_fused"] > 0 and out["launches"]["cascade_stage"] > 0
     for name, runs in out["survivors"].items():
-        if name not in out["edges"]:
+        if name not in out["residues"]:
             assert len(set(runs.values())) == 1, (name, runs)
+
+
+@pytest.mark.cuda
+def test_cuda_edge_window_matches_the_host(cuda_device):
+    """``chip_smoke.edge_window``'s events at float32 cut edges (MASS at
+    both ends of its window, ΔR under < and >, HT against 200.3, EXPR with
+    sum() and with 0.1) through predicate_eval, cascade_stage, skim_fused
+    and skim_fused_batch: equal to their plain versions and to the host
+    evaluator (MASS events within the residue excepted and checked)."""
+    assert chip_smoke.check_edge_kernels(cuda_device) == 0.0
