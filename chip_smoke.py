@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
-Phases, in order; the first failure stops the run with a non-zero exit:
+``--parent`` names a copy of the parent commit's tree (``git archive
+<parent> | tar -x -C DIR``): rows 1, 3, 4 and 6 are then also timed beside
+its kernels and wrappers (phase 3c).  Phases, in order; the first failure stops the run with a non-zero exit:
 
 1. Device: the card's name and power limit (``nvidia-smi``), the torch
    and CUDA versions, then the build of every kernel from ``src/`` and,
@@ -12,9 +14,9 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    baselines (:data:`PARENT_CU`), and the attention
    library's SASS (``cuobjdump``): its 16-bit routes must hold ``HGMMA``
    (wgmma) and its float32 route tf32 ``HMMA`` (mma.sync); ptxas's
-   registers and spills of the attention, skim and predicate kernels, and
-   of the skim and predicate kernels' float32 build
-   (:data:`FLOAT32_REAL`), built beside them as a timing baseline.
+   registers and spills of the attention, skim and predicate kernels, and,
+   with ``--parent``, of the parent tree's skim and predicate kernels,
+   built beside them as a timing baseline.
 2. Kernels against their plain PyTorch versions, on the card:
    ``basket_decode`` bit for bit (same-shaped batches, mixed-kind rounds
    in one launch each, rounds of real blobs through
@@ -46,7 +48,9 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    (:func:`check_nonfinite_kernels`); then the four that evaluate the
    program on :func:`edge_window`'s events at float32 cut edges, against
    their plain versions and the host evaluator (:func:`check_edge_kernels`:
-   equal but for MASS events within :data:`MASS_RESIDUE_N`).
+   equal but for MASS events within :data:`MASS_RESIDUE_N`), and on
+   :func:`int_window`'s integer branches and non-bool ANY words with the
+   planes' kinds, bit for bit (:func:`check_int_kernels`).
    Then each skim kernel's median time beside its plain version's and
    its bound, at the shapes the main path gives it (window 0's decode
    rounds and skim calls; the batch of the first 16 windows), with the
@@ -120,10 +124,10 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    the host run; then the paper's four placements from ``skim_service``'s
    table, each mode's ``Breakdown`` total and ``busy_fraction`` at 1, 10
    and 100 Gb/s (modeled links), card and host.
-   Phase 3c also times ``skim_fused``, ``cascade_stage``,
-   ``predicate_eval`` and ``skim_fused_batch`` beside the same sources
-   built with the group values in float32 (:data:`FLOAT32_REAL`), in
-   turns (:func:`time_float32_ab`).
+   With ``--parent``, phase 3c also times ``skim_fused``,
+   ``cascade_stage``, ``predicate_eval`` and ``skim_fused_batch`` beside
+   the parent tree's kernels and wrappers on the same cases, in turns
+   (:func:`time_parent_ab`).
    Then phase 3g, non-finite values: the eight cases of
    :func:`nonfinite_window` through the CUDA skim against the host
    evaluator, then a 200,000-event NanoAOD-like store with 2% of every
@@ -133,9 +137,15 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    Z->ee: each host run through the plain versions equal to the staged
    reference, each card run to the host run of its path, except MASS
    events within the residue (:data:`MASS_RESIDUE_N`; checked, logged).
+   Then phase 3h, integer branches and ANY over non-bool words: a
+   200,000-event NanoAOD-like store whose ``event`` is 1,234,567,890 plus a
+   seeded permutation (:func:`make_int_stores`), through ``run_skim`` on
+   the card per window and with ``device_batch=16``, decode on the card,
+   for every query of :func:`int_queries`, each equal to the port's staged
+   run in survivors and output bytes, the picks keeping their one event.
 4. One JSON line listing each kernel (its launches those of every main
-   path, the serving plane's, the mesh skim's, the examples' and the
-   non-finite store's included),
+   path, the serving plane's, the mesh skim's, the examples', the
+   non-finite store's and the int store's included),
    then the device line last.
 
 It imports ``repro_torch`` and the query corpus of
@@ -636,6 +646,152 @@ def edge_window(seed: int = 0):
             columns[f"{coll}_{var}"] = np.ascontiguousarray(flat[:, i])
             jagged[f"{coll}_{var}"] = f"n{coll}"
     return columns, jagged, edges
+
+
+# ---------------------------------------------------------------------------
+# integer branches and ANY over non-bool branches: events float32 planes and
+# ANY's compiled ">= 0.5" decide otherwise than the staged evaluator (ROADMAP
+# C9)
+# ---------------------------------------------------------------------------
+
+INT_EVENTS = 64  # the int window's events
+INT_BASKET = 16  # its basket size: four baskets
+INT_BASE = 123_456_789  # the window's event numbers in NanoAOD's range start here
+INT_ID = 1 << 24  # Jet_id lies in [2^24 - 20, 2^24 + 20], float32's first gap
+INT_HLT_I = (-3, -1, 0, 0, 1, 2)  # the int32 trigger word's values
+INT_HLT_F = (-1.0, -0.0, 0.0, 0.3, 1.0, float("nan"))  # the float32 one's
+INT_STORE_BASE = 1_234_567_890  # phase 3h's first event number
+INT_STORE_EVENTS = 200_000
+
+
+def int_queries(base: int, n_base: int) -> dict:
+    """The integer and ANY queries over a store whose events include the
+    numbers ``base + [0, n_base)`` and the branches of :func:`int_columns`:
+    picks by ``event`` (alone and with ``run`` and ``luminosityBlock``),
+    cuts above and below it and an expression of it, ``abs<`` / ``abs>`` on
+    an int32 word across -2^31, an int32 object id beside 2^24 as a COUNT
+    cut, an HT object cut, an HT weight and a ``sum()``, and ANY over an
+    int32 and a float32 word, and over an absent branch and the float32
+    one.  Float32 rounds every such number but the ANY branches, and ANY's
+    compiled ``>= 0.5`` fails -3, -1, 0.3 and NaN, which are true."""
+    out = ["MET_pt", "event"]
+
+    def presel(*cuts):
+        return {"branches": out, "selection": {"preselection": [
+            {"branch": b, "op": op, "value": v} for b, op, v in cuts]}}
+
+    def event(*sel):
+        return {"branches": out, "selection": {"event": list(sel)}}
+
+    def jets(*cuts):
+        return {"branches": out, "selection": {"object": [
+            {"collection": "Jet", "min_count": 1,
+             "cuts": [{"var": v, "op": op, "value": x} for v, op, x in cuts]}]}}
+
+    return {
+        "event-pick": presel(("event", "==", base + n_base // 2 + 1)),
+        "event-gt": presel(("event", ">", base + n_base - n_base // 8 - 0.5)),
+        "event-expr": event({"type": "expr", "expr": f"event - {base}", "op": "<",
+                             "value": 3}),
+        "run-lumi-event": presel(("run", "==", 362104),
+                                 ("luminosityBlock", "==", (base + 5) // 100),
+                                 ("event", "==", base + 5)),
+        "abs-lt": presel(("Word_i32", "abs<", 2147483647.0)),
+        "abs-gt": presel(("Word_i32", "abs>", 2147483646.5)),
+        "jet-id": jets(("id", "==", INT_ID + 1)),
+        "ht-id-cut": event({"type": "ht", "collection": "Jet", "var": "pt",
+                            "object_cuts": [{"var": "id", "op": ">", "value": INT_ID + 0.5}],
+                            "op": ">", "value": 10.0}),
+        "ht-of-id": event({"type": "ht", "collection": "Jet", "var": "id", "op": ">",
+                           "value": 2 * INT_ID + 0.5}),
+        "expr-sum-id": event({"type": "expr", "expr": f"sum(Jet_id) - {2 * INT_ID}",
+                              "op": ">", "value": 0.5}),
+        "any-nonbool": event({"type": "any", "branches": ["HLT_i", "HLT_f"]}),
+        "any-absent": event({"type": "any", "branches": ["HLT_absent", "HLT_f"]}),
+    }
+
+
+# the int window's queries (its events include INT_BASE + [0, 32))
+INT_QUERIES = int_queries(INT_BASE, INT_EVENTS // 2)
+
+
+def int_columns(rng, n: int, n_jets: int) -> dict:
+    """The integer and trigger-word branches :func:`int_queries` reads
+    beyond ``event``, ``run`` and ``luminosityBlock``: ``Word_i32`` (int32,
+    uniform, with -2^31, -2^31 + 1, 2^31 - 1 and 0 among the first 16
+    events: one basket, which the zone map cannot accept whole), ``HLT_i``
+    (int32 of :data:`INT_HLT_I`), ``HLT_f`` (float32 of :data:`INT_HLT_F`)
+    and ``Jet_id`` (``n_jets`` int32 in [2^24 - 20, 2^24 + 20])."""
+    import numpy as np
+
+    word = rng.integers(-(1 << 31), 1 << 31, n, dtype=np.int64).astype(np.int32)
+    word[rng.permutation(min(n, 16))[:4]] = [-(1 << 31), -(1 << 31) + 1, (1 << 31) - 1, 0]
+    return {
+        "Word_i32": word,
+        "HLT_i": rng.choice(np.array(INT_HLT_I, np.int32), n),
+        "HLT_f": rng.choice(np.array(INT_HLT_F, np.float32), n),
+        "Jet_id": rng.integers(INT_ID - 20, INT_ID + 21, n_jets).astype(np.int32),
+    }
+
+
+def int_window(seed: int = 0):
+    """:data:`INT_EVENTS` events as (columns, jagged) for
+    ``EventStore.from_arrays``: ``event`` a seeded permutation of
+    2^24 - 16 + [0, 32) and :data:`INT_BASE` + [0, 32), ``luminosityBlock``
+    ``event // 100``, ``run`` 362104, ``MET_pt``, Jets (0-3 an event; pt
+    float32, id int32), and :func:`int_columns`, the first two events of two
+    jets given the ids (2^24 + 1, 2^24) and (2^24 + 1, 2^24 + 1), whose
+    sums float32 rounds to 2^25."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, half = INT_EVENTS, INT_EVENTS // 2
+    event = rng.permutation(np.concatenate(
+        [INT_ID - half // 2 + np.arange(half), INT_BASE + np.arange(half)])).astype(np.int32)
+    n_jet = rng.integers(0, 4, n).astype(np.int32)
+    columns = {
+        "MET_pt": rng.uniform(0, 100, n).astype(np.float32),
+        "run": np.full(n, 362104, np.int32),
+        "event": event,
+        "luminosityBlock": event // 100,
+        "nJet": n_jet,
+        "Jet_pt": rng.uniform(5, 100, int(n_jet.sum())).astype(np.float32),
+    }
+    columns.update(int_columns(rng, n, int(n_jet.sum())))
+    first = np.cumsum(n_jet) - n_jet  # each event's first jet
+    for e, ids in zip(np.flatnonzero(n_jet == 2), ((INT_ID + 1, INT_ID),
+                                                   (INT_ID + 1, INT_ID + 1))):
+        columns["Jet_id"][first[e]:first[e] + 2] = ids
+    return columns, {"Jet_pt": "nJet", "Jet_id": "nJet"}
+
+
+def make_int_stores(n_events: int = INT_STORE_EVENTS, seed: int = 3) -> list:
+    """Phase 3h's store, built on the card and on the host:
+    ``make_nanoaod_like(n_events, n_hlt=8, n_filler=2)`` with ``event``
+    :data:`INT_STORE_BASE` plus a seeded permutation of [0, n_events),
+    ``luminosityBlock`` ``event // 100``, and :func:`int_columns` (its
+    ``Jet_id`` over the store's jets)."""
+    import numpy as np
+
+    from repro_torch.data.store import EventStore
+    from repro_torch.data.synth import make_nanoaod_like
+
+    base = make_nanoaod_like(n_events, **NONFINITE_SHAPE, device="cpu")
+    columns, jagged = {}, {}
+    for name, br in base.branches.items():
+        if br.jagged:
+            columns[name] = np.array(base.read_jagged(name)[0])
+            jagged[name] = br.counts_branch
+        else:
+            columns[name] = np.array(base.read_flat(name))
+    rng = np.random.default_rng(seed)
+    columns["event"] = (INT_STORE_BASE + rng.permutation(n_events)).astype(np.int32)
+    columns["luminosityBlock"] = columns["event"] // 100
+    columns.update(int_columns(rng, n_events, int(columns["nJet"].sum())))
+    jagged["Jet_id"] = "nJet"
+    return [EventStore.from_arrays(columns, jagged=jagged,
+                                   basket_events=base.basket_events, device=d)
+            for d in (None, "cpu")]
 
 
 class SmokeFailure(RuntimeError):
@@ -2033,14 +2189,15 @@ cudaError_t launch_rows(const void* payload, const uint32_t* words,
 extern "C" int parent_skim_launch(
     const float* terms, const float* valid, const float* weights,
     const float* payload, int B, int T, int G, long long E, int K, int D,
-    const int* groups, const int* term_ids, const int* ops, const float* thrs,
-    const double* cmp_thrs, const int* rpn_op, const int* rpn_term,
+    const int* groups, const int* term_ids, const int* ops, const int* kinds,
+    const double* thrs, const double* cmp_thrs, const int* rpn_op, const int* rpn_term,
     const double* rpn_const, unsigned long long* status, unsigned* tickets,
     unsigned epoch, float* out, int* totals, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (epoch == 0 || epoch >= (1u << 30)) return (int)cudaErrorInvalidValue;
   const int n_tiles = (int)((E + kTile - 1) / kTile);
-  Program p{groups, term_ids, ops, thrs, cmp_thrs, rpn_op, rpn_term, rpn_const, G};
+  Program p{groups, term_ids, ops, kinds + T, kinds, thrs, cmp_thrs, rpn_op,
+            rpn_term, rpn_const, G};
   Inputs batch{terms, valid, weights, E, K};
   parent_skim_kernel<<<dim3((unsigned)n_tiles, (unsigned)B), kTile, 0, s>>>(
       p, batch, T, reinterpret_cast<const uint32_t*>(payload), D,
@@ -2050,14 +2207,15 @@ extern "C" int parent_skim_launch(
 extern "C" int parent_stage_launch(
     const float* terms, const float* valid, const float* weights, int B,
     int T, int G, long long E, int K, const int* groups, const int* term_ids,
-    const int* ops, const float* thrs, const double* cmp_thrs,
+    const int* ops, const int* kinds, const double* thrs, const double* cmp_thrs,
     const int* rpn_op, const int* rpn_term, const double* rpn_const,
     uint32_t* packed, const int* seg_ids, int nb, int* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       cudaMemsetAsync(out, 0, sizeof(int) * (size_t)B * (size_t)(nb + 1), s);
   if (err != cudaSuccess) return (int)err;
-  Program p{groups, term_ids, ops, thrs, cmp_thrs, rpn_op, rpn_term, rpn_const, G};
+  Program p{groups, term_ids, ops, kinds + T, kinds, thrs, cmp_thrs, rpn_op,
+            rpn_term, rpn_const, G};
   Inputs batch{terms, valid, weights, E, K};
   dim3 grid((unsigned)((E + kTile - 1) / kTile), (unsigned)B);
   cascade_stage_kernel<<<grid, kTile, 0, s>>>(p, batch, T, packed, seg_ids, nb, out);
@@ -2066,10 +2224,11 @@ extern "C" int parent_stage_launch(
 extern "C" int parent_mask_launch(
     const float* terms, const float* valid, const float* weights, int B,
     int T, int G, long long E, int K, const int* groups, const int* term_ids,
-    const int* ops, const float* thrs, const double* cmp_thrs,
+    const int* ops, const int* kinds, const double* thrs, const double* cmp_thrs,
     const int* rpn_op, const int* rpn_term, const double* rpn_const, int* out,
     void* stream) {
-  Program p{groups, term_ids, ops, thrs, cmp_thrs, rpn_op, rpn_term, rpn_const, G};
+  Program p{groups, term_ids, ops, kinds + T, kinds, thrs, cmp_thrs, rpn_op,
+            rpn_term, rpn_const, G};
   Inputs batch{terms, valid, weights, E, K};
   const dim3 grid((unsigned)((E + kTile - 1) / kTile), (unsigned)B);
   predicate_eval_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -2701,39 +2860,56 @@ extern "C" int parent_attn_launch(const void* q, const void* k, const void* v, v
 """
 PARENT_CU += PARENT_ATTN_CU
 
-# The float32 build: this tree's skim_fused.cu and predicate_eval.cu with
-# predicate.cuh's type of the group values set to float, which is the
-# padded route's evaluation before it took float64 (the cuts and constants
-# read from the same float64 descriptors are rounded to float32, as the
-# float32 descriptors held them): rows 1, 3, 4 and 6's timing baseline
-# (:func:`start_float32_build`).  (file, this tree's line, its float32 line)
-FLOAT32_REAL = ("predicate.cuh", "using Real = double;", "using Real = float;")
-FLOAT32_KERNELS = ("skim_fused", "predicate_eval")
+# Rows 1, 3, 4 and 6 beside the parent tree's sources: its skim_fused.cu and
+# predicate_eval.cu (every plane read as float32, ANY by its compiled op)
+# and the wrappers that call them, from a copy of the parent commit's src/
+# given with --parent (``git archive <parent> | tar -x -C _local/parent``):
+# :func:`start_parent_ab_build`, :func:`time_parent_ab`.
+PARENT_AB_KERNELS = ("skim_fused", "predicate_eval")
 
 
-def start_float32_build():
-    """Start ``nvcc -Xptxas -v`` on ``skim_fused.cu`` and
-    ``predicate_eval.cu`` copied with every source of ``csrc/`` into
-    ``build/``, :data:`FLOAT32_REAL` swapped in; returns [(process or None,
-    kernel, library path)]."""
+def float32_layout(terms, weights, kinds):
+    """``terms`` (..., T, E, K) and ``weights`` (..., G, E, K) with every
+    plane ``kinds`` marks as an integer's int32 bits (the T terms', then
+    the G weights') holding its float32 value instead: the JAX package's
+    layout, which the public forms, the earlier designs and the parent's
+    kernels read.  Tensors or numpy arrays, given back in their type."""
+    import numpy as np
+    import torch
+
+    if not kinds or not any(kinds):
+        return terms, weights
+    T = terms.shape[-3]
+    out = []
+    for x, ks in ((terms, kinds[:T]), (weights, kinds[T:])):
+        y = torch.from_numpy(np.array(x)) if isinstance(x, np.ndarray) else x.clone()
+        for q, k in enumerate(ks):
+            if k:
+                y[..., q, :, :] = y[..., q, :, :].view(torch.int32).to(torch.float32)
+        out.append(y.numpy() if isinstance(x, np.ndarray) else y)
+    return tuple(out)
+
+
+def start_parent_ab_build(parent_src: Path):
+    """Start ``nvcc -Xptxas -v`` on the parent tree's ``skim_fused.cu`` and
+    ``predicate_eval.cu`` (``parent_src``: its ``src/``), copied with every
+    source of its ``csrc/`` into ``build/parent-src-<hash>/``; returns
+    [(process or None, kernel, library path)]."""
     import hashlib
 
     from repro_torch.kernels import _build
 
-    texts = {f.name: f.read_text() for f in sorted(_build._CSRC.iterdir())
+    csrc = parent_src / "repro_torch" / "csrc"
+    texts = {f.name: f.read_text() for f in sorted(csrc.iterdir())
              if f.suffix in (".cu", ".cuh")}
-    fname, line, float_line = FLOAT32_REAL
-    if texts[fname].count(line) != 1:
-        raise SmokeFailure(f"FLOAT32_REAL: {line!r} is not in {fname} once")
-    texts[fname] = texts[fname].replace(line, float_line)
     digest = hashlib.sha256("".join(texts[k] for k in sorted(texts)).encode()
                             + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
-    root = _build.build_dir() / f"float32-{digest}"
+    root = _build.build_dir() / f"parent-src-{digest}"
     root.mkdir(parents=True, exist_ok=True)
     for name, text in texts.items():
         (root / name).write_text(text)
     out = []
-    for name in FLOAT32_KERNELS:
+    for name in PARENT_AB_KERNELS:
         lib = root / f"{name}.so"
         proc = None if lib.exists() else subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(root),
@@ -2743,44 +2919,67 @@ def start_float32_build():
     return out
 
 
-def finish_float32_build(procs) -> dict:
-    """Wait for :func:`start_float32_build`; logs ptxas's registers and
-    spills of each kernel; returns {kernel: the loaded library}."""
+def finish_parent_ab_build(procs, parent_src: Path):
+    """Wait for :func:`start_parent_ab_build`; logs ptxas's registers and
+    spills of each kernel; loads the parent's ``kernels/skim_fused.py`` and
+    ``kernels/predicate_eval.py`` as modules of their own (its
+    ``predicate_eval`` reading its own ``skim_fused``'s descriptors).
+    Returns (skim_fused module, predicate_eval module, {kernel: library})."""
     import ctypes
+    import importlib.util
 
     libs = {}
     for proc, name, lib in procs:
         if proc is not None:
             out, err = proc.communicate()
             check(proc.returncode == 0,
-                  f"the float32 build of {name} failed:\n{out}{err}")
+                  f"the parent's build of {name} failed:\n{out}{err}")
             for entry, line in sorted(ptxas_entries(out + err).items()):
-                log(f"  ptxas, float32 build, {name} {entry}: {line}")
+                log(f"  ptxas, the parent's {name} {entry}: {line}")
         libs[name] = ctypes.CDLL(str(lib))
-    return libs
+    kdir = parent_src / "repro_torch" / "kernels"
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(f"parent_{name}", kdir / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    psf = load("skim_fused")
+    key = "repro_torch.kernels.skim_fused"
+    ours = sys.modules[key]
+    sys.modules[key] = psf  # the parent's predicate_eval imports its program_args
+    try:
+        ppe = load("predicate_eval")
+    finally:
+        sys.modules[key] = ours
+    return psf, ppe, libs
 
 
-def time_float32_ab(skim_cases, stage_cases, batch_cases, float32_libs) -> dict:
+def time_parent_ab(skim_cases, stage_cases, batch_cases, parent_ab) -> dict:
     """Rows 1, 3, 4 and 6 at the path's shapes (:func:`time_kernels`'
     cases: each skim call, each cascade stage of the first 16-window batch
     with the carried mask restored before each call and the copy's time
     taken off, window 0 of each batch as ``predicate_eval``, each batch of
-    ``skim_fused_batch``), device ms of this tree's kernels beside the same
-    sources' float32 build (``float32_libs``, from
-    :func:`finish_float32_build`), in turns: float32, this tree, this tree,
-    float32.  Returns {row: {"ms", "float32_ms", "spread_ms",
-    "float32_spread_ms", "cases"}}: means over the cases of each side's two
-    readings and of the gap between them."""
+    ``skim_fused_batch``), device ms of this tree's kernels with the
+    path's plane kinds beside the parent's wrappers and kernels
+    (``parent_ab``, from :func:`finish_parent_ab_build`) on the same cases
+    in the float32 layout they read (:func:`float32_layout`), in turns:
+    parent, this tree, this tree, parent.  Returns {row: {"ms",
+    "parent_ms", "spread_ms", "parent_spread_ms", "cases"}}: means over
+    the cases of each side's two readings and of the gap between them."""
     import contextlib
 
     from repro_torch.kernels import _build
     from repro_torch.kernels import predicate_eval as pe
     from repro_torch.kernels import skim_fused as sf
 
+    psf, ppe, libs = parent_ab
+
     @contextlib.contextmanager
-    def float32():
-        saved = {n: _build._LIBS.get(n) for n in float32_libs}
-        _build._LIBS.update(float32_libs)
+    def parent():
+        saved = {n: _build._LIBS.get(n) for n in libs}
+        _build._LIBS.update(libs)
         try:
             yield
         finally:
@@ -2790,36 +2989,54 @@ def time_float32_ab(skim_cases, stage_cases, batch_cases, float32_libs) -> dict:
                 else:
                     _build._LIBS[n] = lib
 
-    def turns(fn, offset=0.0):
-        with float32():
-            first = device_ms(fn)
+    def turns(fn, parent_fn, offset=0.0):
+        with parent():
+            first = device_ms(parent_fn)
         new = (device_ms(fn), device_ms(fn))
-        with float32():
-            last = device_ms(fn)
+        with parent():
+            last = device_ms(parent_fn)
         return (sum(new) / 2 - offset, (first + last) / 2 - offset,
                 abs(new[0] - new[1]), abs(first - last))
 
     pairs = {"skim_fused": [], "predicate_eval_batch": [], "predicate_eval": [],
              "skim_fused_batch": []}
-    for program, (t, v, w, p), _ in skim_cases:
-        pairs["skim_fused"].append(
-            turns(lambda: sf.skim_fused(t, v, w, p, program)))
+    for program, (t, v, w, p), _, kinds in skim_cases:
+        t32, w32 = float32_layout(t, w, kinds)
+        pairs["skim_fused"].append(turns(
+            lambda: sf.skim_fused(t, v, w, p, program, kinds),
+            lambda: psf.skim_fused(t32, v, w32, p, program)))
     for program, nb, (t, v, w), packed0, seg, st in stage_cases:
         pk = packed0.clone()
+        kinds = st["kinds"]
+        T, G = program.n_terms, program.n_groups
+        planes = st["planes"]
+        t32, w32 = float32_layout(planes[:, :T], planes[:, T + G:], kinds)
+        planes32 = planes.clone()
+        planes32[:, :T], planes32[:, T + G:] = t32, w32
 
-        def stage(pk=pk, packed0=packed0, st=st, seg=seg, program=program, nb=nb):
+        def stage(pk=pk, packed0=packed0, st=st, seg=seg, program=program, nb=nb,
+                  kinds=kinds):
             pk.copy_(packed0)
             return pe.cascade_stage_windows(st["planes"], st["rows"], pk, seg,
-                                            program, nb)
+                                            program, nb, kinds)
+
+        def parent_stage(pk=pk, packed0=packed0, st=st, seg=seg, program=program,
+                         nb=nb, planes32=planes32):
+            pk.copy_(packed0)
+            return ppe.cascade_stage_windows(planes32, st["rows"], pk, seg, program, nb)
 
         copy_ms = device_ms(lambda: pk.copy_(packed0))
-        pairs["predicate_eval_batch"].append(turns(stage, copy_ms))
-        pairs["predicate_eval"].append(
-            turns(lambda: pe.predicate_eval(t[0], v[0], w[0], program)))
-    for program, t, v, w, p in batch_cases:
-        pairs["skim_fused_batch"].append(
-            turns(lambda: sf.skim_fused_batch(t, v, w, p, program)))
-    keys = ("ms", "float32_ms", "spread_ms", "float32_spread_ms")
+        pairs["predicate_eval_batch"].append(turns(stage, parent_stage, copy_ms))
+        d32 = float32_layout(t[0], w[0], kinds)
+        pairs["predicate_eval"].append(turns(
+            lambda: pe.predicate_eval(t[0], v[0], w[0], program, kinds),
+            lambda: ppe.predicate_eval(d32[0], v[0], d32[1], program)))
+    for program, t, v, w, p, kinds in batch_cases:
+        t32, w32 = float32_layout(t, w, kinds)
+        pairs["skim_fused_batch"].append(turns(
+            lambda: sf.skim_fused_batch(t, v, w, p, program, kinds),
+            lambda: psf.skim_fused_batch(t32, v, w32, p, program)))
+    keys = ("ms", "parent_ms", "spread_ms", "parent_spread_ms")
     return {row: {k: sum(g[i] for g in got) / len(got) for i, k in enumerate(keys)}
             | {"cases": len(got)} for row, got in pairs.items() if got}
 
@@ -2867,15 +3084,21 @@ def finish_parent_build(proc, lib):
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import predicate_eval as pe
-    from repro_torch.kernels.skim_fused import Workspace, header_words, program_args
+    from repro_torch.kernels.skim_fused import (
+        PROGRAM_ARGS,
+        Workspace,
+        header_words,
+        program_args,
+    )
 
     if proc is not None:
         out, err = proc.communicate()
         check(proc.returncode == 0, f"nvcc failed on the parent's kernels:\n{out}{err}")
     lib = ctypes.CDLL(str(lib))
     pv, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    dense = [pv, pv, pv, i, i, i, ll, i, *([pv] * 8)]
-    lib.parent_skim_launch.argtypes = [pv, pv, pv, pv, i, i, i, ll, i, i, *([pv] * 10),
+    dense = [pv, pv, pv, i, i, i, ll, i, *([pv] * PROGRAM_ARGS)]
+    lib.parent_skim_launch.argtypes = [pv, pv, pv, pv, i, i, i, ll, i, i,
+                                       *([pv] * (PROGRAM_ARGS + 2)),
                                        ctypes.c_uint, pv, pv, pv]
     lib.parent_stage_launch.argtypes = [*dense, pv, pv, i, pv, pv]
     lib.parent_mask_launch.argtypes = [*dense, pv, pv]
@@ -3384,6 +3607,87 @@ def check_edge_kernels(device) -> float:
     return max_err
 
 
+def check_int_kernels(device) -> float:
+    """The four kernels that evaluate the program, on :func:`int_window`'s
+    padded inputs with their plane kinds (an integer branch's int32 bits)
+    for every query of :data:`INT_QUERIES`, the whole window one launch at
+    the K that truncates no object: ``predicate_eval``'s and
+    ``predicate_eval_batch``'s masks, ``cascade_stage``'s mask, basket bits
+    and count (every event live), ``skim_fused``'s and
+    ``skim_fused_batch``'s survivors (payload column 0 the event index),
+    each bit for bit equal to the plain version on the same card tensors
+    and to the host evaluator.  Returns the largest |kernel - plain| over
+    masks and counts: 0."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.neardata import (build_padded_inputs, fused_window_skim,
+                                           program_kinds, window_pad_K)
+    from repro_torch.core.planner import plan_skim
+    from repro_torch.core.query import parse_query
+    from repro_torch.data.store import EventStore
+    from repro_torch.kernels import predicate_eval as pe
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import skim_fused as sf
+
+    columns, jagged = int_window()
+    store = EventStore.from_arrays(columns, jagged=jagged, basket_events=INT_BASKET,
+                                   device="cpu")
+    E, nb = INT_EVENTS, INT_EVENTS // INT_BASKET
+    seg = (torch.arange(E, dtype=torch.int32, device=device) // INT_BASKET)[None]
+    max_err, kept_by = 0.0, {}
+
+    def kept(packed, count):
+        mask = torch.zeros(E, dtype=torch.bool)
+        mask[packed[: int(count), 0].long().cpu()] = True
+        return mask
+
+    for name, q in INT_QUERIES.items():
+        plan = plan_skim(parse_query(q), store)
+        program = plan.compiled_program()
+        kinds = program_kinds(program, store)
+        data = {b: store.read_jagged(b)[0] if store.branches[b].jagged
+                else store.read_flat(b) for b in plan.filter_branches}
+        host = torch.from_numpy(fused_window_skim(data, program, store, backend="host")[0])
+        pb = build_padded_inputs(data, program, store, K=window_pad_K(data, program, store),
+                                 include_index=True, to_device=False, kinds=kinds)
+        t, v, w, p = (torch.from_numpy(np.asarray(x)).to(device)
+                      for x in (pb.terms, pb.valid, pb.weights, pb.payload))
+        plain = ref.predicate_eval_ref(t, v, w, program, kinds).cpu()
+        packed = ref.pack_bits(torch.ones((1, E), dtype=torch.bool, device=device))
+        words, out = pe.cascade_stage(t[None], v[None], w[None], packed, seg, program, nb,
+                                      kinds)
+        sk, n = sf.skim_fused(t, v, w, p, program, kinds)
+        skb, nbt = sf.skim_fused_batch(t[None], v[None], w[None], p[None], program, kinds)
+        batch = pe.predicate_eval_batch(t[None], v[None], w[None], program, kinds)
+        torch.cuda.synchronize()
+        stage_mask = ref.unpack_bits(words, E)[0].cpu()
+        got = {"predicate_eval": pe.predicate_eval(t, v, w, program, kinds).cpu().bool(),
+               "predicate_eval_batch": batch[0].cpu().bool(),
+               "cascade_stage": stage_mask, "skim_fused": kept(sk, n),
+               "skim_fused_batch": kept(skb[0], nbt[0])}
+        check(int(out[0, nb]) == int(stage_mask.sum()) and torch.equal(
+            out[0, :nb].cpu(), stage_mask.reshape(nb, -1).any(dim=1).int()),
+            f"int window, {name}: cascade_stage's basket bits or count do not "
+            "follow its mask")
+        check(torch.equal(plain, host),
+              f"int window, {name}: the plain version and the host evaluator differ "
+              f"at events {torch.nonzero(plain != host).flatten()[:8].tolist()}")
+        for who, mask in got.items():
+            max_err = max(max_err, float((mask != plain).any()))
+            check(torch.equal(mask, host),
+                  f"int window, {name}: {who} and the host evaluator differ at events "
+                  f"{torch.nonzero(mask != host).flatten()[:8].tolist()}")
+        kept_by[name] = int(host.sum())
+    log(f"  int window ({E} events: event numbers on both sides of 2^24 and above "
+        "10^8, an int32 word across -2^31, Jet_id beside 2^24, ANY over int32 and "
+        "non-bool float32 words): predicate_eval, predicate_eval_batch, "
+        "cascade_stage, skim_fused and skim_fused_batch with the plane kinds equal "
+        "the plain version and the host evaluator bit for bit; survivors "
+        + json.dumps(kept_by))
+    return max_err
+
+
 FLASH_SHAPES = ((1, 1, 128, 32), (2, 3, 256, 64), (1, 2, 512, 128))  # tests/test_kernels.py
 # the kernel's edges: S a multiple of neither key tile (32, 128), a D the
 # wrapper pads to 48, B*H = 72 heads over several waves of CTAs
@@ -3479,11 +3783,13 @@ def check_flash_attention(rng, device,
 
 def path_skim_cases(store, queries, device):
     """Every cascade stage's padded inputs over window 0, staged by the
-    main path's own helpers (``build_padded_inputs``, ``pad_window``)."""
+    main path's own helpers (``build_padded_inputs`` with the plane kinds,
+    ``pad_window``): (program, tensors on ``device``, numpy arrays, kinds)."""
     import torch
 
     from repro_torch.core.engine import Breakdown, _decode_branches
-    from repro_torch.core.neardata import build_padded_inputs, pad_window, window_pad_K
+    from repro_torch.core.neardata import (build_padded_inputs, pad_window,
+                                           program_kinds, window_pad_K)
     from repro_torch.core.planner import plan_skim
     from repro_torch.core.query import parse_query
     from repro_torch.data.store import FetchStats
@@ -3497,11 +3803,13 @@ def path_skim_cases(store, queries, device):
             data = _decode_branches(store, list(stage.branches), 0, stop,
                                     Breakdown(), FetchStats(), True)
             K = window_pad_K(data, stage.program, store)
+            kinds = program_kinds(stage.program, store)
             pb = build_padded_inputs(data, stage.program, store, K=K,
-                                     include_index=True, to_device=False)
+                                     include_index=True, to_device=False, kinds=kinds)
             arrays = pad_window(pb)
             cases.append((stage.program,
-                          [torch.from_numpy(a).to(device) for a in arrays], arrays))
+                          [torch.from_numpy(a).to(device) for a in arrays], arrays,
+                          kinds))
     return cases
 
 
@@ -3512,7 +3820,8 @@ def path_stage_cases(store, queries, device, batch: int = 16):
     mask as it was before the stage): (program, nb, the dense batch the
     staged windows stand for (terms, valid, weights) on the card, packed,
     seg_ids, and a dict of the staged form: ``planes`` and ``rows`` on the
-    card, ``host`` a copy of the staged buffer, ``shape``, ``n_groups``)."""
+    card, ``host`` a copy of the staged buffer, ``shape``, ``n_groups``,
+    ``kinds``, the planes' kinds the path passed)."""
     import torch
 
     from repro_torch.core.engine import Breakdown
@@ -3533,7 +3842,7 @@ def path_stage_cases(store, queries, device, batch: int = 16):
                       packed.clone(), seg_ids.clone(),
                       {"planes": planes, "rows": rows, "host": host,
                        "shape": inputs.shape, "n_groups": inputs.n_groups,
-                       "row_list": inputs.rows.tolist()}))
+                       "row_list": inputs.rows.tolist(), "kinds": kw.get("kinds")}))
         return step(inputs, packed, seg_ids, program, nb, **kw)
 
     be = store.basket_events
@@ -3624,11 +3933,12 @@ def bounds(summary: dict) -> dict:
             if k in summary}
 
 
-def time_predicate(program, t, v, w, parent) -> dict:
-    """``predicate_eval`` on one window (T, E, K) beside its earlier design
-    (``parent.mask``) and its plain version.  The bound reads the K slots
-    of the planes the program reads (``predicate_eval.planes_read``) once
-    and writes the (E,) mask once."""
+def time_predicate(program, t, v, w, parent, kinds=None) -> dict:
+    """``predicate_eval`` on one window (T, E, K) with the planes' ``kinds``
+    beside its earlier design (``parent.mask``, on the float32 layout) and
+    its plain version.  The bound reads the K slots of the planes the
+    program reads (``predicate_eval.planes_read``) once and writes the (E,)
+    mask once."""
     from repro_torch.kernels import predicate_eval as pe
     from repro_torch.kernels import ref
 
@@ -3636,14 +3946,16 @@ def time_predicate(program, t, v, w, parent) -> dict:
     G = v.shape[0]
     n_read = bin(pe.planes_read(program) & ((1 << (T + 2 * G)) - 1)).count("1")
     t_bytes, t_ops = bound_times(4 * (n_read * E * K + E), E * K * (T + 4 * G))
-    tb, vb, wb = t[None], v[None], w[None]
+    t32, w32 = float32_layout(t, w, kinds)
+    tb, vb, wb = t32[None], v[None], w32[None]
     row = {
         "E": E, "K": K,
-        "ms": device_ms(lambda: pe.predicate_eval(t, v, w, program)),
-        "stream_ms": stream_ms(lambda: pe.predicate_eval(t, v, w, program)),
+        "ms": device_ms(lambda: pe.predicate_eval(t, v, w, program, kinds)),
+        "stream_ms": stream_ms(lambda: pe.predicate_eval(t, v, w, program, kinds)),
         "parent_ms": device_ms(lambda: parent.mask(tb, vb, wb, program)),
         "parent_stream_ms": stream_ms(lambda: parent.mask(tb, vb, wb, program)),
-        "plain_ms": stream_ms(lambda: ref.predicate_mask(program, t, v, w), calls=5),
+        "plain_ms": stream_ms(lambda: ref.predicate_mask(program, t, v, w, kinds),
+                              calls=5),
         "t_bytes": t_bytes, "t_ops": t_ops,
     }
     log(f"  predicate_eval T={T} G={G} E={E} K={K}, {n_read} planes read: kernel "
@@ -3762,7 +4074,7 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
 
     out = {}
     rows = []
-    for program, (t, v, w, p), arrays in skim_cases:
+    for program, (t, v, w, p), arrays, kinds in skim_cases:
         T, E, K = t.shape
         G, D = v.shape[0], p.shape[1]
         # read terms, valid, weights and payload once; write the packed
@@ -3773,18 +4085,19 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         # the same rows' bits as int32, and bytes of them as uint8
         p_i32 = p.view(torch.int32)
         p_u8 = (p_i32 & 0xFF).to(torch.uint8)
+        t32, w32 = float32_layout(t, w, kinds)
         row = {
-            "ms": device_ms(lambda: sf.skim_fused(t, v, w, p, program)),
-            "parent_ms": device_ms(lambda: parent.skim(t[None], v[None], w[None], p[None],
-                                                       program)),
-            "int32_ms": device_ms(lambda: sf.skim_fused(t, v, w, p_i32, program)),
-            "uint8_ms": device_ms(lambda: sf.skim_fused(t, v, w, p_u8, program)),
-            "stream_ms": stream_ms(lambda: sf.skim_fused(t, v, w, p, program)),
-            "plain_ms": stream_ms(lambda: ref.skim_fused_ref(t, v, w, p, program)),
+            "ms": device_ms(lambda: sf.skim_fused(t, v, w, p, program, kinds)),
+            "parent_ms": device_ms(lambda: parent.skim(t32[None], v[None], w32[None],
+                                                       p[None], program)),
+            "int32_ms": device_ms(lambda: sf.skim_fused(t, v, w, p_i32, program, kinds)),
+            "uint8_ms": device_ms(lambda: sf.skim_fused(t, v, w, p_u8, program, kinds)),
+            "stream_ms": stream_ms(lambda: sf.skim_fused(t, v, w, p, program, kinds)),
+            "plain_ms": stream_ms(lambda: ref.skim_fused_ref(t, v, w, p, program, kinds)),
             # the path's whole call: numpy in, one upload, the launch, one
             # readback of counts and rows
             "window_ms": host_ms(lambda: kops.fused_skim(*arrays, program,
-                                                         device=t.device)),
+                                                         device=t.device, kinds=kinds)),
             "t_bytes": t_bytes, "t_ops": t_ops,
         }
         rows.append(row)
@@ -3841,7 +4154,8 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
     for program, nb, (t, v, w), packed0, seg, st in stage_cases:
         B, T, E, K = t.shape
         G = v.shape[1]
-        planes, stage_rows = st["planes"], st["rows"]
+        planes, stage_rows, kinds = st["planes"], st["rows"], st["kinds"]
+        t32, w32 = float32_layout(t, w, kinds)  # what the earlier designs read
         S = len(st["row_list"])
         # the least the stage must move at this run's data: for each event
         # live in the carried mask of a staged window, its K slots of every
@@ -3858,15 +4172,16 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
 
         def kernel():  # the path's launch: the staged windows only
             restore()
-            return pe.cascade_stage_windows(planes, stage_rows, pk, seg, program, nb)
+            return pe.cascade_stage_windows(planes, stage_rows, pk, seg, program, nb,
+                                            kinds)
 
         def dense():  # the same kernel, every window of the batch staged
             restore()
-            return pe.cascade_stage(t, v, w, pk, seg, program, nb)
+            return pe.cascade_stage(t, v, w, pk, seg, program, nb, kinds)
 
         def parent_kernel():  # the earlier design, dense inputs
             restore()
-            return parent.stage(t, v, w, pk, seg, program, nb)
+            return parent.stage(t32, v, w32, pk, seg, program, nb)
 
         # the stage step from the host, as the path calls it: this tree's
         # (one page-locked upload of the staged buffer, the launch, the
@@ -3875,12 +4190,16 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         inputs = kops.CascadeInputs(st["shape"], st["n_groups"], st["row_list"],
                                     t.device)
         inputs.host.copy_(st["host"])
-        dense_np = dense_batch(inputs)
+        # the dense batch in the float32 layout the earlier step and the
+        # public form read
+        dense_t, dense_v, dense_w = dense_batch(inputs)
+        dense_t, dense_w = float32_layout(dense_t, dense_w, kinds)
+        dense_np = (dense_t, dense_v, dense_w)
 
         def step():
             restore()
             kops.stage_summary_host(kops.cascade_stage_step_staged(
-                inputs, pk, seg, program, nb, device=t.device)[1])
+                inputs, pk, seg, program, nb, device=t.device, kinds=kinds)[1])
 
         def parent_step():
             restore()
@@ -3902,7 +4221,7 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
             "stream_ms": stream_ms(kernel) - copy_stream,
             "parent_stream_ms": stream_ms(parent_kernel) - copy_stream,
             "plain_ms": stream_ms(lambda: (restore(), pe.cascade_stage_windows_plain(
-                planes, stage_rows, pk, seg, program, nb))) - copy_stream,
+                planes, stage_rows, pk, seg, program, nb, kinds))) - copy_stream,
             "step_ms": host_ms(step, calls=20),
             "parent_step_ms": host_ms(parent_step, calls=20),
             "public_step_ms": host_ms(public_step, calls=20),
@@ -3923,7 +4242,7 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
             f"{row['public_step_ms']:.5f} ms); plain "
             f"{row['plain_ms']:.5f} ms; bound {max(t_bytes, t_ops):.7f} ms")
         # predicate_eval: window 0 of the same batch, the mask alone
-        single.append(time_predicate(program, t[0], v[0], w[0], parent))
+        single.append(time_predicate(program, t[0], v[0], w[0], parent, kinds))
     out["predicate_eval_batch"] = _summary(rows)
     if rows:
         for key in ("dense_ms", "parent_ms", "parent_stream_ms", "step_ms",
@@ -3939,22 +4258,25 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
             | {"bound_ms": max(r["t_bytes"], r["t_ops"])}
             for r in (time_predicate(*case, parent) for case in pred_cases)]
     rows = []
-    for program, t, v, w, p in batch_cases:
+    for program, t, v, w, p, kinds in batch_cases:
         B, T, E, K = t.shape
         G, D = v.shape[1], p.shape[2]
+        t32, w32 = float32_layout(t, w, kinds)
         # B windows of skim_fused's bytes and operations
         nbytes = 4 * B * (T * E * K + 2 * G * E * K + 2 * E * D + 1)
         t_bytes, t_ops = bound_times(nbytes, B * E * K * (T + 4 * G))
         p_i32 = p.view(torch.int32)
         p_u8 = (p_i32 & 0xFF).to(torch.uint8)
         row = {
-            "ms": device_ms(lambda: sf.skim_fused_batch(t, v, w, p, program)),
-            "parent_ms": device_ms(lambda: parent.skim(t, v, w, p, program)),
-            "int32_ms": device_ms(lambda: sf.skim_fused_batch(t, v, w, p_i32, program)),
-            "uint8_ms": device_ms(lambda: sf.skim_fused_batch(t, v, w, p_u8, program)),
-            "stream_ms": stream_ms(lambda: sf.skim_fused_batch(t, v, w, p, program)),
+            "ms": device_ms(lambda: sf.skim_fused_batch(t, v, w, p, program, kinds)),
+            "parent_ms": device_ms(lambda: parent.skim(t32, v, w32, p, program)),
+            "int32_ms": device_ms(lambda: sf.skim_fused_batch(t, v, w, p_i32, program,
+                                                              kinds)),
+            "uint8_ms": device_ms(lambda: sf.skim_fused_batch(t, v, w, p_u8, program,
+                                                              kinds)),
+            "stream_ms": stream_ms(lambda: sf.skim_fused_batch(t, v, w, p, program, kinds)),
             "plain_ms": stream_ms(
-                lambda: ref.skim_fused_batch_ref(t, v, w, p, program)),
+                lambda: ref.skim_fused_batch_ref(t, v, w, p, program, kinds)),
             "t_bytes": t_bytes, "t_ops": t_ops, "library_ms": None,
         }
         rows.append(row)
@@ -4300,7 +4622,8 @@ STARCODER2_7B_ATTN = (1, 36, 2048, 128)
 def run_fused_batch_path(label, stage_case, device) -> dict:
     """``ops.fused_skim_batch`` on the first cascade stage's inputs for
     the first 16 padded windows of a cell (as ``run_window_batch`` stages
-    them), payload column 0 the local event index.  Each window must equal
+    them, in the float32 layout the public form reads:
+    :func:`float32_layout`), payload column 0 the local event index.  Each window must equal
     ``ops.fused_skim`` (the per-window kernel) on the same window, bit for
     bit: the reference's own contract.  Each window is also held against
     the plain version on the same tensors, bit for bit but for events within
@@ -4309,7 +4632,8 @@ def run_fused_batch_path(label, stage_case, device) -> dict:
 
     from repro_torch.kernels import ops, ref
 
-    program, _nb, (t, v, w), *_ = stage_case
+    program, _nb, (t, v, w), *_, st = stage_case
+    t, w = float32_layout(t, w, st["kinds"])  # the public form's float32 layout
     B, T, E, K = t.shape
     payload = torch.arange(E, dtype=torch.float32, device=device).repeat(B, 1)
     payload = payload[:, :, None].contiguous()
@@ -4341,7 +4665,7 @@ def run_fused_batch_path(label, stage_case, device) -> dict:
         f"and the plain version but for {edge} events within the MASS residue; "
         f"launches {launches}")
     return {"launches": launches, "max_abs_err": max_err,
-            "case": (program, t, v, w, payload)}
+            "case": (program, t, v, w, payload, None)}
 
 
 def run_compact_path(store, host_store, n_passed: int, device) -> dict:
@@ -4396,14 +4720,16 @@ def bench_compact(rng, E: int, device):
 
 def run_predicate_path(label, stage_case, device) -> dict:
     """``ops.predicate_eval`` on each window of a cell's first cascade stage
-    over its first 16 windows (as ``run_window_batch`` stages them), one
-    call a window, held against the plain version: bit for bit but for
+    over its first 16 windows (as ``run_window_batch`` stages them, in the
+    float32 layout the public form reads), one call a window, held against
+    the plain version: bit for bit but for
     events within the MASS residue (:func:`_mask_edges`)."""
     import torch
 
     from repro_torch.kernels import ops, ref
 
-    program, _nb, (t, v, w), *_ = stage_case
+    program, _nb, (t, v, w), *_, st = stage_case
+    t, w = float32_layout(t, w, st["kinds"])  # the public form's float32 layout
     B, T, E, K = t.shape
     ops.reset_launch_counts()
     got = torch.stack([ops.predicate_eval(t[b], v[b], w[b], program) for b in range(B)])
@@ -5404,6 +5730,69 @@ def run_nonfinite_path(device, n_events: int = NONFINITE_EVENTS, batch: int = 16
             "card_s": card_s}
 
 
+def run_int_path(device, n_events: int = INT_STORE_EVENTS, batch: int = 16) -> dict:
+    """Phase 3h: :func:`make_int_stores`' store (``event`` past 10^9, an
+    int32 word across -2^31, ``Jet_id`` beside 2^24, non-bool trigger
+    words) through ``run_skim`` on the card, per window and with
+    ``device_batch=batch``, decode on the card, for every query of
+    :func:`int_queries`: each card run equal to the port's staged run on the
+    host store in survivors and output bytes, and the picks keeping their
+    one event.  Launches are counted from 0 around each card run."""
+    import torch
+
+    from repro_torch.core import run_skim
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    store, host = make_int_stores(n_events)
+    store.decode_backend = "device"
+    log(f"  store: {n_events:,} events, {len(store.branch_names())} branches, "
+        f"{store.compressed_bytes() / 1e6:.1f} MB compressed, built twice in "
+        f"{time.perf_counter() - t0:.1f} s")
+    stats0 = store.decode_backend_stats()
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    survivors = {}
+    card_s = 0.0
+    for name, q in int_queries(INT_STORE_BASE, n_events).items():
+        staged = run_skim(host, q, fused=False, pipeline=False, device="cpu")
+        runs = {"staged": staged.n_passed}
+        for label, kw in (("per window", {}), (f"device_batch={batch}",
+                                               {"device_batch": batch})):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = run_skim(store, q, **kw)
+            torch.cuda.synchronize()
+            card_s += time.perf_counter() - t1
+            counts = ops.launch_counts()
+            for k, v in counts.items():
+                launches[k] += v
+            kernel = "cascade_stage" if kw else "skim_fused"
+            check(counts[kernel] > 0, f"int store, {name}, {label}: {kernel} never "
+                  "launched")
+            check(res.n_passed == staged.n_passed
+                  and res.output._blobs == staged.output._blobs
+                  and res.output.manifest_hash() == staged.output.manifest_hash(),
+                  f"int store, {name}, {label}: {res.n_passed} survivors on the card, "
+                  f"{staged.n_passed} in the staged run, or their bytes differ")
+            runs[label] = res.n_passed
+        survivors[name] = runs
+    for name in ("event-pick", "run-lumi-event"):
+        check(survivors[name]["staged"] == 1,
+              f"int store, {name}: the staged run keeps {survivors[name]['staged']} "
+              "events, not the one picked")
+    dec = store.decode_backend_stats()
+    check(dec["device_baskets"] > stats0["device_baskets"] and dec["fallbacks"] == 0,
+          f"int store: decode on the card {dec}")
+    log(f"  {len(survivors)} queries: every card run, per window and batched, equals "
+        "the staged run in survivors and output bytes; card runs "
+        f"{card_s:.3f} s in all; launches {json.dumps(launches)}; decode tier "
+        f"{dec['device_baskets'] - stats0['device_baskets']} device baskets, "
+        f"{dec['fallbacks']} fallbacks")
+    log("  survivors (staged, card per window, card batched): " + json.dumps(survivors))
+    return {"launches": launches, "survivors": survivors, "card_s": card_s}
+
+
 def device_busy(label, query, store, **kw) -> None:
     """One more run of the main path under ``torch.profiler``: the device
     time of every kernel over the run's wall time, and the kernels that
@@ -5445,8 +5834,18 @@ def device_busy(label, query, store, **kw) -> None:
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="a copy of the parent commit's tree: rows 1, 3, 4 and 6 "
+                        "are then timed beside its kernels and wrappers")
+    args = parser.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         raise SmokeFailure("src/repro_torch is not beside chip_smoke.py")
+    parent_src = None if args.parent is None else args.parent.resolve() / "src"
+    if parent_src is not None and not (parent_src / "repro_torch" / "csrc").is_dir():
+        raise SmokeFailure(f"--parent: no src/repro_torch/csrc under {args.parent}")
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import torch
@@ -5472,12 +5871,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     parent_build = start_parent_build()
-    float32_build = start_float32_build()
+    parent_ab_build = None if parent_src is None else start_parent_ab_build(parent_src)
     ptxas = start_ptxas_report()
     build_s = _build.build_all()
     ops.load_kernels()
     parent = finish_parent_build(*parent_build)
-    float32_libs = finish_float32_build(float32_build)
+    parent_ab = (None if parent_src is None
+                 else finish_parent_ab_build(parent_ab_build, parent_src))
     log(f"  kernels built in {build_s:.1f} s into {_build.build_dir()}; with the "
         f"earlier designs (the timing baselines) {time.perf_counter() - t0:.1f} s")
     finish_ptxas_report(ptxas)
@@ -5497,6 +5897,7 @@ def main() -> int:
     check_numpy_entries(rng, device)
     nonfinite_err = check_nonfinite_kernels(np.random.default_rng(1), device)
     edge_err = check_edge_kernels(device)
+    int_err = check_int_kernels(device)
 
     log(f"== building the {N_EVENTS:,}-event stores ==")
     from repro_torch.data.synth import make_nanoaod_like
@@ -5575,12 +5976,17 @@ def main() -> int:
         attn_cases=attention["cases"],
         parent=parent,
     ))
-    log("== 3c. rows 1, 3, 4 and 6 beside the same sources' float32 build (device "
-        "ms, in turns: float32, this tree, this tree, float32) ==")
-    float32_ab = time_float32_ab(
-        skim_cases, [c for cases in stage_cases.values() for c in cases],
-        [r["case"] for r in fused_batch.values()], float32_libs)
-    log(f"  float32 build A/B ({card}): " + json.dumps(float32_ab))
+    parent_times = None
+    if parent_ab is None:
+        log("== 3c. (no --parent: rows 1, 3, 4 and 6 are not timed beside the parent "
+            "tree's sources) ==")
+    else:
+        log("== 3c. rows 1, 3, 4 and 6 beside the parent tree's sources (device ms, "
+            "in turns: parent, this tree, this tree, parent) ==")
+        parent_times = time_parent_ab(
+            skim_cases, [c for cases in stage_cases.values() for c in cases],
+            [r["case"] for r in fused_batch.values()], parent_ab)
+        log(f"  parent sources A/B ({card}): " + json.dumps(parent_times))
 
     log("== 3d. the serving plane: shared scan, job service, cluster, on the "
         f"{N_EVENTS:,}-event NanoAOD-like store ==")
@@ -5620,11 +6026,22 @@ def main() -> int:
         totals[k] += v
     log(f"  phase 3g took {nonfinite_s:.1f} s ({card})")
 
+    log(f"== 3h. integer branches and non-bool ANY: a {INT_STORE_EVENTS:,}-event "
+        "NanoAOD-like store, event numbers past 10^9, per window and with "
+        "device_batch=16, decode on the card, held to the staged run ==")
+    t0 = time.perf_counter()
+    ints = run_int_path(device)
+    ints_s = time.perf_counter() - t0
+    for k, v in ints["launches"].items():
+        totals[k] += v
+    log(f"  phase 3h took {ints_s:.1f} s ({card})")
+
     kernels = [
         {"name": "skim_fused", "route": "cuda",
          "source": "src/repro_torch/csrc/skim_fused.cu",
          "replaces": "src/repro/kernels/skim_fused.py:151",
-         "launches": totals["skim_fused"], "max_abs_err": max(skim_err, nonfinite_err, edge_err),
+         "launches": totals["skim_fused"],
+         "max_abs_err": max(skim_err, nonfinite_err, edge_err, int_err),
          **bounds(timing["skim_fused"])},
         {"name": "basket_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/basket_decode.cu",
@@ -5635,7 +6052,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/predicate_eval.cu",
          "replaces": "src/repro/kernels/predicate_eval.py:270",
          "launches": totals["cascade_stage"] + totals["predicate_eval_batch"],
-         "max_abs_err": max(stage_err, pred_err, nonfinite_err, edge_err),
+         "max_abs_err": max(stage_err, pred_err, nonfinite_err, edge_err, int_err),
          **bounds(timing["predicate_eval_batch"])},
         # the four below have no caller in run_skim: their launches are
         # those of their own paths, the ops entry points of phase 3c and,
@@ -5645,14 +6062,15 @@ def main() -> int:
          "replaces": "src/repro/kernels/predicate_eval.py:304",
          "launches": sum(r["launches"] for r in predicate.values())
          + mesh["launches"]["predicate_eval"],
-         "max_abs_err": max([pred_err, nonfinite_err, edge_err, mesh["max_abs_err"]]
+         "max_abs_err": max([pred_err, nonfinite_err, edge_err, int_err,
+                             mesh["max_abs_err"]]
                             + [r["max_abs_err"] for r in predicate.values()]),
          **bounds(timing["predicate_eval"])},
         {"name": "skim_fused_batch", "route": "cuda",
          "source": "src/repro_torch/csrc/skim_fused.cu",
          "replaces": "src/repro/kernels/skim_fused.py:119",
          "launches": sum(r["launches"] for r in fused_batch.values()),
-         "max_abs_err": max([batch_err, nonfinite_err, edge_err]
+         "max_abs_err": max([batch_err, nonfinite_err, edge_err, int_err]
                             + [r["max_abs_err"] for r in fused_batch.values()]),
          **bounds(timing["skim_fused_batch"])},
         {"name": "stream_compact", "route": "cuda",
@@ -5697,11 +6115,15 @@ def main() -> int:
                    "build_cluster_basket_decode": p["card"]["builds"]}
             for name, p in examples.items()}}, sort_keys=True))
     log("placements (" + card + "; links modeled): " + json.dumps(placements, sort_keys=True))
-    log("float32 build A/B (" + card + "; device ms): " + json.dumps(float32_ab))
+    if parent_times is not None:
+        log("parent sources A/B (" + card + "; device ms): " + json.dumps(parent_times))
     log("non-finite store (" + card + "): " + json.dumps(
         {"seconds": nonfinite_s, "card_s": nonfinite["card_s"],
          "launches": nonfinite["launches"], "survivors": nonfinite["survivors"],
          "mass_residue": nonfinite["residues"]}))
+    log("int store (" + card + "): " + json.dumps(
+        {"seconds": ints_s, "card_s": ints["card_s"], "launches": ints["launches"],
+         "survivors": ints["survivors"]}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -37,9 +37,24 @@ class PaddedBatch:
     n_events: int
 
 
+def program_kinds(program: Program, store) -> tuple[int, ...]:
+    """The plane kinds of ``program`` over ``store`` (``program.KIND_*``):
+    each term's, then each group's weights plane's, from the type of the
+    branch that feeds it.  An absent branch (or no weights) is float32:
+    its zero page reads as 0 either way."""
+
+    def kind(name):
+        br = store.branches.get(name) if name is not None else None
+        return kprog.KIND_F32 if br is None else kprog.value_kind(br.np_dtype())
+
+    return (tuple(kind(b) for b in program.term_branches)
+            + tuple(kind(w) for w in program.group_weights))
+
+
 def _scatter_jagged(out: np.ndarray, values: np.ndarray, counts: np.ndarray) -> None:
     """Write jagged values into a preallocated (E, K) dense view (in place;
-    fully vectorized — this runs per window on the skim hot path)."""
+    fully vectorized — this runs per window on the skim hot path); the
+    values take ``out``'s type."""
     E, K = out.shape
     take = np.minimum(counts, K).astype(np.int64)
     if not (E and take.sum()):
@@ -50,7 +65,7 @@ def _scatter_jagged(out: np.ndarray, values: np.ndarray, counts: np.ndarray) -> 
     bases = np.concatenate([[0], np.cumsum(take)])[:-1]
     idx_slot = np.arange(take.sum()) - np.repeat(bases, take)
     src_idx = np.repeat(offsets[:-1], take) + idx_slot
-    out[idx_event, idx_slot] = values[src_idx].astype(np.float32)
+    out[idx_event, idx_slot] = values[src_idx].astype(out.dtype)
 
 
 def _collection_validity(counts: np.ndarray, K: int) -> np.ndarray:
@@ -69,6 +84,7 @@ def build_padded_inputs(
     to_device: bool = True,
     device=None,
     out: tuple | None = None,
+    kinds: tuple | None = None,
 ) -> PaddedBatch:
     """Build dense kernel inputs from columnar (host) data.
 
@@ -88,6 +104,12 @@ def build_padded_inputs(
     caller asks for the CPU); ``False`` keeps the numpy host buffers.
     ``out`` gives zeroed (T, E, K), (G, E, K), (G, E, K) views to fill in
     place of new arrays (the batched cascade's staging buffer).
+
+    ``kinds`` (:func:`program_kinds`: the engine's own routes) fills the
+    term and weights planes of an integer or bool branch with its values
+    as int32 bits, exact where float32 rounds above 2^24; the kernels read
+    them by the same kinds.  Without it every plane holds float32 values,
+    the JAX package's layout.
     """
     flat_names = [n for n in data if not (store.branches.get(n) and store.branches[n].jagged)]
     n_events = len(data[flat_names[0]])
@@ -106,12 +128,14 @@ def build_padded_inputs(
 
     values_cache: dict[str, np.ndarray] = {}  # scatter each branch once
 
-    def fill_values(target: np.ndarray, branch: str) -> None:
+    def fill_values(target: np.ndarray, branch: str, kind: int) -> None:
         if branch not in data:
             # absent trigger branch (menus differ across eras): the zero
-            # page is constant-False under the ANY-group >= 0.5 test; the
+            # page is constant-False under ANY's nonzero test; the
             # planner guarantees every non-optional branch is present
             return
+        if kind != kprog.KIND_F32:  # an integer's int32 bits
+            target = target.view(np.int32)
         br = store.branches.get(branch)
         if br is not None and br.jagged:
             if branch not in values_cache:
@@ -124,7 +148,7 @@ def build_padded_inputs(
             else:
                 np.copyto(target, values_cache[branch])
         else:
-            target[:, 0] = np.asarray(data[branch], dtype=np.float32)
+            target[:, 0] = np.asarray(data[branch], dtype=target.dtype)
 
     validity_cache: dict[str, np.ndarray] = {}  # keyed by counts branch
 
@@ -142,8 +166,9 @@ def build_padded_inputs(
                 validity_cache[key] = v
         return validity_cache[key]
 
+    kinds = kinds or (kprog.KIND_F32,) * (T + G)
     for t, branch in enumerate(program.term_branches):
-        fill_values(terms[t], branch)
+        fill_values(terms[t], branch, kinds[t])
     for g, grp in enumerate(program.groups):
         if grp.kind in (kprog.GROUP_MASS, kprog.GROUP_DR):
             # pair groups read two collections: pack both validity planes
@@ -163,7 +188,7 @@ def build_padded_inputs(
             valid[g] = validity_of(anchor)
         wbranch = program.group_weights[g]
         if wbranch is not None:
-            fill_values(weights[g], wbranch)
+            fill_values(weights[g], wbranch, kinds[T + g])
 
     payload_branches = payload_branches or []
     pay_cols = []
@@ -259,12 +284,14 @@ def program_eval_np(
     for g, grp in enumerate(program.groups):
         coll = program.group_collections[g]
         if grp.kind == kprog.GROUP_ANY:
+            # each term read as bool, as the staged evaluator reads it
+            # (nonzero: NaN true, ±0 false), whatever the compiled op
             gpass = np.zeros(n_events, dtype=bool)
-            for t, op, thr in zip(grp.term_ids, grp.ops, grp.thrs):
+            for t in grp.term_ids:
                 arr = data.get(program.term_branches[t])
                 if arr is None:
                     continue  # absent trigger branch: constant-False
-                gpass |= np.asarray(_NP_OPS[op](arr, thr), dtype=bool)
+                gpass |= np.asarray(arr, dtype=bool)
         elif grp.kind == kprog.GROUP_MASS:
             m, ok = xpr.leading_pair_mass(
                 data, coll, program.group_collections2[g]
@@ -444,14 +471,15 @@ def fused_window_skim(
 
     if K is None:
         K = window_pad_K(data, program, store)
+    kinds = program_kinds(program, store)
     pb = build_padded_inputs(
         data, program, store, K=K,
         payload_branches=list(payload_branches), include_index=True,
-        to_device=False,
+        to_device=False, kinds=kinds,
     )
     arrays = pad_window(pb, pad_to)
     packed, k = ops.fused_skim(
-        *arrays, program, use_kernel=(backend == "cuda"), device=device,
+        *arrays, program, use_kernel=(backend == "cuda"), device=device, kinds=kinds,
     )
     packed = packed[:k]
     idx = packed[:, 0].astype(np.int64)
@@ -543,6 +571,7 @@ __all__ = [
     "program_eval_np",
     "fused_window_skim",
     "pad_window",
+    "program_kinds",
     "window_pad_K",
     "sharded_skim",
 ]

@@ -965,9 +965,10 @@ class CascadeExecutor:
             # warm the step per shape bucket OUTSIDE the stage timers:
             # measured filter time is steady-state dispatch
             T, G = stage.program.n_terms, stage.program.n_groups
+            kinds = nd.program_kinds(stage.program, store)
             ops.warm_cascade_stage(
                 stage.program, (Bn, T, pad_E, K_b), nb,
-                backend=backend, device=device,
+                backend=backend, device=device, kinds=kinds,
             )
 
             # -- stage the windows the stage runs, straight into the
@@ -982,12 +983,13 @@ class CascadeExecutor:
                         sdata, stage.program, store, K=K_b, to_device=False,
                         out=(t_s[:, off : off + n], v_s[:, off : off + n],
                              w_s[:, off : off + n]),
+                        kinds=kinds,
                     )
 
             t0 = _time.perf_counter()
             packed, summary = ops.cascade_stage_step_staged(
                 inputs, packed, seg_ids,
-                stage.program, nb, backend=backend, device=device,
+                stage.program, nb, backend=backend, device=device, kinds=kinds,
             )
             basket_bits, counts_new = ops.stage_summary_host(summary)
             elapsed = _time.perf_counter() - t0

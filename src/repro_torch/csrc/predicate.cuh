@@ -9,16 +9,25 @@
 // (lanes over the slots, the tile in shared memory).
 //
 // The program reaches the card as data: the host flattens the frozen
-// Program into small int32/float32/float64 descriptor arrays
+// Program and its planes' kinds into small int32/float64 descriptor arrays
 // (repro_torch/kernels/skim_fused.py::flatten_program).  eval_event walks
 // the groups and the K slots in order.
 //
+// A plane slot is 4 bytes of one of two kinds (kernels/program.py
+// KIND_*): a float32 value, or an integer or bool branch's value widened
+// on the host to int32 and kept as its bits, exact where float32 would
+// round above 2^24.
+//
 // It decides an event as the host evaluator does
 // (repro_torch/core/neardata.py::program_eval_np, the staged semantics):
-// per-object cuts compare the float32 value with the float32 cut; the
+// a per-object cut compares a float32 value with the cut read in float32
+// (numpy's read of a Python float beside a float32 column), an integer in
+// float64 (numpy promotes an integer column beside a Python float; exact),
+// with abs as numpy's integer abs, which leaves the type's least value
+// negative; an ANY term is nonzero (numpy's bool: NaN true, ±0 false); the
 // group values (MASS, ΔR, HT, EXPR) are evaluated in `Real`, float64, from
-// the float32 planes widened exactly, in the host's operation order, and
-// meet the float64 cut.  HT and sum() accumulate slot by slot, left to
+// the planes widened exactly, in the host's operation order, and meet the
+// float64 cut.  HT and sum() accumulate slot by slot, left to
 // right, from +0.0, as the host's bincount does.  Built without FMA
 // contraction (--fmad=false) and without fast math, every product and sum
 // rounds as the host's does, so ΔR, HT and EXPR are the host's bit for
@@ -36,9 +45,10 @@
 namespace {
 
 constexpr int kMaxStack = 16;  // RPN stack depth (checked on the host)
-constexpr int kGroupFields = 8;
+constexpr int kGroupFields = 9;
 
 enum { OP_GT, OP_GE, OP_LT, OP_LE, OP_EQ, OP_NE, OP_ABSLT, OP_ABSGT };
+enum { KIND_F32, KIND_I32, KIND_I16, KIND_I8, KIND_UINT };  // a plane's values
 enum { G_COUNT, G_HT, G_ANY, G_MASS, G_DR, G_EXPR };
 enum {
   RPN_BRANCH, RPN_SUM, RPN_CONST, RPN_ADD, RPN_SUB, RPN_MUL, RPN_DIV,
@@ -46,7 +56,7 @@ enum {
 };
 // group descriptor row (int32)
 enum { GD_KIND, GD_TERM_OFF, GD_N_TERMS, GD_MIN_COUNT, GD_CMP_OP, GD_SAME,
-       GD_RPN_OFF, GD_RPN_LEN };
+       GD_RPN_OFF, GD_RPN_LEN, GD_WEIGHT_KIND };
 
 // the type of the group values: the host evaluator's float64
 using Real = double;
@@ -56,7 +66,9 @@ struct Program {
   const int* groups;       // (G, kGroupFields)
   const int* term_ids;     // flat, per group at GD_TERM_OFF
   const int* ops;          // aligned with term_ids
-  const float* thrs;       // aligned with term_ids
+  const int* kinds;        // each term's plane kind, aligned with term_ids
+  const int* slot_kinds;   // (T): each term slot's plane kind (RPN leaves)
+  const double* thrs;      // aligned with term_ids
   const double* cmp_thrs;  // (G, 2): cmp_thr, cmp_thr2
   const int* rpn_op;       // flat, per group at GD_RPN_OFF
   const int* rpn_term;     // term slot of RPN_BRANCH / RPN_SUM
@@ -86,7 +98,7 @@ __device__ __forceinline__ Inputs window_inputs(const Inputs& batch,
                 batch.weights + b * G * plane, batch.E, batch.K};
 }
 
-// a comparison, in float32 for a per-object cut, in Real for a group's
+// a comparison, in float32 for a float32 per-object cut, in Real otherwise
 template <typename T>
 __device__ __forceinline__ bool apply_op(T x, int op, T thr) {
   switch (op) {
@@ -100,6 +112,32 @@ __device__ __forceinline__ bool apply_op(T x, int op, T thr) {
     case OP_ABSGT: return fabs(x) > thr;
   }
   return false;
+}
+
+// a slot's value in Real: a float32 widened, an integer's int32 bits
+// widened; both exact
+__device__ __forceinline__ Real as_real(float x, int kind) {
+  return kind == KIND_F32 ? Real(x) : Real(__float_as_int(x));
+}
+
+// a per-object cut on a slot of `kind` (see the top of this file); an
+// integer's abs is taken in float64, which cannot overflow, except at the
+// type's least value, which numpy's integer abs leaves as it is
+__device__ __forceinline__ bool object_cut(float x, int op, double thr, int kind) {
+  if (kind == KIND_F32) return apply_op(x, op, static_cast<float>(thr));
+  const int v = __float_as_int(x);
+  if (op == OP_ABSLT || op == OP_ABSGT) {
+    const int least = kind == KIND_I32 ? -2147483647 - 1
+                    : kind == KIND_I16 ? -32768 : kind == KIND_I8 ? -128 : 0;
+    const Real a = v == least ? Real(v) : fabs(Real(v));
+    return op == OP_ABSLT ? a < Real(thr) : a > Real(thr);
+  }
+  return apply_op(Real(v), op, Real(thr));
+}
+
+// an ANY term: the slot read as bool, whatever the compiled op
+__device__ __forceinline__ bool nonzero(float x, int kind) {
+  return kind == KIND_F32 ? x != 0.0f : __float_as_int(x) != 0;
 }
 
 // floor modulo, as numpy's remainder: fmod, moved by one period where its
@@ -143,18 +181,23 @@ __device__ __forceinline__ const float* row(const float* base, int plane,
 }
 
 // whether candidate x displaces the leader so far (none yet: idx < 0) in
-// the host evaluator's order (core/expr.py::_leading_indices): pt
+// the host evaluator's order (core/expr.py::_leading_indices, in float64,
+// which orders float32 values as float32 and int32 values as int32): pt
 // descending, NaN after every number (-inf included), ties to the lower
-// slot, which is scanned first
-__device__ __forceinline__ bool leads(float x, float best, int idx) {
-  return idx < 0 || (!isnan(x) && (isnan(best) || x > best));
+// slot, which is scanned first.  V is float or int, a slot's value by its
+// kind (an int is never NaN).
+__device__ __forceinline__ bool is_nan(float x) { return isnan(x); }
+__device__ __forceinline__ bool is_nan(int) { return false; }
+
+template <typename V>
+__device__ __forceinline__ bool leads(V x, V best, int idx) {
+  return idx < 0 || (!is_nan(x) && (is_nan(best) || x > best));
 }
 
-// the leading slot of pt among the valid ones but `exclude`, in leads()'s
-// order; a row with no such slot takes slot 0
-__device__ int lead_slot(const float* pt, const float* vg, int K, bool second,
-                         int exclude) {
-  float best = 0.0f;
+template <typename V>
+__device__ int lead_slot_of(const V* pt, const float* vg, int K, bool second,
+                            int exclude) {
+  V best = 0;
   int idx = -1;
   for (int k = 0; k < K; ++k) {
     const bool v = second ? (vg[k] >= 2.0f) : (floor_mod(vg[k], 2.0f) >= 1.0f);
@@ -164,6 +207,14 @@ __device__ int lead_slot(const float* pt, const float* vg, int K, bool second,
     }
   }
   return idx < 0 ? 0 : idx;
+}
+
+// the leading slot of pt (of `kind`) among the valid ones but `exclude`,
+// in leads()'s order; a row with no such slot takes slot 0
+__device__ int lead_slot(const float* pt, int kind, const float* vg, int K, bool second,
+                         int exclude) {
+  if (kind == KIND_F32) return lead_slot_of(pt, vg, K, second, exclude);
+  return lead_slot_of(reinterpret_cast<const int*>(pt), vg, K, second, exclude);
 }
 
 __device__ int count_valid(const float* vg, int K, bool second) {
@@ -220,20 +271,24 @@ __device__ bool eval_pair(const Program& p, int g, long long e,
   const int half = gd[GD_N_TERMS] / 2;
   const float* vg = row(in.valid, g, e, in);
   const int K = in.K;
+  const int* kinds = p.kinds + gd[GD_TERM_OFF];
   const float* pt_a = row(in.terms, ids[0], e, in);
   const float* pt_b = row(in.terms, ids[half], e, in);
-  int i1 = lead_slot(pt_a, vg, K, false, -1);
+  const int ka = kinds[0], kb = kinds[half];
+  int i1 = lead_slot(pt_a, ka, vg, K, false, -1);
   int i2;
   bool ok;
   if (same) {
-    i2 = lead_slot(pt_a, vg, K, false, i1);
+    i2 = lead_slot(pt_a, ka, vg, K, false, i1);
     ok = count_valid(vg, K, false) >= 2;
   } else {
-    i2 = lead_slot(pt_b, vg, K, true, -1);
+    i2 = lead_slot(pt_b, kb, vg, K, true, -1);
     ok = count_valid(vg, K, false) >= 1 && count_valid(vg, K, true) >= 1;
   }
   if (!ok) return false;
-  auto sel = [&](int t, int slot) -> Real { return row(in.terms, ids[t], e, in)[slot]; };
+  auto sel = [&](int t, int slot) -> Real {
+    return as_real(row(in.terms, ids[t], e, in)[slot], kinds[t]);
+  };
   const Real v = kind == G_MASS ? pair_mass(sel, i1, i2) : pair_delta_r(sel, i1, i2);
   return pair_passes(p, g, kind, gd[GD_CMP_OP], v);
 }
@@ -247,11 +302,13 @@ __device__ bool eval_expr(const Program& p, int g, long long e,
   for (int i = 0; i < gd[GD_RPN_LEN]; ++i) {
     const int op = p.rpn_op[off + i];
     if (op == RPN_BRANCH) {
-      stack[sp++] = row(in.terms, p.rpn_term[off + i], e, in)[0];
+      const int t = p.rpn_term[off + i];
+      stack[sp++] = as_real(row(in.terms, t, e, in)[0], p.slot_kinds[t]);
     } else if (op == RPN_SUM) {
-      const float* x = row(in.terms, p.rpn_term[off + i], e, in);
+      const int t = p.rpn_term[off + i], kind = p.slot_kinds[t];
+      const float* x = row(in.terms, t, e, in);
       Real acc = 0;
-      for (int k = 0; k < in.K; ++k) acc = acc + x[k];
+      for (int k = 0; k < in.K; ++k) acc = acc + as_real(x[k], kind);
       stack[sp++] = acc;
     } else if (op == RPN_CONST) {
       stack[sp++] = p.rpn_const[off + i];
@@ -277,8 +334,7 @@ __device__ bool eval_event(const Program& p, long long e, const Inputs& in) {
     if (kind == G_ANY) {
       pass = false;
       for (int i = 0; i < nt; ++i)
-        pass |= apply_op(row(in.terms, p.term_ids[off + i], e, in)[0],
-                         p.ops[off + i], p.thrs[off + i]);
+        pass |= nonzero(row(in.terms, p.term_ids[off + i], e, in)[0], p.kinds[off + i]);
     } else if (kind == G_MASS || kind == G_DR) {
       pass = eval_pair(p, g, e, in);
     } else if (kind == G_EXPR) {
@@ -286,16 +342,17 @@ __device__ bool eval_event(const Program& p, long long e, const Inputs& in) {
     } else {  // G_COUNT / G_HT: per-object AND of the terms, then reduce
       const float* vg = row(in.valid, g, e, in);
       const float* w = row(in.weights, g, e, in);
+      const int wkind = gd[GD_WEIGHT_KIND];
       int count = 0;
       Real ht = 0;
       for (int k = 0; k < in.K; ++k) {
         bool obj = true;
         for (int i = 0; i < nt; ++i)
-          obj = obj && apply_op(row(in.terms, p.term_ids[off + i], e, in)[k],
-                                p.ops[off + i], p.thrs[off + i]);
+          obj = obj && object_cut(row(in.terms, p.term_ids[off + i], e, in)[k],
+                                  p.ops[off + i], p.thrs[off + i], p.kinds[off + i]);
         obj = obj && (vg[k] > 0.0f);
         count += obj;
-        ht = ht + Real(w[k]) * Real(obj ? 1 : 0);
+        ht = ht + as_real(w[k], wkind) * Real(obj ? 1 : 0);
       }
       pass = kind == G_COUNT ? count >= gd[GD_MIN_COUNT]
                              : apply_op(ht, gd[GD_CMP_OP], p.cut(g));

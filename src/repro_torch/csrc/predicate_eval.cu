@@ -12,9 +12,11 @@
 //    windows the stage runs ("staged"): for staged window s, its batch row
 //    b = rows[s] (s itself when rows is null) and event e, alive = bit e
 //    of the carried mask packed[b] AND the program over window s's planes
-//    (T term planes, then G valid and G weights planes, each (E, K)
-//    float32).  The new bits overwrite packed[b] in place (bit j of word w
-//    is event w*32+j, the reference's layout and the ballot's lane order);
+//    (T term planes, then G valid and G weights planes, each (E, K) slots
+//    of 4 bytes: a float32, or an integer's int32 bits where the program's
+//    kinds say so; predicate.cuh).  The new bits overwrite packed[b] in
+//    place (bit j of word w is event w*32+j, the reference's layout and
+//    the ballot's lane order);
 //    out[b, 0:nb] gets 1 at every basket ordinal seg_ids[b,e] of a
 //    surviving event and out[b, nb] the window's survivor count.  Rows no
 //    staged window maps to keep their packed words and get zero rows in
@@ -178,17 +180,19 @@ __device__ __forceinline__ Real add_chunk(Real acc, Real x, const Lanes& ln, int
   return acc;
 }
 
-// lead_slot over the event's lanes: the leading valid slot but `exclude`
-// in leads()'s order (slot 0 if there is none), scanned in slot order by
-// every lane of the event; a ballot carries which slots are candidates
-__device__ int lead_slot_lanes(const float* pt, const float* vg, bool second,
-                               int exclude, const Lanes& ln, int K) {
-  float best = 0.0f;
+// lead_slot over the event's lanes: the leading valid slot of pt (V: float
+// or int, as the slots' kind) but `exclude` in leads()'s order (slot 0 if
+// there is none), scanned in slot order by every lane of the event; a
+// ballot carries which slots are candidates
+template <typename V>
+__device__ int lead_slot_lanes_of(const V* pt, const float* vg, bool second, int exclude,
+                                  const Lanes& ln, int K) {
+  V best = 0;
   int idx = -1;
   for (int j = 0; j < ln.J; ++j) {
     const int k = j * ln.L + ln.sub;
     bool c = false;
-    float x = 0.0f;
+    V x = 0;
     if (k < K) {
       const bool v = second ? (vg[k] >= 2.0f) : (floor_mod(vg[k], 2.0f) >= 1.0f);
       c = v && k != exclude;
@@ -198,7 +202,7 @@ __device__ int lead_slot_lanes(const float* pt, const float* vg, bool second,
     const int w = ln.width(j, K);
 #pragma unroll 8
     for (int kk = 0; kk < w; ++kk) {
-      const float y = __shfl_sync(kFull, x, ln.lead + kk);
+      const V y = __shfl_sync(kFull, x, ln.lead + kk);
       if (((cand >> (ln.lead + kk)) & 1u) && leads(y, best, idx)) {
         best = y;
         idx = j * ln.L + kk;
@@ -206,6 +210,12 @@ __device__ int lead_slot_lanes(const float* pt, const float* vg, bool second,
     }
   }
   return idx < 0 ? 0 : idx;
+}
+
+__device__ int lead_slot_lanes(const float* pt, int kind, const float* vg, bool second,
+                               int exclude, const Lanes& ln, int K) {
+  if (kind == KIND_F32) return lead_slot_lanes_of(pt, vg, second, exclude, ln, K);
+  return lead_slot_lanes_of(reinterpret_cast<const int*>(pt), vg, second, exclude, ln, K);
 }
 
 __device__ int count_valid_lanes(const float* vg, bool second, const Lanes& ln, int K) {
@@ -226,22 +236,25 @@ __device__ bool pair_lanes(const Program& p, int g, const Tile& t, int i,
   const bool same = gd[GD_SAME] != 0;
   const int half = gd[GD_N_TERMS] / 2;
   const float* vg = t.at(T + g, i);
+  const int* kinds = p.kinds + gd[GD_TERM_OFF];
   const float* pt_a = t.at(ids[0], i);
   const float* pt_b = t.at(ids[half], i);
-  const int i1 = lead_slot_lanes(pt_a, vg, false, -1, ln, K);
+  const int i1 = lead_slot_lanes(pt_a, kinds[0], vg, false, -1, ln, K);
   int i2;
   bool ok;
   if (same) {
-    i2 = lead_slot_lanes(pt_a, vg, false, i1, ln, K);
+    i2 = lead_slot_lanes(pt_a, kinds[0], vg, false, i1, ln, K);
     ok = count_valid_lanes(vg, false, ln, K) >= 2;
   } else {
-    i2 = lead_slot_lanes(pt_b, vg, true, -1, ln, K);
+    i2 = lead_slot_lanes(pt_b, kinds[half], vg, true, -1, ln, K);
     const int n1 = count_valid_lanes(vg, false, ln, K);
     const int n2 = count_valid_lanes(vg, true, ln, K);
     ok = n1 >= 1 && n2 >= 1;
   }
   if (!ok) return false;
-  auto sel = [&](int term, int slot) -> Real { return t.at(ids[term], i)[slot]; };
+  auto sel = [&](int term, int slot) -> Real {
+    return as_real(t.at(ids[term], i)[slot], kinds[term]);
+  };
   const int kind = gd[GD_KIND];
   const Real v = kind == G_MASS ? pair_mass(sel, i1, i2) : pair_delta_r(sel, i1, i2);
   return pair_passes(p, g, kind, gd[GD_CMP_OP], v);
@@ -256,13 +269,16 @@ __device__ bool expr_lanes(const Program& p, int g, const Tile& t, int i,
   for (int r = 0; r < gd[GD_RPN_LEN]; ++r) {
     const int op = p.rpn_op[off + r];
     if (op == RPN_BRANCH) {
-      stack[sp++] = t.at(p.rpn_term[off + r], i)[0];
+      const int q = p.rpn_term[off + r];
+      stack[sp++] = as_real(t.at(q, i)[0], p.slot_kinds[q]);
     } else if (op == RPN_SUM) {
-      const float* x = t.at(p.rpn_term[off + r], i);
+      const int q = p.rpn_term[off + r], kind = p.slot_kinds[q];
+      const float* x = t.at(q, i);
       Real acc = 0;
       for (int j = 0; j < ln.J; ++j) {
         const int k = j * ln.L + ln.sub;
-        acc = add_chunk(acc, k < t.K ? Real(x[k]) : Real(0), ln, ln.width(j, t.K));
+        acc = add_chunk(acc, k < t.K ? as_real(x[k], kind) : Real(0), ln,
+                        ln.width(j, t.K));
       }
       stack[sp++] = acc;
     } else if (op == RPN_CONST) {
@@ -295,7 +311,7 @@ __device__ bool eval_lanes(const Program& p, const Tile& t, int i, const Lanes& 
     if (kind == G_ANY) {
       pass = false;
       for (int q = 0; q < nt; ++q)
-        pass |= apply_op(t.at(p.term_ids[off + q], i)[0], p.ops[off + q], p.thrs[off + q]);
+        pass |= nonzero(t.at(p.term_ids[off + q], i)[0], p.kinds[off + q]);
     } else if (kind == G_MASS || kind == G_DR) {
       pass = pair_lanes(p, g, t, i, ln);
     } else if (kind == G_EXPR) {
@@ -303,18 +319,20 @@ __device__ bool eval_lanes(const Program& p, const Tile& t, int i, const Lanes& 
     } else {  // G_COUNT / G_HT: per-object AND of the terms, then reduce
       const float* vg = t.at(T + g, i);
       const float* w = t.at(T + p.G + g, i);
+      const int wkind = gd[GD_WEIGHT_KIND];
       int count = 0;
       Real ht = 0;
       for (int j = 0; j < ln.J; ++j) {
         const int k = j * ln.L + ln.sub;
         bool obj = k < K;
         for (int q = 0; q < nt && obj; ++q)
-          obj = apply_op(t.at(p.term_ids[off + q], i)[k], p.ops[off + q], p.thrs[off + q]);
+          obj = object_cut(t.at(p.term_ids[off + q], i)[k], p.ops[off + q],
+                           p.thrs[off + q], p.kinds[off + q]);
         obj = obj && (vg[k] > 0.0f);
         count += __popc(__ballot_sync(kFull, obj) & ln.mask);
         if (kind == G_HT)
-          ht = add_chunk(ht, k < K ? Real(w[k]) * Real(obj ? 1 : 0) : Real(0), ln,
-                         ln.width(j, K));
+          ht = add_chunk(ht, k < K ? as_real(w[k], wkind) * Real(obj ? 1 : 0) : Real(0),
+                         ln, ln.width(j, K));
       }
       pass = kind == G_COUNT ? count >= gd[GD_MIN_COUNT]
                              : apply_op(ht, gd[GD_CMP_OP], p.cut(g));
@@ -483,22 +501,25 @@ cudaError_t launch_stage(const Program& p, const Stage& st, int S, int smem_byte
 // The cascade stage over S staged windows (see the top of this file).
 // tile (a multiple of 32, at most 512) and mode (0 bulk copies, 1 4-byte
 // cp.async, 2 device memory) are the host's choice; smem_bytes is the
-// planes' shared memory (P*tile*K*4; 0 in mode 2).  B rows of `out` are
-// zeroed first.
+// planes' shared memory (P*tile*K*4; 0 in mode 2); `kinds` the T term
+// slots' plane kinds, then each term's aligned with `term_ids`
+// (kernels/skim_fused.py::flatten_program).  B rows of `out` are zeroed
+// first.
 extern "C" int cascade_stage_launch(
     const float* terms, const float* valid, const float* weights,
     long long t_stride, long long g_stride, const int* rows, int S, int T,
     int G, long long E, int K, int tile, int mode, int smem_bytes, int lanes,
     unsigned long long planes_read,
-    const int* groups, const int* term_ids, const int* ops, const float* thrs,
-    const double* cmp_thrs, const int* rpn_op, const int* rpn_term,
+    const int* groups, const int* term_ids, const int* ops, const int* kinds,
+    const double* thrs, const double* cmp_thrs, const int* rpn_op, const int* rpn_term,
     const double* rpn_const, uint32_t* packed, const int* seg_ids, int nb,
     int* out, int B, void* stream) {
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       cudaMemsetAsync(out, 0, sizeof(int) * (size_t)B * (size_t)(nb + 1), cs);
   if (err != cudaSuccess || S == 0 || E == 0) return (int)err;
-  Program p{groups, term_ids, ops, thrs, cmp_thrs, rpn_op, rpn_term, rpn_const, G};
+  Program p{groups, term_ids, ops, kinds + T, kinds, thrs, cmp_thrs, rpn_op, rpn_term,
+            rpn_const, G};
   Stage st{terms, valid, weights, t_stride, g_stride, rows, E, T, K, tile, mode, lanes,
            planes_read};
   return (int)launch_stage<false>(p, st, S, smem_bytes, packed, seg_ids, nb, out, cs);
@@ -511,11 +532,12 @@ extern "C" int predicate_eval_launch(
     const float* terms, const float* valid, const float* weights,
     long long t_stride, long long g_stride, int B, int T, int G, long long E, int K,
     int tile, int mode, int smem_bytes, int lanes, unsigned long long planes_read,
-    const int* groups, const int* term_ids, const int* ops, const float* thrs,
-    const double* cmp_thrs, const int* rpn_op, const int* rpn_term,
+    const int* groups, const int* term_ids, const int* ops, const int* kinds,
+    const double* thrs, const double* cmp_thrs, const int* rpn_op, const int* rpn_term,
     const double* rpn_const, int* out, void* stream) {
   if (B == 0 || E == 0) return (int)cudaSuccess;
-  Program p{groups, term_ids, ops, thrs, cmp_thrs, rpn_op, rpn_term, rpn_const, G};
+  Program p{groups, term_ids, ops, kinds + T, kinds, thrs, cmp_thrs, rpn_op, rpn_term,
+            rpn_const, G};
   Stage st{terms, valid, weights, t_stride, g_stride, nullptr, E, T, K, tile, mode, lanes,
            planes_read};
   return (int)launch_stage<true>(p, st, B, smem_bytes, nullptr, nullptr, 0, out,

@@ -24,7 +24,7 @@
 //
 // Design:
 //  * The program is data, not code: the host flattens the frozen Program
-//    into small int32/float32/float64 descriptor arrays (see
+//    and its planes' kinds into small int32/float64 descriptor arrays (see
 //    repro_torch/kernels/skim_fused.py), so this one build serves every
 //    cascade stage and every padded E.  The reference instead specializes
 //    its kernel per program.
@@ -123,20 +123,22 @@ cudaError_t launch(const Program& p, const Inputs& batch, int B, int T, const vo
 // `status` holds B * ceil(E/512) words carrying epochs below `epoch` (or
 // 0) only, `tickets` B counters at 0; `payload` and `out` are (B, E, D)
 // rows of `elem_bytes` (1, 2, 4 or 8) an element and `totals` (B,)
-// counts.  Returns a CUDA error code, or cudaErrorInvalidValue for
-// another width or epoch.
+// counts; `kinds` the T term slots' plane kinds, then each term's aligned
+// with `term_ids` (kernels/skim_fused.py::flatten_program).  Returns a CUDA
+// error code, or cudaErrorInvalidValue for another width or epoch.
 extern "C" int skim_fused_launch(
     const float* terms, const float* valid, const float* weights,
     const void* payload, int B, int T, int G, long long E, int K, int D, int elem_bytes,
-    const int* groups, const int* term_ids, const int* ops, const float* thrs,
-    const double* cmp_thrs, const int* rpn_op, const int* rpn_term,
+    const int* groups, const int* term_ids, const int* ops, const int* kinds,
+    const double* thrs, const double* cmp_thrs, const int* rpn_op, const int* rpn_term,
     const double* rpn_const, unsigned long long* status, unsigned* tickets,
     unsigned epoch, void* out, int* totals,
     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (epoch == 0 || epoch >= (1u << 30)) return (int)cudaErrorInvalidValue;
   const int n_tiles = (int)((E + kTile - 1) / kTile);
-  Program p{groups, term_ids, ops, thrs, cmp_thrs, rpn_op, rpn_term, rpn_const, G};
+  Program p{groups, term_ids, ops, kinds + T, kinds, thrs, cmp_thrs, rpn_op, rpn_term,
+            rpn_const, G};
   Inputs batch{terms, valid, weights, E, K};
   switch (elem_bytes) {
     case 1: return (int)launch<uint8_t>(p, batch, B, T, payload, D, out, totals, status,

@@ -483,7 +483,7 @@ def _stage_windows(backend: str):
 
 
 def warm_cascade_stage(program: Program, shape, nb: int, backend="cuda",
-                       device="cuda") -> bool:
+                       device="cuda", kinds=None) -> bool:
     """Run the cascade step once for one shape bucket, on one staged
     window of zeros with no live event.
 
@@ -491,14 +491,15 @@ def warm_cascade_stage(program: Program, shape, nb: int, backend="cuda",
     step; it runs on the first sight of a ``(program, batch shape)``
     signature, so the library load and the first launch stay out of the
     measured ``filter`` time.  On the card it also puts the program's
-    descriptors there, on every call (a stage of a new plan may share a
-    signature seen before), so the step's one upload is its inputs'.
+    descriptors there (with the plane ``kinds`` the step will pass), on
+    every call (a stage of a new plan may share a signature seen before),
+    so the step's one upload is its inputs'.
     Returns True when a warm-up actually ran.
     """
     device = _stage_device(backend, device)
     if backend == "cuda":
         index = torch.cuda.current_device() if device.index is None else device.index
-        _sf.program_descriptor(program, torch.device("cuda", index))
+        _sf.program_descriptor(program, torch.device("cuda", index), kinds)
     sig = _cascade_sig(program, shape, nb, backend)
     if sig in _SEEN_SIGNATURES:
         return False
@@ -511,7 +512,7 @@ def warm_cascade_stage(program: Program, shape, nb: int, backend="cuda",
     _stage_windows(backend)(
         zeros(1, T + 2 * G, E, K), zeros(1, dtype=torch.int32),
         zeros(Bn, E // 32, dtype=torch.int32), zeros(Bn, E, dtype=torch.int32),
-        program, nb,
+        program, nb, kinds=kinds,
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -577,7 +578,7 @@ def cascade_stage_step(terms, valid, weights, packed, seg_ids, program: Program,
 
 def cascade_stage_step_staged(inputs: CascadeInputs, packed, seg_ids,
                               program: Program, nb: int, backend="cuda",
-                              device="cuda"):
+                              device="cuda", kinds=None):
     """The batched cascade stage: one device dispatch per (stage,
     window-batch), over the windows ``inputs`` stages.
 
@@ -592,16 +593,18 @@ def cascade_stage_step_staged(inputs: CascadeInputs, packed, seg_ids,
     + 1) int32: basket bits, then each window's count, zeros for rows not
     staged (:func:`stage_summary_host` reads both in one copy).  The
     dispatch ledger notes the dense batch's shape, as the JAX package
-    does, whatever number of windows is staged.
+    does, whatever number of windows is staged.  ``kinds`` are the planes'
+    kinds (``repro_torch.core.neardata.program_kinds``; None: float32).
     """
     device = _stage_device(backend, device)
     _note_dispatch(_cascade_sig(program, inputs.shape, nb, backend))
     stage = _stage_windows(backend)
     if device.type != "cuda":
-        return stage(*inputs.views(inputs.host), packed, seg_ids, program, nb)
+        return stage(*inputs.views(inputs.host), packed, seg_ids, program, nb,
+                     kinds=kinds)
     dev = _STAGING.buffer(device, "cascade in, card", inputs.host.numel(), torch.int32)
     dev.copy_(inputs.host, non_blocking=True)
-    result = stage(*inputs.views(dev), packed, seg_ids, program, nb)
+    result = stage(*inputs.views(dev), packed, seg_ids, program, nb, kinds=kinds)
     _STAGING.wait(device)  # the staging buffer is free for this thread again
     return result
 
@@ -631,7 +634,7 @@ def skim_fused(terms, valid, weights, payload, program: Program, device=None):
 
 
 def fused_skim(terms, valid, weights, payload, program: Program, use_kernel=True,
-               device=None):
+               device=None, kinds=None):
     """Backend-dispatched one-pass skim (the engine's per-window path).
 
     ``terms`` (T,E,K), ``valid``/``weights`` (G,E,K) float32, ``payload``
@@ -648,22 +651,26 @@ def fused_skim(terms, valid, weights, payload, program: Program, use_kernel=True
     packed into one page-locked buffer and uploaded by one copy, and its
     counts and packed rows come back by one copy into page-locked memory
     and one event wait.
+
+    ``kinds`` (the engine's route: ``repro_torch.core.neardata.
+    program_kinds``) says which planes hold an integer branch's int32
+    bits; None reads every plane as float32.
     """
     _note_dispatch(("fused", program, tuple(terms.shape), bool(use_kernel)))
     skim = _sf.skim_fused if use_kernel else _ref.skim_fused_ref
     if isinstance(terms, torch.Tensor):
-        return skim(terms, valid, weights, payload, program)
+        return skim(terms, valid, weights, payload, program, kinds=kinds)
     device = resolve_device(device)
     if use_kernel and device.type == "cuda":
-        return _skim_staged(terms, valid, weights, payload, program, device)
+        return _skim_staged(terms, valid, weights, payload, program, device, kinds)
     payload = _jax_numpy(payload)
     packed, count = skim(*_tensors(device, terms, valid, weights, dtype=torch.float32),
-                         *_tensors(device, payload), program)
+                         *_tensors(device, payload), program, kinds=kinds)
     return _numpy_as(packed, payload.dtype), int(count)
 
 
 def _skim_staged(terms, valid, weights, payload, program: Program,
-                 device) -> tuple[np.ndarray, int]:
+                 device, kinds=None) -> tuple[np.ndarray, int]:
     """:func:`fused_skim` of numpy arrays by the kernel: one upload, one
     launch, one readback.  The staged buffer holds terms, valid and
     weights as float32, then the payload's bytes from a 16-byte boundary;
@@ -677,10 +684,9 @@ def _skim_staged(terms, valid, weights, payload, program: Program,
     hdr = _sf.header_words(1)
     host_in = _STAGING.buffer(device, "skim in", n_in, torch.int32, pinned=True)
     staged = host_in.numpy()
-    floats = staged.view(np.float32)
     views, o = [], 0
     for a, n in zip(planes, sizes):
-        floats[o: o + n] = a.reshape(-1)
+        staged[o: o + n] = a.reshape(-1).view(np.int32)  # bits: integer planes too
         views.append((o, n, a.shape))
         o += n
     staged.view(np.uint8)[4 * p_off: 4 * p_off + payload.nbytes] = (
@@ -690,7 +696,7 @@ def _skim_staged(terms, valid, weights, payload, program: Program,
     t, v, w = (dev_in[o: o + n].view(torch.float32).view(shape)[None]
                for o, n, shape in views)
     pl = _sf.view_rows(dev_in[p_off:], 1, E, D, torch_dtype(payload.dtype))
-    buf = _sf.launch("skim_fused", t, v, w, pl, program)
+    buf = _sf.launch("skim_fused", t, v, w, pl, program, kinds)
     host = _STAGING.buffer(device, "skim out", buf.numel(), torch.int32, pinned=True)
     host.copy_(buf, non_blocking=True)
     _STAGING.wait(device)

@@ -23,7 +23,10 @@ lanes go over its K slots.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version in :mod:`repro_torch.kernels.ref`.  The program reaches the
-kernel as the same descriptor arrays as ``skim_fused``'s.
+kernel as the same descriptor arrays as ``skim_fused``'s.  Each wrapper
+takes the planes' ``kinds`` (``program.KIND_*``: an integer branch's
+plane holds its int32 bits); None, the JAX package's form, reads every
+plane as float32.
 """
 
 from __future__ import annotations
@@ -42,15 +45,13 @@ from repro_torch.kernels.program import (
     GROUP_MASS,
     Program,
 )
-from repro_torch.kernels.skim_fused import program_args
+from repro_torch.kernels.skim_fused import PROGRAM_ARGS, program_args
 
 MAX_WINDOWS = 65535  # the grid's y dimension (one window per row)
 
 # kernel launches through each wrapper; never reset here
 launches = {"cascade_stage": 0, "predicate_eval_batch": 0, "predicate_eval": 0}
 _LAUNCHES_LOCK = threading.Lock()  # pipelined skims call from several threads
-
-_PROGRAM_ARGS = 8  # program descriptor pointers
 
 
 def _fn(name: str, argtypes: list):
@@ -65,14 +66,14 @@ def _mask_fn():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return _fn("predicate_eval_launch",
                [p, p, p, ll, ll, i, i, i, ll, i, i, i, i, i, ctypes.c_ulonglong,
-                *([p] * _PROGRAM_ARGS), p, p])
+                *([p] * PROGRAM_ARGS), p, p])
 
 
 def _stage_fn():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return _fn("cascade_stage_launch",
                [p, p, p, ll, ll, p, i, i, i, ll, i, i, i, i, i, ctypes.c_ulonglong,
-                *([p] * _PROGRAM_ARGS), p, p, i, p, i, p])
+                *([p] * PROGRAM_ARGS), p, p, i, p, i, p])
 
 
 # The stage kernel's tile: a block brings (T + 2G) planes of `tile`
@@ -194,7 +195,8 @@ def _check_inputs(who: str, terms, valid, weights, program: Program, window=Fals
     return B, T, E, K
 
 
-def _mask(terms, valid, weights, program: Program, window: bool) -> torch.Tensor:
+def _mask(terms, valid, weights, program: Program, window: bool,
+          kinds=None) -> torch.Tensor:
     """Launch ``predicate_eval_launch`` (the stage kernel, mask epilogue):
     (B, E) int32 on the card, or (E,) for one ``window``."""
     B, T, E, K = _check_inputs("predicate_eval", terms, valid, weights, program, window)
@@ -209,27 +211,28 @@ def _mask(terms, valid, weights, program: Program, window: bool) -> torch.Tensor
     rc = _build.call_on(
         device, _mask_fn(), *(p(x) for x in planes), *strides, B, T, G, E, K,
         tile, mode, smem, lanes, planes_read(program),
-        *program_args(program, device), p(out), _build.stream_of(device))
+        *program_args(program, device, kinds), p(out), _build.stream_of(device))
     _build.check_launch("predicate_eval", rc)
     return out
 
 
-def predicate_eval_batch(terms, valid, weights, program: Program) -> torch.Tensor:
+def predicate_eval_batch(terms, valid, weights, program: Program,
+                         kinds=None) -> torch.Tensor:
     """The program over a batch of windows: terms (B, T, E, K),
     valid/weights (B, G, E, K) float32 -> (B, E) int32 mask.  Any E."""
     if not terms.is_cuda:
-        return _ref.predicate_eval_batch_ref(terms, valid, weights, program)
-    out = _mask(terms, valid, weights, program, window=False)
+        return _ref.predicate_eval_batch_ref(terms, valid, weights, program, kinds)
+    out = _mask(terms, valid, weights, program, window=False, kinds=kinds)
     _count("predicate_eval_batch")
     return out
 
 
-def predicate_eval(terms, valid, weights, program: Program) -> torch.Tensor:
+def predicate_eval(terms, valid, weights, program: Program, kinds=None) -> torch.Tensor:
     """The program over one window: (T, E, K), (G, E, K) float32 -> (E,)
     int32 mask; the B = 1 case of :func:`predicate_eval_batch`."""
     if not terms.is_cuda:
-        return _ref.predicate_mask(program, terms, valid, weights).to(torch.int32)
-    out = _mask(terms, valid, weights, program, window=True)
+        return _ref.predicate_mask(program, terms, valid, weights, kinds).to(torch.int32)
+    out = _mask(terms, valid, weights, program, window=True, kinds=kinds)
     _count("predicate_eval")
     return out
 
@@ -255,7 +258,7 @@ def _check_mask(who: str, packed, seg_ids, B: int, E: int, nb: int, device):
 
 
 def _launch_stage(planes, strides, rows, S: int, T: int, E: int, K: int,
-                  packed, seg_ids, program: Program, nb: int):
+                  packed, seg_ids, program: Program, nb: int, kinds=None):
     """Launch ``cascade_stage_launch`` over S staged windows; ``planes``
     are the (terms, valid, weights) base tensors, ``strides`` the floats
     between two windows' term and group planes, ``rows`` the (S,) int32
@@ -270,7 +273,7 @@ def _launch_stage(planes, strides, rows, S: int, T: int, E: int, K: int,
         device, _stage_fn(), *(p(x) for x in planes), *strides,
         None if rows is None else p(rows), S, T, program.n_groups, E, K,
         tile, mode, smem, lanes, planes_read(program),
-        *program_args(program, device), p(packed),
+        *program_args(program, device, kinds), p(packed),
         p(seg_ids), nb, p(out), B, _build.stream_of(device))
     _build.check_launch("cascade_stage", rc)
     # the launch zeroes `out` first, then runs the kernel if S and E
@@ -279,7 +282,8 @@ def _launch_stage(planes, strides, rows, S: int, T: int, E: int, K: int,
     return packed, out
 
 
-def cascade_stage(terms, valid, weights, packed, seg_ids, program: Program, nb: int):
+def cascade_stage(terms, valid, weights, packed, seg_ids, program: Program, nb: int,
+                  kinds=None):
     """One batched cascade stage over a dense batch, every window staged:
     the contract of :func:`repro_torch.kernels.ref.cascade_stage_ref`, with
     ``packed`` updated **in place** (the JAX package donates the buffer
@@ -292,13 +296,15 @@ def cascade_stage(terms, valid, weights, packed, seg_ids, program: Program, nb: 
     B, T, E, K = _check_inputs("cascade_stage", terms, valid, weights, program)
     _check_mask("cascade_stage", packed, seg_ids, B, E, nb, terms.device)
     if not terms.is_cuda:
-        return cascade_stage_plain(terms, valid, weights, packed, seg_ids, program, nb)
+        return cascade_stage_plain(terms, valid, weights, packed, seg_ids, program, nb,
+                                   kinds)
     G = program.n_groups
     return _launch_stage((terms, valid, weights), (T * E * K, G * E * K), None,
-                         B, T, E, K, packed, seg_ids, program, nb)
+                         B, T, E, K, packed, seg_ids, program, nb, kinds)
 
 
-def cascade_stage_windows(planes, rows, packed, seg_ids, program: Program, nb: int):
+def cascade_stage_windows(planes, rows, packed, seg_ids, program: Program, nb: int,
+                          kinds=None):
     """The cascade stage over the windows it runs only.
 
     ``planes`` (S, T + 2G, E, K) float32 holds staged window s's T term
@@ -328,26 +334,27 @@ def cascade_stage_windows(planes, rows, packed, seg_ids, program: Program, nb: i
     B = packed.shape[0] if packed.dim() == 2 else -1
     _check_mask("cascade_stage", packed, seg_ids, B, E, nb, device)
     if not planes.is_cuda:
-        return cascade_stage_windows_plain(planes, rows, packed, seg_ids, program, nb)
+        return cascade_stage_windows_plain(planes, rows, packed, seg_ids, program, nb,
+                                           kinds)
     window = P * E * K
     return _launch_stage((planes, planes[:, T:], planes[:, T + G:]), (window, window),
-                         rows, S, T, E, K, packed, seg_ids, program, nb)
+                         rows, S, T, E, K, packed, seg_ids, program, nb, kinds)
 
 
 def cascade_stage_plain(terms, valid, weights, packed, seg_ids, program: Program,
-                        nb: int):
+                        nb: int, kinds=None):
     """:func:`repro_torch.kernels.ref.cascade_stage_ref` with the kernel's
     outputs: ``packed`` updated in place, and one (B, nb + 1) buffer of
     basket bits and counts."""
     new, basket_alive, counts = _ref.cascade_stage_ref(
-        terms, valid, weights, packed, seg_ids, program, nb
+        terms, valid, weights, packed, seg_ids, program, nb, kinds
     )
     packed.copy_(new)
     return packed, torch.cat([basket_alive, counts[:, None]], dim=1)
 
 
 def cascade_stage_windows_plain(planes, rows, packed, seg_ids, program: Program,
-                                nb: int):
+                                nb: int, kinds=None):
     """:func:`cascade_stage_plain` over the staged windows' rows; the
     other rows keep their words and get zero rows."""
     T, G = program.n_terms, program.n_groups
@@ -357,7 +364,7 @@ def cascade_stage_windows_plain(planes, rows, packed, seg_ids, program: Program,
         idx = rows.long()
         new, summary = cascade_stage_plain(
             planes[:, :T], planes[:, T:T + G], planes[:, T + G:],
-            packed[idx], seg_ids[idx], program, nb)
+            packed[idx], seg_ids[idx], program, nb, kinds)
         packed[idx] = new
         out[idx] = summary
     return packed, out

@@ -17,6 +17,8 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
+
 from repro_torch.core.expr import KINEMATIC_VARS, RPN_BRANCH, RPN_SUM
 
 OP_GT, OP_GE, OP_LT, OP_LE, OP_EQ, OP_NE, OP_ABSLT, OP_ABSGT = range(8)
@@ -34,10 +36,30 @@ OP_IDS = {
 
 GROUP_COUNT = 0  # count of objects passing all terms >= min_count
 GROUP_HT = 1  # sum(weight * passing) cmp threshold
-GROUP_ANY = 2  # OR over terms (flat boolean branches)
+GROUP_ANY = 2  # OR over terms, each read as bool: nonzero (NaN true, ±0 false)
 GROUP_MASS = 3  # leading-pair invariant mass inside [cmp_thr, cmp_thr2]
 GROUP_DR = 4  # leading-pair ΔR cmp threshold
 GROUP_EXPR = 5  # arithmetic stack program (Group.rpn) cmp threshold
+
+# What a term or weights plane holds (csrc/predicate.cuh KIND_*): float32
+# values, or an integer or bool branch's values widened exactly to int32
+# and kept as their bits.  The kernels compare an integer in float64, as
+# numpy promotes an integer column beside a Python float, and take
+# numpy's integer abs, which leaves the type's least value negative: the
+# kind names the type for that.  Kinds are not part of the program: they
+# come from the store (``repro_torch.core.neardata.program_kinds``).
+KIND_F32, KIND_I32, KIND_I16, KIND_I8, KIND_UINT = range(5)
+_KINDS = {np.dtype(np.int32): KIND_I32, np.dtype(np.int16): KIND_I16,
+          np.dtype(np.int8): KIND_I8, np.dtype(np.uint16): KIND_UINT,
+          np.dtype(np.uint8): KIND_UINT, np.dtype(np.bool_): KIND_UINT}
+# the least value of each integer kind, which numpy's abs leaves as it is
+KIND_MIN = {KIND_I32: -(1 << 31), KIND_I16: -(1 << 15), KIND_I8: -(1 << 7)}
+
+
+def value_kind(dtype) -> int:
+    """The plane kind of a branch of numpy type ``dtype``: an integer or
+    bool type int32 holds exactly, else float32 (the planes' type)."""
+    return _KINDS.get(np.dtype(dtype), KIND_F32)
 
 
 @dataclass(frozen=True)
@@ -123,6 +145,8 @@ def compile_query(query) -> Program:
                     Group(GROUP_COUNT, (t,), (OP_IDS[node.op],), (float(node.value),))
                 )
             elif isinstance(node, AnyOf):
+                # the JAX package's fields; every evaluator reads an ANY
+                # term as nonzero, as the staged evaluator reads it as bool
                 ids = tuple(add_term(n) for n in node.names)
                 add_group(
                     Group(GROUP_ANY, ids, (OP_IDS[">="],) * len(ids), (0.5,) * len(ids))
@@ -232,6 +256,7 @@ def compile_query(query) -> Program:
 
 __all__ = [
     "GROUP_ANY", "GROUP_COUNT", "GROUP_DR", "GROUP_EXPR", "GROUP_HT",
-    "GROUP_MASS", "OP_IDS", "Group", "Program", "compile_query",
-    "program_from_fields",
+    "GROUP_MASS", "KIND_F32", "KIND_I16", "KIND_I32", "KIND_I8", "KIND_MIN",
+    "KIND_UINT", "OP_IDS", "Group", "Program", "compile_query",
+    "program_from_fields", "value_kind",
 ]

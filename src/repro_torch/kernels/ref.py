@@ -8,13 +8,21 @@ card, the oracle the kernels are held against by the tests and by
 present.
 
 The predicate decides every event as the host evaluator does
-(``repro_torch.core.neardata.program_eval_np``, the staged semantics):
+(``repro_torch.core.neardata.program_eval_np``, the staged semantics).
+``kinds`` (one per term plane, then one per weights plane; all float32
+when None) says what a plane holds (``program.KIND_*``): float32 values,
+or an integer or bool branch's values as int32 bits.
 
-* Per-object cuts (ANY, COUNT, HT's object cuts) compare a float32 value
-  with the cut read in float32, as numpy compares a float32 column with a
-  Python float.
+* Per-object cuts (COUNT, HT's object cuts) compare a float32 value with
+  the cut read in float32, as numpy compares a float32 column with a
+  Python float, and an integer in float64, as numpy promotes an integer
+  column beside a Python float (exact for every int32 and every cut
+  below 2^53); ``abs`` is numpy's integer abs, which leaves the type's
+  least value negative.
+* An ANY term is nonzero, as the staged evaluator reads it as bool (NaN
+  true, ±0 false), whatever the compiled op.
 * Group values (MASS, ΔR, HT, EXPR) are evaluated in float64 from the
-  float32 planes widened exactly, in the host's operation order, and
+  planes widened exactly, in the host's operation order, and
   compared with the float64 cut: every operation but MASS's ``cos``,
   ``sin``, ``sinh`` and ``cosh`` is correctly rounded, so the value is the
   host's bit for bit.  On the CPU those four are numpy's own, so MASS is
@@ -56,6 +64,8 @@ from repro_torch.kernels.program import (
     GROUP_EXPR,
     GROUP_HT,
     GROUP_MASS,
+    KIND_F32,
+    KIND_MIN,
     OP_ABSGT,
     OP_ABSLT,
     OP_EQ,
@@ -99,6 +109,34 @@ def apply_op(x: torch.Tensor, op_id: int, thr: float) -> torch.Tensor:
     raise ValueError(op_id)
 
 
+def _kind(kinds, i: int) -> int:
+    return kinds[i] if kinds else KIND_F32
+
+
+def plane_values(x: torch.Tensor, kind: int) -> torch.Tensor:
+    """A term or weights plane's values in float64: float32 widened, an
+    integer's int32 bits widened, both exactly."""
+    return (x if kind == KIND_F32 else x.view(torch.int32)).to(torch.float64)
+
+
+def term_cut(x: torch.Tensor, op_id: int, thr: float, kind: int) -> torch.Tensor:
+    """A per-object cut on a term plane of ``kind``: :func:`apply_op` on
+    float32, in float64 on an integer (abs first, as numpy's integer abs:
+    the type's least value stays negative)."""
+    if kind == KIND_F32:
+        return apply_op(x, op_id, thr)
+    v = x.view(torch.int32)
+    if op_id in (OP_ABSLT, OP_ABSGT):
+        a = torch.where(v == KIND_MIN.get(kind, 0), v, v.abs()).to(torch.float64)
+        return apply_op(a, OP_LT if op_id == OP_ABSLT else OP_GT, thr)
+    return apply_op(v.to(torch.float64), op_id, thr)
+
+
+def nonzero(x: torch.Tensor, kind: int) -> torch.Tensor:
+    """An ANY term: the value read as bool (NaN true, ±0 false)."""
+    return (x if kind == KIND_F32 else x.view(torch.int32)) != 0
+
+
 def slot_sum(x: torch.Tensor) -> torch.Tensor:
     """(E, K) -> (E,) sum in slot order from +0.0, in ``x``'s type (see
     the module note)."""
@@ -115,7 +153,7 @@ def _unpack_validity(vg: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _lead_slot(pt: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """(E, K) -> (E, 1) each event's leading valid slot, in the host
+    """(E, K) float64 -> (E, 1) each event's leading valid slot, in the host
     evaluator's order (``core.expr._leading_indices``): pt descending,
     NaN after every number (-inf included), ties to the lower slot.  An
     event with no valid slot takes slot 0."""
@@ -142,8 +180,8 @@ def _pair_slots(pt_a, va, pt_b, vb, same: bool):
 
 
 def _sel(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The slot ``idx`` of each event, widened to float64."""
-    return torch.gather(x, 1, idx)[:, 0].to(torch.float64)
+    """The slot ``idx`` of each event of a float64 plane."""
+    return torch.gather(x, 1, idx)[:, 0]
 
 
 def _unary(np_fn, torch_fn, x: torch.Tensor) -> torch.Tensor:
@@ -178,7 +216,7 @@ def _floor_mod(x: torch.Tensor, y: float) -> torch.Tensor:
     return torch.where(r == 0, _scalar(r, math.copysign(0.0, y)), r)
 
 
-def pair_group_value(program, g: int, terms, valid):
+def pair_group_value(program, g: int, terms, valid, kinds=None):
     """Invariant mass or ΔR of group ``g``'s leading pair -> (value, ok),
     the value in float64 as the host evaluator computes it
     (``core.expr.leading_pair_mass`` / ``leading_delta_r``).
@@ -191,10 +229,11 @@ def pair_group_value(program, g: int, terms, valid):
     same = program.group_collections[g] == _coll2(program, g)
     va, vb = _unpack_validity(valid[g])
     half = len(ids) // 2
-    i1, i2, ok = _pair_slots(terms[ids[0]], va, terms[ids[half]], vb, same)
+    x = {t: plane_values(terms[t], _kind(kinds, t)) for t in set(ids)}
+    i1, i2, ok = _pair_slots(x[ids[0]], va, x[ids[half]], vb, same)
     if grp.kind == GROUP_MASS:
-        px1, py1, pz1, e1 = _p4(*(_sel(terms[i], i1) for i in ids[:4]))
-        px2, py2, pz2, e2 = _p4(*(_sel(terms[i], i2) for i in ids[4:]))
+        px1, py1, pz1, e1 = _p4(*(_sel(x[i], i1) for i in ids[:4]))
+        px2, py2, pz2, e2 = _p4(*(_sel(x[i], i2) for i in ids[4:]))
         m2 = (
             (e1 + e2) * (e1 + e2)
             - (px1 + px2) * (px1 + px2)
@@ -202,9 +241,9 @@ def pair_group_value(program, g: int, terms, valid):
             - (pz1 + pz2) * (pz1 + pz2)
         )
         return _sqrt(torch.maximum(m2, torch.zeros_like(m2))), ok
-    deta = _sel(terms[ids[1]], i1) - _sel(terms[ids[4]], i2)
+    deta = _sel(x[ids[1]], i1) - _sel(x[ids[4]], i2)
     dphi = _floor_mod(
-        _sel(terms[ids[2]], i1) - _sel(terms[ids[5]], i2) + math.pi, 2.0 * math.pi
+        _sel(x[ids[2]], i1) - _sel(x[ids[5]], i2) + math.pi, 2.0 * math.pi
     ) - math.pi
     return _sqrt(deta * deta + dphi * dphi), ok
 
@@ -218,16 +257,16 @@ def _np_minmax(a, b, take_a):
     return torch.where(nan, a + b, torch.where(take_a, a, b))
 
 
-def _group_expr(grp, terms):
+def _group_expr(grp, terms, kinds):
     """Stack-program evaluation over term slots in float64, the host's
     ``expr.eval_rpn`` walk: flat branches read slot 0, sum() reductions sum
     the zero-padded slots in slot order, constants are float64."""
     stack: list = []
     for op, arg in grp.rpn:
         if op == RPN_BRANCH:
-            stack.append(terms[int(arg)][:, 0].to(torch.float64))
+            stack.append(plane_values(terms[int(arg)][:, 0], _kind(kinds, int(arg))))
         elif op == RPN_SUM:
-            stack.append(slot_sum(terms[int(arg)].to(torch.float64)))
+            stack.append(slot_sum(plane_values(terms[int(arg)], _kind(kinds, int(arg)))))
         elif op == RPN_CONST:
             stack.append(torch.tensor(float(arg), dtype=torch.float64,
                                       device=terms.device))
@@ -260,7 +299,7 @@ def _coll2(program, g: int):
     return c2[g] if c2 else None
 
 
-def predicate_mask(program, terms, valid, weights) -> torch.Tensor:
+def predicate_mask(program, terms, valid, weights, kinds=None) -> torch.Tensor:
     """Evaluate a compiled predicate program.
 
     Args:
@@ -268,34 +307,38 @@ def predicate_mask(program, terms, valid, weights) -> torch.Tensor:
       valid:   (G, E, K) float32 — per-group object validity (mass/ΔR
                groups carry two packed planes, see ``_unpack_validity``).
       weights: (G, E, K) float32 — per-group HT weights (zeros if unused).
+      kinds:   (T + G) plane kinds, the terms' then the weights' (see the
+               module note); None: every plane float32.
     Returns: (E,) bool event mask.
     """
     E = terms.shape[1]
+    T = program.n_terms
     mask = torch.ones(E, dtype=torch.bool, device=terms.device)
     for g, grp in enumerate(program.groups):
         if grp.kind == GROUP_ANY:
             gpass = torch.zeros(E, dtype=torch.bool, device=terms.device)
-            for t, op, thr in zip(grp.term_ids, grp.ops, grp.thrs):
-                gpass = gpass | apply_op(terms[t, :, 0], op, thr)
+            for t in grp.term_ids:
+                gpass = gpass | nonzero(terms[t, :, 0], _kind(kinds, t))
         elif grp.kind == GROUP_EXPR:
-            gpass = _group_expr(grp, terms)
+            gpass = _group_expr(grp, terms, kinds)
         elif grp.kind == GROUP_MASS:
-            m, ok = pair_group_value(program, g, terms, valid)
+            m, ok = pair_group_value(program, g, terms, valid, kinds)
             gpass = (
                 ok & (m >= _scalar(m, grp.cmp_thr)) & (m <= _scalar(m, grp.cmp_thr2))
             )
         elif grp.kind == GROUP_DR:
-            dr, ok = pair_group_value(program, g, terms, valid)
+            dr, ok = pair_group_value(program, g, terms, valid, kinds)
             gpass = ok & apply_op(dr, grp.cmp_op, grp.cmp_thr)
         else:
             obj = torch.ones(terms.shape[1:], dtype=torch.bool, device=terms.device)
             for t, op, thr in zip(grp.term_ids, grp.ops, grp.thrs):
-                obj = obj & apply_op(terms[t], op, thr)
+                obj = obj & term_cut(terms[t], op, thr, _kind(kinds, t))
             obj = obj & (valid[g] > 0)
             if grp.kind == GROUP_COUNT:
                 gpass = obj.sum(dim=-1) >= grp.min_count
             elif grp.kind == GROUP_HT:
-                ht = slot_sum(weights[g].to(torch.float64) * obj.to(torch.float64))
+                w = plane_values(weights[g], _kind(kinds, T + g))
+                ht = slot_sum(w * obj.to(torch.float64))
                 gpass = apply_op(ht, grp.cmp_op, grp.cmp_thr)
             else:
                 raise ValueError(grp.kind)
@@ -303,13 +346,13 @@ def predicate_mask(program, terms, valid, weights) -> torch.Tensor:
     return mask
 
 
-def predicate_eval_ref(terms, valid, weights, program) -> torch.Tensor:
+def predicate_eval_ref(terms, valid, weights, program, kinds=None) -> torch.Tensor:
     """Alias of :func:`predicate_mask` under the JAX package's name, in
     its argument order: (T, E, K), (G, E, K), (G, E, K) -> (E,) bool."""
-    return predicate_mask(program, terms, valid, weights)
+    return predicate_mask(program, terms, valid, weights, kinds)
 
 
-def predicate_eval_batch_ref(terms, valid, weights, program) -> torch.Tensor:
+def predicate_eval_batch_ref(terms, valid, weights, program, kinds=None) -> torch.Tensor:
     """:func:`predicate_mask` per window of a batch: terms (B, T, E, K),
     valid/weights (B, G, E, K) -> (B, E) int32.
 
@@ -324,7 +367,7 @@ def predicate_eval_batch_ref(terms, valid, weights, program) -> torch.Tensor:
 
     mask = predicate_mask(
         program, side_by_side(terms, T), side_by_side(valid, G),
-        side_by_side(weights, G),
+        side_by_side(weights, G), kinds,
     )
     return mask.reshape(B, E).to(torch.int32)
 
@@ -354,7 +397,8 @@ def unpack_bits(words: torch.Tensor, E: int) -> torch.Tensor:
     return bits.reshape(words.shape[0], -1)[:, :E].to(torch.bool)
 
 
-def cascade_stage_ref(terms, valid, weights, packed, seg_ids, program, nb: int):
+def cascade_stage_ref(terms, valid, weights, packed, seg_ids, program, nb: int,
+                      kinds=None):
     """One batched cascade stage, the contract of the JAX package's
     ``ops._cascade_stage_impl``.
 
@@ -367,7 +411,7 @@ def cascade_stage_ref(terms, valid, weights, packed, seg_ids, program, nb: int):
     """
     E = terms.shape[2]
     alive = unpack_bits(packed, E) & (
-        predicate_eval_batch_ref(terms, valid, weights, program) > 0
+        predicate_eval_batch_ref(terms, valid, weights, program, kinds) > 0
     )
     basket_alive = torch.zeros(
         (alive.shape[0], nb), dtype=torch.int32, device=alive.device
@@ -403,16 +447,17 @@ def stream_compact_ref(payload: torch.Tensor, mask: torch.Tensor):
             torch.tensor(idx.numel(), dtype=torch.int32, device=payload.device))
 
 
-def skim_fused_ref(terms, valid, weights, payload, program):
+def skim_fused_ref(terms, valid, weights, payload, program, kinds=None):
     """The plain version of the fused kernel: predicate, then compaction."""
-    return stream_compact_ref(payload, predicate_mask(program, terms, valid, weights))
+    return stream_compact_ref(payload,
+                              predicate_mask(program, terms, valid, weights, kinds))
 
 
-def skim_fused_batch_ref(terms, valid, weights, payload, program):
+def skim_fused_batch_ref(terms, valid, weights, payload, program, kinds=None):
     """:func:`skim_fused_ref` per window of a batch: terms (B, T, E, K),
     valid/weights (B, G, E, K), payload (B, E, D) -> (packed (B, E, D)
     with each window's survivors first then zeros, counts (B,) int32)."""
-    keep = predicate_eval_batch_ref(terms, valid, weights, program) > 0
+    keep = predicate_eval_batch_ref(terms, valid, weights, program, kinds) > 0
     B, E, D = payload.shape
     # survivors first, each window in event order (a stable sort of ~keep)
     order = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)
@@ -560,8 +605,10 @@ __all__ = [
     "cascade_stage_ref",
     "finish_decode",
     "flash_attention_ref",
+    "nonzero",
     "pack_bits",
     "pair_group_value",
+    "plane_values",
     "predicate_eval_batch_ref",
     "predicate_eval_ref",
     "predicate_mask",
@@ -569,5 +616,6 @@ __all__ = [
     "skim_fused_ref",
     "slot_sum",
     "stream_compact_ref",
+    "term_cut",
     "unpack_bits",
 ]

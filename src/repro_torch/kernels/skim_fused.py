@@ -15,10 +15,11 @@ the kernel itself), and writes the counts and the packed rows into one
 allocation (:func:`launch`), so a caller can read both back in one copy.
 
 The program reaches the kernel as data: :func:`program_descriptor`
-flattens a frozen :class:`Program` into small int32/float32/float64 arrays,
-uploaded once per (program, device) and cached by the program's
-identity for as long as the program lives, so one build serves every
-cascade stage and a call hashes nothing.  The look-back's status words
+flattens a frozen :class:`Program` and its planes' kinds (float32 values
+or an integer branch's int32 bits, ``program.KIND_*``) into small int32
+and float64 arrays, uploaded once per (program, kinds, device) and cached
+by the program's identity for as long as the program lives, so one build
+serves every cascade stage and a call hashes nothing.  The look-back's status words
 live in a grow-only workspace per (device, stream), tagged with a
 per-call epoch (:class:`Workspace`, which ``stream_compact`` shares).
 """
@@ -47,10 +48,11 @@ launches = {"skim_fused": 0, "skim_fused_batch": 0}
 KERNELS_PER_CALL = 1  # skim_fused_launch runs one kernel
 _LAUNCHES_LOCK = threading.Lock()  # pipelined skims call from several threads
 EPOCH_LIMIT = 1 << 30  # epochs live in 30 bits of a status word
+PROGRAM_ARGS = 9  # descriptor pointers a launch takes (program_args)
 
-# (id(program), device) -> (descriptor arrays, pointer arguments).  An
-# entry leaves when its program is collected, so the map holds only live
-# programs and a later program at the same address never finds it.
+# (id(program), kinds, device) -> (descriptor arrays, pointer arguments).
+# An entry leaves when its program is collected, so the map holds only
+# live programs and a later program at the same address never finds it.
 _DESCRIPTORS: dict = {}
 
 
@@ -65,21 +67,35 @@ def _stack_depth(rpn) -> int:
     return peak
 
 
-def flatten_program(program: Program) -> tuple[np.ndarray, np.ndarray, np.ndarray, dict]:
-    """Program -> (int32 array, float32 array, float64 array, offsets of
-    each segment in its array).
+def _kinds_key(kinds) -> tuple:
+    """``kinds`` as a cache key: () when every plane is float32."""
+    return tuple(int(k) for k in kinds) if kinds and any(kinds) else ()
 
-    int32: groups (G, 8) = kind, term offset, term count, min_count,
-    cmp_op, same-collection flag, RPN offset, RPN length; then term ids,
-    ops (aligned with the term ids), RPN opcodes, RPN term slots.
-    float32: the per-object thresholds (aligned with the term ids), which
-    the kernels compare with float32 values.  float64: (cmp_thr, cmp_thr2)
-    per group and the RPN constants, exact: the group values they meet are
-    evaluated in float64.
+
+def flatten_program(program: Program, kinds=None) -> tuple[np.ndarray, np.ndarray, dict]:
+    """Program -> (int32 array, float64 array, offsets of each segment in
+    its array).
+
+    int32: groups (G, 9) = kind, term offset, term count, min_count,
+    cmp_op, same-collection flag, RPN offset, RPN length, the kind of the
+    group's weights plane; then term ids, ops, RPN opcodes, RPN term
+    slots, and the plane kinds: each term slot's (T, which the RPN leaves
+    read), then each term's again aligned with the term ids (so a kernel
+    reads a term's kind beside its id, not through it).  ``kinds`` are the
+    (T + G) plane kinds of :func:`repro_torch.core.neardata.program_kinds`
+    (float32 when None).  float64, exact: the per-object thresholds
+    (aligned with the term ids; a float32 plane reads its cut in float32,
+    an integer one in float64), (cmp_thr, cmp_thr2) per group and the RPN
+    constants, which meet group values evaluated in float64.
     """
-    groups, term_ids, ops, thrs, cmp_thrs = [], [], [], [], []
+    groups, term_ids, ops, term_kinds, thrs, cmp_thrs = [], [], [], [], [], []
     rpn_op, rpn_term, rpn_const = [], [], []
     c2 = program.group_collections2 or (None,) * program.n_groups
+    n_kinds = program.n_terms + program.n_groups
+    kinds = list(kinds) if kinds else [0] * n_kinds
+    if len(kinds) != n_kinds:
+        raise ValueError(f"{len(kinds)} plane kinds for {program.n_terms} terms "
+                         f"and {program.n_groups} groups")
     for g, grp in enumerate(program.groups):
         if grp.kind == GROUP_EXPR and _stack_depth(grp.rpn) > MAX_STACK:
             raise ValueError(
@@ -88,8 +104,9 @@ def flatten_program(program: Program) -> tuple[np.ndarray, np.ndarray, np.ndarra
         n = len(grp.term_ids)
         same = int(program.group_collections[g] == c2[g])
         groups.append([grp.kind, len(term_ids), n, grp.min_count, grp.cmp_op,
-                       same, len(rpn_op), len(grp.rpn)])
+                       same, len(rpn_op), len(grp.rpn), kinds[program.n_terms + g]])
         term_ids.extend(grp.term_ids)
+        term_kinds.extend(kinds[t] for t in grp.term_ids)
         ops.extend(list(grp.ops) + [0] * (n - len(grp.ops)))
         thrs.extend(list(grp.thrs) + [0.0] * (n - len(grp.thrs)))
         cmp_thrs.extend([grp.cmp_thr, grp.cmp_thr2])
@@ -100,9 +117,10 @@ def flatten_program(program: Program) -> tuple[np.ndarray, np.ndarray, np.ndarra
     segments = (
         (np.int32, (("groups", np.asarray(groups, np.int64).reshape(-1)),
                     ("term_ids", term_ids), ("ops", ops), ("rpn_op", rpn_op),
-                    ("rpn_term", rpn_term))),
-        (np.float32, (("thrs", thrs),)),
-        (np.float64, (("cmp_thrs", cmp_thrs), ("rpn_const", rpn_const))),
+                    ("rpn_term", rpn_term), ("kinds", kinds[:program.n_terms]),
+                    ("term_kinds", term_kinds))),
+        (np.float64, (("thrs", thrs), ("cmp_thrs", cmp_thrs),
+                      ("rpn_const", rpn_const))),
     )
     offsets, arrays = {}, []
     for dtype, segs in segments:
@@ -114,33 +132,35 @@ def flatten_program(program: Program) -> tuple[np.ndarray, np.ndarray, np.ndarra
     return (*arrays, offsets)
 
 
-def program_descriptor(program: Program, device: torch.device):
-    """The program's descriptor arrays on ``device`` (cached)."""
-    return _descriptor_entry(program, device)[0]
+def program_descriptor(program: Program, device: torch.device, kinds=None):
+    """The descriptor arrays of ``program`` with plane ``kinds`` on
+    ``device`` (cached)."""
+    return _descriptor_entry(program, device, kinds)[0]
 
 
-def program_args(program: Program, device: torch.device):
-    """The program's eight descriptor pointers on ``device``, as the
+def program_args(program: Program, device: torch.device, kinds=None):
+    """The program's nine descriptor pointers on ``device``, as the
     kernels take them (cached with the descriptors)."""
-    return _descriptor_entry(program, device)[1]
+    return _descriptor_entry(program, device, kinds)[1]
 
 
-def _descriptor_entry(program: Program, device: torch.device):
-    """((ints, floats, doubles, offsets), the eight kernel pointer
-    arguments), cached by ``id(program)`` while the program lives."""
-    key = (id(program), device)
+def _descriptor_entry(program: Program, device: torch.device, kinds=None):
+    """((ints, doubles, offsets), the nine kernel pointer arguments),
+    cached by ``id(program)`` and the kinds while the program lives."""
+    kinds = _kinds_key(kinds)
+    key = (id(program), kinds, device)
     entry = _DESCRIPTORS.get(key)
     if entry is None:
-        *arrays, offsets = flatten_program(program)
-        ints, floats, doubles = (torch.from_numpy(a).to(device) for a in arrays)
+        *arrays, offsets = flatten_program(program, kinds)
+        ints, doubles = (torch.from_numpy(a).to(device) for a in arrays)
 
         def at(base, name):
             return ctypes.c_void_p(base.data_ptr() + base.element_size() * offsets[name])
 
         args = (at(ints, "groups"), at(ints, "term_ids"), at(ints, "ops"),
-                at(floats, "thrs"), at(doubles, "cmp_thrs"), at(ints, "rpn_op"),
-                at(ints, "rpn_term"), at(doubles, "rpn_const"))
-        entry = ((ints, floats, doubles, offsets), args)
+                at(ints, "kinds"), at(doubles, "thrs"), at(doubles, "cmp_thrs"),
+                at(ints, "rpn_op"), at(ints, "rpn_term"), at(doubles, "rpn_const"))
+        entry = ((ints, doubles, offsets), args)
         _DESCRIPTORS[key] = entry
         weakref.finalize(program, _DESCRIPTORS.pop, key, None)
     return entry
@@ -192,7 +212,7 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_longlong, i, i, i,
-                       p, p, p, p, p, p, p, p, p, p, ctypes.c_uint, p, p, p]
+                       *([p] * PROGRAM_ARGS), p, p, ctypes.c_uint, p, p, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -227,8 +247,9 @@ def view_rows(words, B: int, E: int, D: int, dtype) -> torch.Tensor:
     return words.view(torch.uint8)[: B * E * D * dtype.itemsize].view(dtype).view(B, E, D)
 
 
-def launch(who, terms, valid, weights, payload, program: Program):
-    """Launch ``skim_fused_launch`` over a (B, T, E, K) batch on the card.
+def launch(who, terms, valid, weights, payload, program: Program, kinds=None):
+    """Launch ``skim_fused_launch`` over a (B, T, E, K) batch on the card,
+    the planes read by their ``kinds`` (None: every plane float32).
 
     Returns ``buf``, one int32 allocation: the B counts, padding to
     :func:`header_words`, then the packed (B, E, D) rows' bits in the
@@ -252,7 +273,7 @@ def launch(who, terms, valid, weights, payload, program: Program):
     if B == 0 or E == 0:
         buf.zero_()
         return buf
-    args = program_args(program, device)
+    args = program_args(program, device, kinds)
     stream = _build.stream_id(device)
     status, tickets, epoch = Workspace.reserve(
         device, stream, B * -(-E // EVENT_TILE), B)
@@ -273,17 +294,18 @@ def split(buf, B: int, E: int, D: int, dtype=torch.float32):
     return view_rows(buf[header_words(B):], B, E, D, dtype), buf[:B]
 
 
-def skim_fused(terms, valid, weights, payload, program: Program):
+def skim_fused(terms, valid, weights, payload, program: Program, kinds=None):
     """One-pass skim: (T,E,K),(G,E,K),(G,E,K) float32 and an (E,D)
     payload of any type of 1, 2, 4 or 8 bytes -> (packed (E, D) in the
     payload's type with the survivors' rows first, bit for bit, and zeros
-    after, count () int32).
+    after, count () int32).  ``kinds``: the planes' kinds (the engine's
+    route; None: every plane float32, the JAX package's form).
 
     A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
     plain version, :func:`repro_torch.kernels.ref.skim_fused_ref`.
     """
     if not terms.is_cuda:
-        return _ref.skim_fused_ref(terms, valid, weights, payload, program)
+        return _ref.skim_fused_ref(terms, valid, weights, payload, program, kinds)
     if terms.dim() != 3 or payload.dim() != 2:
         raise ValueError(
             f"skim_fused: terms {tuple(terms.shape)} and payload "
@@ -291,12 +313,12 @@ def skim_fused(terms, valid, weights, payload, program: Program):
         )
     E, D = payload.shape
     buf = launch("skim_fused", terms[None], valid[None], weights[None],
-                 payload[None], program)
+                 payload[None], program, kinds)
     out, totals = split(buf, 1, E, D, payload.dtype)
     return out[0], totals[0]
 
 
-def skim_fused_batch(terms, valid, weights, payload, program: Program):
+def skim_fused_batch(terms, valid, weights, payload, program: Program, kinds=None):
     """The one-pass skim over a batch of windows: terms (B, T, E, K),
     valid/weights (B, G, E, K) float32, payload (B, E, D) of any type of
     1, 2, 4 or 8 bytes -> (packed (B, E, D) in the payload's type with
@@ -307,13 +329,13 @@ def skim_fused_batch(terms, valid, weights, payload, program: Program):
     plain version, :func:`repro_torch.kernels.ref.skim_fused_batch_ref`.
     """
     if not terms.is_cuda:
-        return _ref.skim_fused_batch_ref(terms, valid, weights, payload, program)
+        return _ref.skim_fused_batch_ref(terms, valid, weights, payload, program, kinds)
     if terms.dim() != 4 or payload.dim() != 3:
         raise ValueError(
             f"skim_fused_batch: terms {tuple(terms.shape)} and payload "
             f"{tuple(payload.shape)} are not (B, T, E, K) and (B, E, D)"
         )
-    buf = launch("skim_fused_batch", terms, valid, weights, payload, program)
+    buf = launch("skim_fused_batch", terms, valid, weights, payload, program, kinds)
     return split(buf, *payload.shape, payload.dtype)
 
 
@@ -321,6 +343,7 @@ __all__ = [
     "EVENT_TILE",
     "KERNELS_PER_CALL",
     "MAX_WINDOWS",
+    "PROGRAM_ARGS",
     "ROW_WIDTHS",
     "Workspace",
     "flatten_program",

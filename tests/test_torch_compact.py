@@ -252,6 +252,17 @@ def _skim_batch(rng, B, E, K, D):
     return terms, valid, weights, payload
 
 
+def _any_read_as_bool(host):
+    """``_skim_batch``'s inputs with the ANY term's plane (term 3, which no
+    other group reads) as 0/1: the port reads an ANY term as nonzero, as
+    the staged evaluator reads it as bool, and the JAX kernel's compiled
+    ``>= 0.5`` reads the 0/1 plane the same way."""
+    terms, *rest = host
+    terms = terms.copy()
+    terms[:, 3] = terms[:, 3] != 0
+    return terms, *rest
+
+
 @pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("E,K,D", [(256, 4, 3), (1024, 8, 6), (2048, 1, 1)])
 def test_fused_skim_batch_matches_pallas_interpret(B, E, K, D):
@@ -260,7 +271,8 @@ def test_fused_skim_batch_matches_pallas_interpret(B, E, K, D):
     tiles) through the batched Pallas kernel and the port."""
     prog = _skim_program()
     host = _skim_batch(np.random.default_rng(E + B), B, E, K, D)
-    want, want_n = jops.fused_skim_batch(*host, _jax_program(prog), use_pallas=True)
+    want, want_n = jops.fused_skim_batch(*_any_read_as_bool(host), _jax_program(prog),
+                                         use_pallas=True)
     got, n = tops.fused_skim_batch(*host, prog, device="cpu")
     assert n.dtype == torch.int32
     np.testing.assert_array_equal(n.numpy(), np.asarray(want_n))
@@ -301,8 +313,8 @@ def test_fused_skim_batch_takes_any_e_and_equals_fused_skim_per_window(E):
     host = _skim_batch(np.random.default_rng(E), 2, E, 4, 2)
     got, n = tops.fused_skim_batch(*host, prog, device="cpu")
     for b in range(2):
-        want, want_n = jops.skim_fused(*(x[b] for x in host), _jax_program(prog),
-                                       interpret=True)
+        want, want_n = jops.skim_fused(*(x[b] for x in _any_read_as_bool(host)),
+                                       _jax_program(prog), interpret=True)
         assert int(n[b]) == int(want_n)
         assert got[b].numpy().tobytes() == np.asarray(want).tobytes()
 

@@ -684,3 +684,24 @@ def test_cuda_edge_window_matches_the_host(cuda_device):
     and skim_fused_batch: equal to their plain versions and to the host
     evaluator (MASS events within the residue excepted and checked)."""
     assert chip_smoke.check_edge_kernels(cuda_device) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_int_window_matches_the_host(cuda_device):
+    """``chip_smoke.int_window``'s integer branches (event numbers past
+    2^24 and 10^8, an int32 word across -2^31, Jet_id beside 2^24) and ANY
+    over int32 and non-bool float32 words, with the planes' kinds, through
+    predicate_eval, predicate_eval_batch, cascade_stage, skim_fused and
+    skim_fused_batch: equal to their plain versions and to the host
+    evaluator bit for bit."""
+    assert chip_smoke.check_int_kernels(cuda_device) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_int_store_matches_the_staged_run(cuda_device):
+    """Phase 3h at 20,000 events: every query of ``chip_smoke.int_queries``
+    through ``run_skim`` on the card, per window and batched, decode on
+    the card, equal to the staged run in survivors and output bytes."""
+    out = chip_smoke.run_int_path(cuda_device, n_events=20_000)
+    assert out["launches"]["skim_fused"] > 0 and out["launches"]["cascade_stage"] > 0
+    assert out["survivors"]["event-pick"]["per window"] == 1

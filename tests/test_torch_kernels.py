@@ -248,7 +248,12 @@ def test_skim_fused_matches_pallas_interpret(E, K, D):
     valid = (rng.random((3, E, K)) < 0.4).astype(np.float32)
     weights = np.abs(rng.normal(30, 20, (3, E, K))).astype(np.float32)
     payload = rng.normal(size=(E, D)).astype(np.float32)
-    want, want_n = jops.skim_fused(terms, valid, weights, payload, jprog,
+    # the port reads the ANY term (term 3, read by no other group) as
+    # nonzero, as the staged evaluator reads it as bool; the JAX kernel's
+    # compiled ``>= 0.5`` reads its 0/1 plane the same way
+    as_bool = terms.copy()
+    as_bool[3] = terms[3] != 0
+    want, want_n = jops.skim_fused(as_bool, valid, weights, payload, jprog,
                                    interpret=True)
     got, n = tsf.skim_fused(*(torch.from_numpy(x) for x in
                               (terms, valid, weights, payload)), prog)
@@ -380,14 +385,14 @@ def test_program_descriptor_layout():
     """The flattened program the CUDA kernel reads: one row per group,
     ops/thresholds aligned with the term ids, RPN operands split."""
     prog = SWEEP["expr"]
-    ints, floats, doubles, off = tsf.flatten_program(prog)
+    ints, doubles, off = tsf.flatten_program(prog)
     grp = prog.groups[0]
     row = ints[off["groups"]: off["groups"] + 8].tolist()
     assert row == [grp.kind, 0, len(grp.term_ids), grp.min_count, grp.cmp_op,
                    1, 0, len(grp.rpn)]
     n = len(grp.rpn)
     assert ints[off["rpn_op"]: off["rpn_op"] + n].tolist() == [op for op, _ in grp.rpn]
-    assert (ints.dtype, floats.dtype, doubles.dtype) == (np.int32, np.float32, np.float64)
+    assert (ints.dtype, doubles.dtype) == (np.int32, np.float64)
     assert doubles[off["cmp_thrs"]] == grp.cmp_thr
     consts = doubles[off["rpn_const"]: off["rpn_const"] + n]
     assert consts.tolist() == [float(a) if op == RPN_CONST else 0.0 for op, a in grp.rpn]
