@@ -493,13 +493,14 @@ class ClusterCoordinator:
 
     @staticmethod
     def _node_tracer(tracer, node: StorageNode):
-        """A fresh node-local tracer per execution attempt (same clock as
-        the coordinator's) — its spans ride back on the response for
-        :meth:`Tracer.adopt`.  ``None`` when tracing is off keeps the
-        node on the NULL_TRACER fast path."""
+        """A fresh node-local tracer per execution attempt (same clock and
+        host-detail setting as the coordinator's) — its spans ride back on
+        the response for :meth:`Tracer.adopt`.  ``None`` when tracing is
+        off keeps the node on the NULL_TRACER fast path."""
         if tracer is None or not tracer.enabled:
             return None
-        return Tracer(clock=tracer.clock, name=f"node-{node.node_id}")
+        return Tracer(clock=tracer.clock, name=f"node-{node.node_id}",
+                      detail=getattr(tracer, "detail", False))
 
     def _execute_node(self, node: StorageNode, query: Query, tracer=None):
         """One execution attempt on one node.  The tracer kwarg is passed

@@ -53,7 +53,7 @@ from repro_torch.data.store import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.obs.schema import SkimReport
-from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.obs.trace import NULL_TRACER, activated, active, active_tally, carried
 
 
 @dataclass
@@ -186,14 +186,30 @@ def drain(gen):
 
 
 class _Timer:
-    def __init__(self, breakdown: Breakdown, key: str):
+    """Adds its block's ``time.perf_counter`` interval to a ``Breakdown``
+    field.  With ``span=True`` the block is also a span of the field's
+    kind in the detailed tracer active on the thread; a tracer on
+    ``perf_counter`` (``clock=None``) takes the same two readings, so the
+    spans of a kind sum to the field (the ``decompress`` and
+    ``deserialize`` sites)."""
+
+    def __init__(self, breakdown: Breakdown, key: str, span: bool = False):
         self.b, self.k = breakdown, key
+        self.tr = active() if span else NULL_TRACER
 
     def __enter__(self):
         self.t0 = time.perf_counter()
+        if self.tr.enabled:
+            self.sid = self.tr.begin(self.k, kind=self.k)
 
     def __exit__(self, *exc):
-        setattr(self.b, self.k, getattr(self.b, self.k) + time.perf_counter() - self.t0)
+        t1 = time.perf_counter()
+        setattr(self.b, self.k, getattr(self.b, self.k) + (t1 - self.t0))
+        if self.tr.enabled:
+            self.tr.end(self.sid)
+            if self.tr.clock is None:
+                sp = self.tr.get(self.sid)
+                sp.t0, sp.t1 = self.t0, t1
 
 
 def _decode_branches(
@@ -221,17 +237,6 @@ def _decode_branches(
     # the store owns the request accounting — DESIGN.md §2b)
     fsid = tr.begin("fetch", kind="fetch", branches=len(order))
     window = store.fetch_window(order, start, stop, stats=stats, coalesce=coalesce)
-    tr.end(fsid, bytes=stats.bytes_fetched)
-    # decode spans name their tier: "decode_device" when the store's
-    # backend-selected batch decode runs on the accelerator (bitpack
-    # planes crossing the host->device boundary compressed, DESIGN.md §16)
-    dkind = (
-        "decode_device"
-        if store.resolved_decode_backend() == "device"
-        and store.codec == "bitpack"
-        else "decode"
-    )
-    dsid = tr.begin("decode", kind=dkind)
     # the round replays the JAX package's decode calls in its order, so
     # the decoded-basket LRU sees the same lookups: each branch's
     # baskets, then, for a jagged basket that starts before `start`, the
@@ -248,14 +253,25 @@ def _decode_branches(
                 lead = store.fetch_range(br.counts_branch, meta.first_entry, start)
                 leads[(name, meta.first_entry)] = (len(calls), lead)
                 calls.extend((br.counts_branch, [blob]) for _, blob in lead)
+    tr.end(fsid, bytes=stats.bytes_fetched)
+    # decode spans name their tier: "decode_device" when the store's
+    # backend-selected batch decode runs on the accelerator (bitpack
+    # planes crossing the host->device boundary compressed, DESIGN.md §16)
+    dkind = (
+        "decode_device"
+        if store.resolved_decode_backend() == "device"
+        and store.codec == "bitpack"
+        else "decode"
+    )
+    dsid = tr.begin("decode", kind=dkind)
     # the whole round decodes at once: one kernel launch on the card
-    with _Timer(breakdown, "decompress"):
+    with _Timer(breakdown, "decompress", span=True):
         decoded_calls = store.decode_calls(calls)
-    for name in order:
-        blobs = window[name]
-        parts = []
-        decoded = decoded_calls[first[name]]
-        with _Timer(breakdown, "deserialize"):
+    with _Timer(breakdown, "deserialize", span=True):
+        for name in order:
+            blobs = window[name]
+            parts = []
+            decoded = decoded_calls[first[name]]
             br = store.branches[name]
             for (meta, _), vals in zip(blobs, decoded):
                 if not br.jagged:
@@ -285,6 +301,50 @@ def _decode_branches(
             )
     tr.end(dsid)
     return data
+
+
+def _parent_kind(tracer, name: str) -> str:
+    """The kind of the ``load_window`` and ``phase2`` spans: their own name
+    in a detailed tree, where ``fetch`` is the store read alone; ``fetch``
+    otherwise (the JAX package's tree)."""
+    return name if tracer.detail else "fetch"
+
+
+def _query_detail(tracer, qsid: int) -> dict | None:
+    """For a detailed tracer: put ``clock_ns`` on the just-opened query
+    span (epoch nanoseconds read around its ``t0``) and return the
+    skim's transfer counts it starts from; None otherwise."""
+    if not tracer.detail:
+        return None
+    # a stamp for lining the spans up with a device profiler's epoch
+    # clock; it feeds no modeled time
+    a = time.time_ns()  # skimlint: ignore[D001]
+    sp = tracer.get(qsid)
+    t = tracer.now()
+    b = time.time_ns()  # skimlint: ignore[D001]
+    # epoch time at the span's t0: the midpoint reading, less the tracer
+    # clock's advance since t0
+    sp["clock_ns"] = (a + b) // 2 - int((t - sp.t0) * 1e9)
+    return _skim_transfers()
+
+
+_TRANSFER_KEYS = ("h2d_bytes", "h2d_copies", "d2h_bytes", "d2h_copies")
+
+
+def _skim_transfers() -> dict:
+    """The host<->device copies and bytes this skim has issued so far,
+    from any thread (``obs.trace.active_tally``)."""
+    tally = active_tally()
+    counts = tally.counts() if tally is not None else {}
+    return {k: counts.get(k, 0) for k in _TRANSFER_KEYS}
+
+
+def _transfers_since(start: dict | None) -> dict:
+    """The skim's host<->device transfers since ``start`` (the query's),
+    as the detailed query span's closing attrs; {} without detail."""
+    if start is None:
+        return {}
+    return {k: v - start[k] for k, v in _skim_transfers().items()}
 
 
 def _warm_kernels(store, device, fused: bool) -> None:
@@ -369,7 +429,7 @@ def _window_phase2(
         tracer=tracer,
     )
     full = {**loaded, **data2}
-    with _Timer(breakdown, "deserialize"):
+    with _Timer(breakdown, "deserialize", span=True):
         cols, jagged = _select_columns(
             {k2: full[k2] for k2 in plan.output_branches if k2 not in dev_cols},
             mask,
@@ -563,7 +623,7 @@ class SkimEngine:
         )
         if args is None:  # client_plain: the one-pass legacy path
             return self._run_client_plain(plan)
-        return drain(self._iter_two_phase(plan, **args))
+        return drain(activated(self._iter_two_phase(plan, **args), args["tracer"]))
 
     def iter_run(
         self,
@@ -592,7 +652,7 @@ class SkimEngine:
         )
         if args is None:
             raise ValueError("client_plain is a one-pass mode; nothing to stream")
-        return self._iter_two_phase(plan, **args)
+        return activated(self._iter_two_phase(plan, **args), args["tracer"])
 
     def _prepare(
         self,
@@ -709,6 +769,7 @@ class SkimEngine:
         qsid = tracer.begin(
             "query", kind="query", mode=mode, n_events=n, fused=fused
         )
+        transfers0 = _query_detail(tracer, qsid)
         if plan_t is not None:
             tracer.add_span("plan", kind="plan", t0=plan_t[0], t1=plan_t[1])
 
@@ -775,7 +836,8 @@ class SkimEngine:
             # span stack; its loads go untraced in "threads" mode (the
             # serial schedules trace them as load_window spans)
             ltr = NULL_TRACER if use_threads else tracer
-            lsid = ltr.begin("load_window", kind="fetch", window=start // chunk)
+            lsid = ltr.begin("load_window", kind=_parent_kind(ltr, "load_window"),
+                             window=start // chunk)
             data = _decode_branches(
                 store, names, start, stop, lb, ls, coalesce, tracer=ltr
             )
@@ -788,7 +850,11 @@ class SkimEngine:
                 # window (the paper's TTreeCache batching); in "threads"
                 # mode the prefetcher decodes window i+1 while window i
                 # filters
-                src = WindowPrefetcher(n, chunk, load_window, enabled=use_threads)
+                # (the worker's copies count to this skim)
+                src = WindowPrefetcher(
+                    n, chunk, carried(load_window) if use_threads else load_window,
+                    enabled=use_threads,
+                )
                 for start, stop, (data, lb, ls) in src:
                     b.merge(lb)
                     stats.merge(ls)
@@ -972,7 +1038,7 @@ class SkimEngine:
                     loaded.update(
                         _decode_branches(
                             store, need, start, stop, wb, stats, coalesce,
-                            preloaded=loaded,
+                            preloaded=loaded, tracer=active(),
                         )
                     )
                     with _Timer(wb, "filter"):
@@ -984,7 +1050,8 @@ class SkimEngine:
             part_jagged: dict = {}
             if k:
                 n_passed += k
-                p2sid = tracer.begin("phase2", kind="fetch", window=wi)
+                p2sid = tracer.begin("phase2", kind=_parent_kind(tracer, "phase2"),
+                                     window=wi)
                 if outcome is not None:
                     # ---- phase 2 (cascaded window): the basket ledger
                     # dedups against phase 1, so filter∩output branches a
@@ -994,7 +1061,7 @@ class SkimEngine:
                         plan.output_branches, start, stop, wb, w2s, ledger,
                         known=known,
                     )
-                    with _Timer(wb, "deserialize"):
+                    with _Timer(wb, "deserialize", span=True):
                         cols, jagged = _select_columns(
                             {k2: full[k2] for k2 in plan.output_branches},
                             mask, store,
@@ -1120,7 +1187,8 @@ class SkimEngine:
                 + b.write
                 + b.output_transfer
             )
-        tracer.end(qsid, n_passed=n_passed, bytes=stats.bytes_fetched)
+        tracer.end(qsid, n_passed=n_passed, bytes=stats.bytes_fetched,
+                   **_transfers_since(transfers0))
         return SkimResult(
             mode, out, n, n_passed, b, stats, plan,
             busy_fraction=compute / max(b.total(), 1e-12),

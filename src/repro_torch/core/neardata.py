@@ -24,6 +24,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import program as kprog
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.program import Program, compile_query
+from repro_torch.obs.trace import active
 
 
 @dataclass
@@ -210,10 +211,10 @@ def build_padded_inputs(
         )
     device = resolve_device(device)
     return PaddedBatch(
-        terms=torch.from_numpy(terms).to(device),
-        valid=torch.from_numpy(valid).to(device),
-        weights=torch.from_numpy(weights).to(device),
-        payload=torch.from_numpy(payload).to(device),
+        terms=ops.to_device(terms, device),
+        valid=ops.to_device(valid, device),
+        weights=ops.to_device(weights, device),
+        payload=ops.to_device(payload, device),
         n_events=n_events,
     )
 
@@ -458,10 +459,11 @@ def fused_window_skim(
         backend = "cuda" if resolve_device(device).type == "cuda" else "host"
 
     if backend == "host":
-        mask = program_eval_np(data, program, E)
-        cols = {
-            name: np.asarray(data[name])[mask] for name in payload_branches
-        }
+        with active().span("program_eval_np", kind="evaluate"):
+            mask = program_eval_np(data, program, E)
+            cols = {
+                name: np.asarray(data[name])[mask] for name in payload_branches
+            }
         return mask, cols
     if backend not in ("cuda", "torch"):
         raise ValueError(f"unknown fused backend {backend!r}")
@@ -469,30 +471,33 @@ def fused_window_skim(
     if backend == "cuda" and device.type != "cuda":
         raise ValueError("fused backend 'cuda' needs a CUDA device")
 
-    if K is None:
-        K = window_pad_K(data, program, store)
-    kinds = program_kinds(program, store)
-    pb = build_padded_inputs(
-        data, program, store, K=K,
-        payload_branches=list(payload_branches), include_index=True,
-        to_device=False, kinds=kinds,
-    )
-    arrays = pad_window(pb, pad_to)
+    tr = active()
+    with tr.span("window", kind="pack"):
+        if K is None:
+            K = window_pad_K(data, program, store)
+        kinds = program_kinds(program, store)
+        pb = build_padded_inputs(
+            data, program, store, K=K,
+            payload_branches=list(payload_branches), include_index=True,
+            to_device=False, kinds=kinds,
+        )
+        arrays = pad_window(pb, pad_to)
     packed, k = ops.fused_skim(
         *arrays, program, use_kernel=(backend == "cuda"), device=device, kinds=kinds,
     )
-    packed = packed[:k]
-    idx = packed[:, 0].astype(np.int64)
-    real = idx < E  # drop phantom survivors from event-axis padding
-    packed, idx = packed[real], idx[real]
-    mask = np.zeros(E, dtype=bool)
-    mask[idx] = True
-    cols = {
-        name: packed[:, 1 + j].astype(
-            store.branches[name].np_dtype() if name in store.branches else np.float32
-        )
-        for j, name in enumerate(payload_branches)
-    }
+    with tr.span("window", kind="unpack"):
+        packed = packed[:k]
+        idx = packed[:, 0].astype(np.int64)
+        real = idx < E  # drop phantom survivors from event-axis padding
+        packed, idx = packed[real], idx[real]
+        mask = np.zeros(E, dtype=bool)
+        mask[idx] = True
+        cols = {
+            name: packed[:, 1 + j].astype(
+                store.branches[name].np_dtype() if name in store.branches else np.float32
+            )
+            for j, name in enumerate(payload_branches)
+        }
     return mask, cols
 
 
@@ -503,7 +508,7 @@ def _block(x, rows: slice, device: torch.device) -> torch.Tensor:
     index = (slice(None), rows) if x.ndim == 3 else rows
     if isinstance(x, torch.Tensor):
         return x[index].to(device).contiguous()
-    return torch.from_numpy(np.require(x[index], requirements=("C", "W"))).to(device)
+    return ops.to_device(np.require(x[index], requirements=("C", "W")), device)
 
 
 def sharded_skim(mesh, program: Program, data_axes=("pod", "data")):

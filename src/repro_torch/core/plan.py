@@ -55,6 +55,7 @@ from repro_torch.core.query import (
 )
 from repro_torch.core.zonemap import ACCEPT_ALL, PRUNE, SCAN
 from repro_torch.data.store import FetchStats, coalesced_requests
+from repro_torch.obs.trace import active
 
 # selectivity the cost model assumes when statistics prove nothing
 # (HT / mass / ΔR / expression nodes, unknown stats)
@@ -566,30 +567,32 @@ def account_fetch(
     """
     new_bytes = new_baskets = 0
     per_branch: dict[str, int] = {}
-    for name in names:
-        seen = ledger.setdefault(name, set())
-        for i in store.basket_ids_for_range(name, start, stop):
-            if i in seen:
-                continue
-            seen.add(i)
-            nb = store.basket_meta(name, i).comp_bytes
-            per_branch[name] = per_branch.get(name, 0) + nb
-            new_bytes += nb
-            new_baskets += 1
-    if stats is not None and new_bytes:
-        stats.bytes_fetched += new_bytes
-        stats.requests += coalesced_requests(new_bytes, new_baskets, coalesce)
-        for k, v in per_branch.items():
-            stats.by_branch[k] = stats.by_branch.get(k, 0) + v
+    with active().span("account_fetch", kind="ledger"):
+        for name in names:
+            seen = ledger.setdefault(name, set())
+            for i in store.basket_ids_for_range(name, start, stop):
+                if i in seen:
+                    continue
+                seen.add(i)
+                nb = store.basket_meta(name, i).comp_bytes
+                per_branch[name] = per_branch.get(name, 0) + nb
+                new_bytes += nb
+                new_baskets += 1
+        if stats is not None and new_bytes:
+            stats.bytes_fetched += new_bytes
+            stats.requests += coalesced_requests(new_bytes, new_baskets, coalesce)
+            for k, v in per_branch.items():
+                stats.by_branch[k] = stats.by_branch.get(k, 0) + v
     return new_bytes
 
 
 def mark_fetched(store, names, start: int, stop: int, ledger: dict[str, set]) -> None:
     """Mark baskets as already accounted (no stats) — the caller fetched
     them through another path (e.g. the prefetcher's load stage)."""
-    for name in names:
-        seen = ledger.setdefault(name, set())
-        seen.update(store.basket_ids_for_range(name, start, stop))
+    with active().span("mark_fetched", kind="ledger"):
+        for name in names:
+            seen = ledger.setdefault(name, set())
+            seen.update(store.basket_ids_for_range(name, start, stop))
 
 
 def unfetched_bytes(
@@ -599,11 +602,12 @@ def unfetched_bytes(
     exact cascade savings once BOTH phases have run (a basket phase 2
     re-fetched is in the ledger and does not count as skipped)."""
     skipped = 0
-    for name in names:
-        seen = ledger.get(name, ())
-        for i in store.basket_ids_for_range(name, start, stop):
-            if i not in seen:
-                skipped += store.basket_meta(name, i).comp_bytes
+    with active().span("unfetched_bytes", kind="ledger"):
+        for name in names:
+            seen = ledger.get(name, ())
+            for i in store.basket_ids_for_range(name, start, stop):
+                if i not in seen:
+                    skipped += store.basket_meta(name, i).comp_bytes
     return skipped
 
 
@@ -695,7 +699,8 @@ class CascadeExecutor:
             # constant sub-program (trigger OR over absent-era branches)
             return program_eval_np({}, stage.program, n)
         if self._resolve_backend() == "host":
-            return program_eval_np(data, stage.program, n)
+            with active().span("program_eval_np", kind="evaluate"):
+                return program_eval_np(data, stage.program, n)
         mask, _ = fused_window_skim(
             data, stage.program, self.store, backend=self._backend,
             device=self.device,
@@ -878,15 +883,19 @@ class CascadeExecutor:
 
         # initial masks: real events alive, batch/event padding dead —
         # phantom events can never surface in a survivor set
-        init = np.zeros((Bn, pad_E), dtype=bool)
-        seg = np.zeros((Bn, pad_E), dtype=np.int32)
-        for b, (start, stop, *_r) in enumerate(entries):
-            init[b, : stop - start] = True
-            grid0 = start - start % be
-            ids = (start + np.arange(pad_E, dtype=np.int64) - grid0) // be
-            seg[b] = np.clip(ids, 0, nb - 1).astype(np.int32)
-        packed = torch.from_numpy(ops.pack_mask(init).view(np.int32)).to(device)
-        seg_ids = torch.from_numpy(seg).to(device)
+        tr = active()
+        with tr.span("batch", kind="pack"):
+            init = np.zeros((Bn, pad_E), dtype=bool)
+            seg = np.zeros((Bn, pad_E), dtype=np.int32)
+            for b, (start, stop, *_r) in enumerate(entries):
+                init[b, : stop - start] = True
+                grid0 = start - start % be
+                ids = (start + np.arange(pad_E, dtype=np.int64) - grid0) // be
+                seg[b] = np.clip(ids, 0, nb - 1).astype(np.int32)
+            words0 = ops.pack_mask(init).view(np.int32)
+        with tr.span("batch", kind="launch"):
+            packed = ops.to_device(words0, device)
+            seg_ids = ops.to_device(seg, device)
         maybe_verify_device_batch(
             [(s, t) for (s, t, *_r) in entries],
             pad_E, Bn, nb, be, int(packed.shape[1]),
@@ -974,17 +983,18 @@ class CascadeExecutor:
             # -- stage the windows the stage runs, straight into the
             # (page-locked, on the card) buffer the step uploads: a
             # window's planes are zeroed, then its alive spans filled
-            inputs = ops.CascadeInputs((Bn, T, pad_E, K_b), G, alive, device)
-            for s, b in enumerate(alive):
-                inputs.planes[s] = 0.0
-                t_s, v_s, w_s = inputs.window(s)
-                for off, n, sdata in staged[b]:
-                    nd.build_padded_inputs(
-                        sdata, stage.program, store, K=K_b, to_device=False,
-                        out=(t_s[:, off : off + n], v_s[:, off : off + n],
-                             w_s[:, off : off + n]),
-                        kinds=kinds,
-                    )
+            with tr.span("stage", kind="pack"):
+                inputs = ops.CascadeInputs((Bn, T, pad_E, K_b), G, alive, device)
+                for s, b in enumerate(alive):
+                    inputs.planes[s] = 0.0
+                    t_s, v_s, w_s = inputs.window(s)
+                    for off, n, sdata in staged[b]:
+                        nd.build_padded_inputs(
+                            sdata, stage.program, store, K=K_b, to_device=False,
+                            out=(t_s[:, off : off + n], v_s[:, off : off + n],
+                                 w_s[:, off : off + n]),
+                            kinds=kinds,
+                        )
 
             t0 = _time.perf_counter()
             packed, summary = ops.cascade_stage_step_staged(
@@ -1012,18 +1022,19 @@ class CascadeExecutor:
             )
 
         # the one host round trip for event-level masks: batch boundary
-        words = packed.cpu().numpy()
+        words = ops.to_host(packed)
         outcomes = []
-        for b, (start, stop, *_r) in enumerate(entries):
-            mask = ops.unpack_mask(words[b], pad_E)[: stop - start].copy()
-            outcomes.append(
-                WindowOutcome(
-                    mask=mask,
-                    full_loaded=full_loaded[b],
-                    stage_bytes=stage_bytes_total[b],
-                    stages_run=stages_run[b],
+        with tr.span("batch", kind="unpack"):
+            for b, (start, stop, *_r) in enumerate(entries):
+                mask = ops.unpack_mask(words[b], pad_E)[: stop - start].copy()
+                outcomes.append(
+                    WindowOutcome(
+                        mask=mask,
+                        full_loaded=full_loaded[b],
+                        stage_bytes=stage_bytes_total[b],
+                        stages_run=stages_run[b],
+                    )
                 )
-            )
         self.tracer.end(bsid, stages=len(order))
         return outcomes
 

@@ -291,9 +291,11 @@ def decode_basket_round(
         return {name: [decode(blob, dtypes[name]) for blob in bs]
                 for name, bs in blobs.items()}
     from repro_torch.kernels import ops
+    from repro_torch.obs.trace import active
 
-    parts = {name: [bitpack_raw_parts(blob) for blob in bs]
-             for name, bs in blobs.items()}
+    with active().span("bitpack_raw_parts", kind="pack"):
+        parts = {name: [bitpack_raw_parts(blob) for blob in bs]
+                 for name, bs in blobs.items()}
     return ops.basket_decode_round(parts, dtypes, device=device)
 
 

@@ -4,6 +4,13 @@ The engine's device path calls these entry points; each stages its
 inputs, dispatches to a kernel wrapper (the CUDA kernel for a CUDA
 tensor, the plain PyTorch version for a CPU tensor) and notes the
 dispatch in the same ledger as the JAX package's ``kernels/ops.py``.
+
+Host<->device copies are counted where they are issued
+(:func:`transfer_stats`), and the host side of each call is recorded
+into the tracer active on the calling thread
+(:func:`repro_torch.obs.trace.active`: ``pack``, ``launch``,
+``device_wait`` and ``unpack`` spans), a no-op unless a detailed skim
+is running there.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import skim_fused as _sf
 from repro_torch.kernels import stream_compact as _sc
 from repro_torch.kernels.program import Program, compile_query  # re-export
+from repro_torch.obs.trace import active as _active_tracer
+from repro_torch.obs.trace import active_tally as _active_tally
 
 # ---------------------------------------------------------------------------
 # dispatch / compile accounting
@@ -72,6 +81,69 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
+# ---------------------------------------------------------------------------
+# host<->device transfers
+#
+# Every copy between the host and a card that this package issues is
+# counted here when it is issued: page-locked staging copies, pageable
+# ``.to(device)`` uploads and ``.cpu()`` reads alike, for the whole
+# process and for the skim running on the issuing thread
+# (``obs.trace.active_tally``).  Port-only; the JAX package's transfers
+# are XLA's.
+# ---------------------------------------------------------------------------
+
+_TRANSFERS = {"h2d_copies": 0, "h2d_bytes": 0, "d2h_copies": 0, "d2h_bytes": 0}
+_TRANSFERS_LOCK = threading.Lock()
+
+
+def transfer_stats() -> dict:
+    """Host-to-device and device-to-host copies and bytes since the last
+    reset, from every thread of the process."""
+    with _TRANSFERS_LOCK:
+        return dict(_TRANSFERS)
+
+
+def reset_transfer_stats() -> None:
+    with _TRANSFERS_LOCK:
+        for key in _TRANSFERS:
+            _TRANSFERS[key] = 0
+
+
+def _note_copy(way: str, nbytes: int) -> None:
+    """One copy of ``nbytes`` issued ``way`` ("h2d" or "d2h")."""
+    copies, nbytes_key, nbytes = f"{way}_copies", f"{way}_bytes", int(nbytes)
+    with _TRANSFERS_LOCK:
+        _TRANSFERS[copies] += 1
+        _TRANSFERS[nbytes_key] += nbytes
+    tally = _active_tally()
+    if tally is not None:
+        tally.add(**{copies: 1, nbytes_key: nbytes})
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def to_device(x, device) -> torch.Tensor:
+    """A host array (numpy or tensor) on ``device``; the copy is counted
+    when it goes to a card."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(x)
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        _note_copy("h2d", _nbytes(t))
+    return t.to(device)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host as numpy, in one copy when it lives
+    on a card (counted, and waited on under a ``device_wait`` span)."""
+    with _active_tracer().span("to_host", kind="device_wait"):
+        host = t.cpu()
+    if t.is_cuda:
+        _note_copy("d2h", _nbytes(t))
+    return host.numpy()
+
+
 # the numpy types JAX narrows when it reads an array with 64-bit types off
 # (``jax_enable_x64``, off by default); every other type it keeps
 _JAX_NARROWS = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
@@ -101,7 +173,7 @@ def _as_jax(x, dtype=None) -> torch.Tensor:
 def _numpy_as(t: torch.Tensor, dtype: np.dtype) -> np.ndarray:
     """A tensor's bytes on the host as a numpy array of ``dtype``, a type
     of the same width (one torch cannot hand to numpy included)."""
-    return t.cpu().contiguous().view(torch.uint8).numpy().view(dtype)
+    return to_host(t.contiguous().view(torch.uint8)).view(dtype)
 
 
 def _tensors(device, *xs, dtype=None) -> list[torch.Tensor]:
@@ -119,7 +191,7 @@ def _tensors(device, *xs, dtype=None) -> list[torch.Tensor]:
         if not isinstance(x, torch.Tensor):
             if target is None:
                 target = resolve_device(device)
-            x = _as_jax(x, np_dtype).to(target)
+            x = to_device(_as_jax(x, np_dtype), target)
         out.append(x if dtype is None else x.to(dtype))
     return out
 
@@ -216,12 +288,14 @@ class _Staging(threading.local):
         return buf[:n]
 
     def wait(self, device) -> None:
-        """Record this thread's event on the current stream; wait for it."""
-        event = self.events.get(device)
-        if event is None:
-            event = self.events[device] = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(device))
-        event.synchronize()
+        """Record this thread's event on the current stream; wait for it,
+        under a ``device_wait`` span."""
+        with _active_tracer().span("wait", kind="device_wait"):
+            event = self.events.get(device)
+            if event is None:
+                event = self.events[device] = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            event.synchronize()
 
 
 _STAGING = _Staging()
@@ -309,8 +383,52 @@ def basket_decode_round(parts, dtypes, device=None) -> dict:
     On the CPU the round runs the same staging through the plain version.
     """
     device = resolve_device(device)
+    tr = _active_tracer()
+    with tr.span("round", kind="pack"):
+        out, baskets = _round_baskets(parts, dtypes, device)
+        if not baskets:
+            return out
+        layout = plan_round([(p, tdt) for _n, _i, p, tdt in baskets])
+        n_in, o_bytes = layout["n_in"], layout["out_bytes"]
+        on_card = device.type == "cuda"
+        if on_card:
+            host_in = _STAGING.buffer(device, "round in", n_in, torch.int32, pinned=True)
+        else:
+            host_in = torch.empty(n_in, dtype=torch.int32)
+        fill_round(host_in.numpy(), layout)
+    if on_card:
+        with tr.span("round", kind="launch"):
+            dev_in = _STAGING.buffer(device, "round in, card", n_in, torch.int32)
+            dev_in.copy_(host_in, non_blocking=True)
+            _note_copy("h2d", 4 * n_in)
+            dev_out = _STAGING.buffer(device, "round out, card", o_bytes, torch.uint8)
+            _bd.decode_round(*round_views(dev_in, layout), dev_out)
+            host_out = _STAGING.buffer(device, "round out", o_bytes, torch.uint8,
+                                       pinned=True)
+            host_out.copy_(dev_out, non_blocking=True)
+            _note_copy("d2h", o_bytes)
+        _STAGING.wait(device)
+    else:
+        with tr.span("round", kind="launch"):
+            host_out = torch.zeros(o_bytes, dtype=torch.uint8)
+            _bd.decode_round(*round_views(host_in, layout), host_out)
+    with tr.span("round", kind="unpack"):
+        raw = host_out.numpy()
+        for (name, i, p, tdt), (o, store) in zip(baskets, layout["stores"]):
+            vals = np.frombuffer(raw, dtype=_NP_OF[store], count=p["n"], offset=o).copy()
+            if store != tdt:
+                vals = _ref.finish_decode(torch.from_numpy(vals), p["kind"], tdt).numpy()
+            out[name][i] = vals
+    return out
+
+
+def _round_baskets(parts, dtypes, device) -> tuple[dict, list]:
+    """A decode round's output lists, with the baskets that need no
+    decode filled in, and the rest as ``(branch, index, part, torch
+    output dtype)``, noted in the dispatch ledger once per (branch,
+    kind)."""
     out = {name: [None] * len(ps) for name, ps in parts.items()}
-    baskets = []  # (branch, index, part, torch output dtype)
+    baskets = []
     for name, ps in parts.items():
         dtype = np.dtype(dtypes[name])
         kinds: dict[int, list[int]] = {}
@@ -328,34 +446,7 @@ def basket_decode_round(parts, dtypes, device=None) -> dict:
                      _lane_words(max(p["n_pad"] // 32 for p in group)))
             _note_dispatch(("decode", kind, shape, device.type))
             baskets.extend((name, i, ps[i], tdt) for i in idxs)
-    if not baskets:
-        return out
-    layout = plan_round([(p, tdt) for _n, _i, p, tdt in baskets])
-    n_in, o_bytes = layout["n_in"], layout["out_bytes"]
-    on_card = device.type == "cuda"
-    if on_card:
-        host_in = _STAGING.buffer(device, "round in", n_in, torch.int32, pinned=True)
-    else:
-        host_in = torch.empty(n_in, dtype=torch.int32)
-    fill_round(host_in.numpy(), layout)
-    if on_card:
-        dev_in = _STAGING.buffer(device, "round in, card", n_in, torch.int32)
-        dev_in.copy_(host_in, non_blocking=True)
-        dev_out = _STAGING.buffer(device, "round out, card", o_bytes, torch.uint8)
-        _bd.decode_round(*round_views(dev_in, layout), dev_out)
-        host_out = _STAGING.buffer(device, "round out", o_bytes, torch.uint8, pinned=True)
-        host_out.copy_(dev_out, non_blocking=True)
-        _STAGING.wait(device)
-    else:
-        host_out = torch.zeros(o_bytes, dtype=torch.uint8)
-        _bd.decode_round(*round_views(host_in, layout), host_out)
-    raw = host_out.numpy()
-    for (name, i, p, tdt), (o, store) in zip(baskets, layout["stores"]):
-        vals = np.frombuffer(raw, dtype=_NP_OF[store], count=p["n"], offset=o).copy()
-        if store != tdt:
-            vals = _ref.finish_decode(torch.from_numpy(vals), p["kind"], tdt).numpy()
-        out[name][i] = vals
-    return out
+    return out, baskets
 
 
 # ---------------------------------------------------------------------------
@@ -557,9 +648,9 @@ def cascade_stage_step(terms, valid, weights, packed, seg_ids, program: Program,
             f"{tuple(np.shape(valid))} and weights {tuple(np.shape(weights))} do not "
             f"match a program of {program.n_terms} terms and {G} groups")
     if not isinstance(packed, torch.Tensor):
-        packed = torch.from_numpy(np.array(packed, np.uint32).view(np.int32)).to(device)
+        packed = to_device(np.array(packed, np.uint32).view(np.int32), device)
     if not isinstance(seg_ids, torch.Tensor):
-        seg_ids = torch.from_numpy(np.ascontiguousarray(seg_ids, np.int32)).to(device)
+        seg_ids = to_device(np.ascontiguousarray(seg_ids, np.int32), device)
     arrays = (terms, valid, weights)
     if any(isinstance(x, torch.Tensor) and x.device != device
            for x in (*arrays, packed, seg_ids)):
@@ -599,12 +690,17 @@ def cascade_stage_step_staged(inputs: CascadeInputs, packed, seg_ids,
     device = _stage_device(backend, device)
     _note_dispatch(_cascade_sig(program, inputs.shape, nb, backend))
     stage = _stage_windows(backend)
+    tr = _active_tracer()
     if device.type != "cuda":
-        return stage(*inputs.views(inputs.host), packed, seg_ids, program, nb,
-                     kinds=kinds)
-    dev = _STAGING.buffer(device, "cascade in, card", inputs.host.numel(), torch.int32)
-    dev.copy_(inputs.host, non_blocking=True)
-    result = stage(*inputs.views(dev), packed, seg_ids, program, nb, kinds=kinds)
+        with tr.span("stage", kind="launch"):
+            return stage(*inputs.views(inputs.host), packed, seg_ids, program, nb,
+                         kinds=kinds)
+    with tr.span("stage", kind="launch"):
+        dev = _STAGING.buffer(device, "cascade in, card", inputs.host.numel(),
+                              torch.int32)
+        dev.copy_(inputs.host, non_blocking=True)
+        _note_copy("h2d", inputs.nbytes)
+        result = stage(*inputs.views(dev), packed, seg_ids, program, nb, kinds=kinds)
     _STAGING.wait(device)  # the staging buffer is free for this thread again
     return result
 
@@ -612,8 +708,9 @@ def cascade_stage_step_staged(inputs: CascadeInputs, packed, seg_ids,
 def stage_summary_host(out) -> tuple[np.ndarray, np.ndarray]:
     """One device-to-host copy of a stage's (B, nb + 1) buffer -> (basket
     bits (B, nb) bool, counts (B,) int64)."""
-    host = out.cpu().numpy()
-    return host[:, :-1].astype(bool), host[:, -1].astype(np.int64)
+    host = to_host(out)
+    with _active_tracer().span("stage summary", kind="unpack"):
+        return host[:, :-1].astype(bool), host[:, -1].astype(np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -664,9 +761,11 @@ def fused_skim(terms, valid, weights, payload, program: Program, use_kernel=True
     if use_kernel and device.type == "cuda":
         return _skim_staged(terms, valid, weights, payload, program, device, kinds)
     payload = _jax_numpy(payload)
-    packed, count = skim(*_tensors(device, terms, valid, weights, dtype=torch.float32),
-                         *_tensors(device, payload), program, kinds=kinds)
-    return _numpy_as(packed, payload.dtype), int(count)
+    with _active_tracer().span("skim", kind="launch"):
+        packed, count = skim(
+            *_tensors(device, terms, valid, weights, dtype=torch.float32),
+            *_tensors(device, payload), program, kinds=kinds)
+    return _numpy_as(packed, payload.dtype), int(to_host(count.reshape(1))[0])
 
 
 def _skim_staged(terms, valid, weights, payload, program: Program,
@@ -675,34 +774,40 @@ def _skim_staged(terms, valid, weights, payload, program: Program,
     launch, one readback.  The staged buffer holds terms, valid and
     weights as float32, then the payload's bytes from a 16-byte boundary;
     the rows come back as the payload's bytes and are read in its type."""
-    planes = [np.asarray(a, np.float32) for a in (terms, valid, weights)]
-    payload = _jax_numpy(payload)
-    E, D = payload.shape
-    sizes = [a.size for a in planes]
-    p_off = (sum(sizes) + 3) & ~3  # int32 words before the payload
-    n_in = p_off + (payload.nbytes + 3) // 4
-    hdr = _sf.header_words(1)
-    host_in = _STAGING.buffer(device, "skim in", n_in, torch.int32, pinned=True)
-    staged = host_in.numpy()
-    views, o = [], 0
-    for a, n in zip(planes, sizes):
-        staged[o: o + n] = a.reshape(-1).view(np.int32)  # bits: integer planes too
-        views.append((o, n, a.shape))
-        o += n
-    staged.view(np.uint8)[4 * p_off: 4 * p_off + payload.nbytes] = (
-        payload.reshape(-1).view(np.uint8))
-    dev_in = _STAGING.buffer(device, "skim in, card", n_in, torch.int32)
-    dev_in.copy_(host_in, non_blocking=True)
-    t, v, w = (dev_in[o: o + n].view(torch.float32).view(shape)[None]
-               for o, n, shape in views)
-    pl = _sf.view_rows(dev_in[p_off:], 1, E, D, torch_dtype(payload.dtype))
-    buf = _sf.launch("skim_fused", t, v, w, pl, program, kinds)
-    host = _STAGING.buffer(device, "skim out", buf.numel(), torch.int32, pinned=True)
-    host.copy_(buf, non_blocking=True)
+    tr = _active_tracer()
+    with tr.span("skim", kind="pack"):
+        planes = [np.asarray(a, np.float32) for a in (terms, valid, weights)]
+        payload = _jax_numpy(payload)
+        E, D = payload.shape
+        sizes = [a.size for a in planes]
+        p_off = (sum(sizes) + 3) & ~3  # int32 words before the payload
+        n_in = p_off + (payload.nbytes + 3) // 4
+        hdr = _sf.header_words(1)
+        host_in = _STAGING.buffer(device, "skim in", n_in, torch.int32, pinned=True)
+        staged = host_in.numpy()
+        views, o = [], 0
+        for a, n in zip(planes, sizes):
+            staged[o: o + n] = a.reshape(-1).view(np.int32)  # bits: integer planes too
+            views.append((o, n, a.shape))
+            o += n
+        staged.view(np.uint8)[4 * p_off: 4 * p_off + payload.nbytes] = (
+            payload.reshape(-1).view(np.uint8))
+    with tr.span("skim", kind="launch"):
+        dev_in = _STAGING.buffer(device, "skim in, card", n_in, torch.int32)
+        dev_in.copy_(host_in, non_blocking=True)
+        _note_copy("h2d", 4 * n_in)
+        t, v, w = (dev_in[o: o + n].view(torch.float32).view(shape)[None]
+                   for o, n, shape in views)
+        pl = _sf.view_rows(dev_in[p_off:], 1, E, D, torch_dtype(payload.dtype))
+        buf = _sf.launch("skim_fused", t, v, w, pl, program, kinds)
+        host = _STAGING.buffer(device, "skim out", buf.numel(), torch.int32, pinned=True)
+        host.copy_(buf, non_blocking=True)
+        _note_copy("d2h", 4 * buf.numel())
     _STAGING.wait(device)
-    raw = host.numpy()
-    rows = raw[hdr:].view(np.uint8)[: payload.nbytes].view(payload.dtype)
-    return rows.reshape(E, D).copy(), int(raw[0])
+    with tr.span("skim", kind="unpack"):
+        raw = host.numpy()
+        rows = raw[hdr:].view(np.uint8)[: payload.nbytes].view(payload.dtype)
+        return rows.reshape(E, D).copy(), int(raw[0])
 
 
 def fused_skim_batch(terms, valid, weights, payload, program: Program,
@@ -762,10 +867,14 @@ __all__ = [
     "predicate_eval",
     "reset_dispatch_stats",
     "reset_launch_counts",
+    "reset_transfer_stats",
     "round_views",
     "skim_fused",
     "stage_summary_host",
     "stream_compact",
+    "to_device",
+    "to_host",
+    "transfer_stats",
     "unpack_mask",
     "warm_cascade_stage",
 ]

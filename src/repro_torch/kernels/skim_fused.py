@@ -151,8 +151,10 @@ def _descriptor_entry(program: Program, device: torch.device, kinds=None):
     key = (id(program), kinds, device)
     entry = _DESCRIPTORS.get(key)
     if entry is None:
+        from repro_torch.kernels import ops
+
         *arrays, offsets = flatten_program(program, kinds)
-        ints, doubles = (torch.from_numpy(a).to(device) for a in arrays)
+        ints, doubles = (ops.to_device(a, device) for a in arrays)
 
         def at(base, name):
             return ctypes.c_void_p(base.data_ptr() + base.element_size() * offsets[name])

@@ -32,10 +32,78 @@ fault-tolerance kinds ``retry`` (one per re-issued shard, attrs:
 failed/used node), ``hedge`` (one per hedged shard, attrs: outcome
 won/lost/cancelled), ``recover`` (one per journal-recovered job, attrs:
 resume_skip).  See DESIGN.md §13–14, §16.
+
+**Host detail.**  A tracer built with ``detail=True`` (the default of
+``Tracer()``) also records the *leaves* of a skim's host time, one span
+per round, stage step or phase-2 call (never one per basket or per
+branch), opened where the work runs, one kind per kind of work:
+
+  ===============  =========================================  ======================
+  kind             covers                                     recorded in
+  ===============  =========================================  ======================
+  ``fetch``        the store's blob reads and CRC-32 digests  ``core/engine.py``
+  ``ledger``       the cascade's basket ledger:               ``core/plan.py``
+                   ``account_fetch``, ``mark_fetched``,
+                   ``unfetched_bytes``
+  ``pack``         laying out a kernel's inputs: a decode     ``data/codecs.py``,
+                   round's plane parsing, ``plan_round`` and  ``kernels/ops.py``,
+                   ``fill_round``; the padded planes; the     ``core/neardata.py``,
+                   ``CascadeInputs`` fill; a staged skim      ``core/plan.py``
+                   buffer; a batch's mask words and segment
+                   ids
+  ``launch``       staged buffer to work enqueued: the        ``kernels/ops.py``,
+                   upload, the launch, the copy back's        ``core/plan.py``
+                   enqueue (on the CPU, the plain version's
+                   run)
+  ``device_wait``  the host blocked on the card               ``kernels/ops.py``
+  ``unpack``       copied-back bytes turned into arrays       ``kernels/ops.py``,
+                   (``finish_decode``, ``unpack_mask``, the   ``core/neardata.py``,
+                   survivor mask)                             ``core/plan.py``
+  ``evaluate``     the host interpreter's run of a program    ``core/neardata.py``,
+                                                              ``core/plan.py``
+  ``decompress``,  exactly the intervals added to the         ``core/engine.py``
+  ``deserialize``  ``Breakdown`` fields of those names        (``_Timer``)
+  ===============  =========================================  ======================
+
+In a detailed tree the parents ``load_window`` and ``phase2`` (of kind
+``fetch`` in a tree without detail) take their names as their kinds, so
+``fetch`` is the store read alone.  Leaves on one thread are disjoint or
+nested: a device decode round's ``pack`` .. ``unpack`` lie inside its
+``decompress``.  The ``Breakdown`` timers read ``time.perf_counter``; a
+tracer on that clock (``clock=None``) takes the same two readings for
+the ``decompress`` and ``deserialize`` spans, so their sums equal the
+fields exactly.
+
+A detailed skim's ``query`` span also ends with ``clock_ns`` (epoch
+nanoseconds read beside its ``t0``, for placing its spans on a device
+profiler's clock) and the skim's own host<->device transfers:
+``h2d_bytes``, ``h2d_copies`` (the uploads a decoded-columns-on-the-card
+design would cut) and ``d2h_bytes``, ``d2h_copies`` (the decoded
+columns, stage summaries and survivor rows read back, which such a
+design would cut too).  They are counted where each copy is issued
+(``repro_torch.kernels.ops``), into the skim's own :class:`Tally`: a
+prefetch worker's copies count to the skim that handed it the work
+(:func:`carried`), and skims on other threads count to their own.
+``ops.transfer_stats`` holds the same counts for the whole process.
+
+A tracer built with ``detail=False`` records the tree the JAX package
+records, byte for byte: the service's job and batch tracers ask for no
+detail, and a cluster node's tracer takes its coordinator tracer's
+setting.
+
+The kernel tier (``repro_torch.kernels.ops``) takes no tracer
+argument; it records into the tracer *active* on its thread
+(:func:`active`, the no-op tracer when none is).  :func:`activated`
+runs a skim generator with its tracer and tally active during each step
+and inactive across each ``yield``.  **Never hold an activation across
+a ``yield``**: several jobs' generators advance on one thread, and an
+activation held across a ``yield`` would put one job's spans into
+another's tree.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import threading
@@ -113,14 +181,16 @@ class Tracer:
     threads that must attach to a specific span pass it explicitly.
 
     ``clock`` is any object with a ``.now() -> float`` (seconds), a bare
-    callable, or ``None`` for ``time.perf_counter``.
+    callable, or ``None`` for ``time.perf_counter``.  ``detail`` asks for
+    the host-detail leaves and attributes (module docstring).
     """
 
     enabled = True
 
-    def __init__(self, clock=None, name: str = "trace"):
+    def __init__(self, clock=None, name: str = "trace", detail: bool = True):
         self.name = name
         self.clock = clock
+        self.detail = bool(detail)
         if hasattr(clock, "now"):
             self._now = clock.now
         else:
@@ -262,6 +332,7 @@ class NullTracer:
     singletons.  The hot path's only cost is the call itself."""
 
     enabled = False
+    detail = False
     name = "null"
     clock = None
 
@@ -292,6 +363,96 @@ class NullTracer:
 
 #: the process-wide shared no-op tracer (default everywhere)
 NULL_TRACER = NullTracer()
+
+
+# ---------------------------------------------------------------------------
+# the tracer active on a thread (host detail below the engine)
+# ---------------------------------------------------------------------------
+
+class Tally:
+    """Counts one skim adds to from any thread it runs on (the kernel
+    tier's host<->device copies and bytes)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts: dict[str, int] = {}
+
+    def add(self, **counts: int) -> None:
+        with self._lock:
+            for key, n in counts.items():
+                self._counts[key] = self._counts.get(key, 0) + n
+
+    def counts(self) -> dict:
+        with self._lock:
+            return dict(self._counts)
+
+
+class _Active(threading.local):
+    tracer = NULL_TRACER
+    tally = None
+
+
+_ACTIVE = _Active()
+
+
+def active():
+    """The detailed tracer active on this thread, or :data:`NULL_TRACER`."""
+    return _ACTIVE.tracer
+
+
+def active_tally() -> Tally | None:
+    """The tally of the skim running on this thread, or None."""
+    return _ACTIVE.tally
+
+
+def activated(gen, tracer):
+    """``gen`` with ``tracer`` and a fresh :class:`Tally` active on the
+    calling thread while each of its steps runs, and the earlier
+    activation back across each ``yield``; returns what ``gen`` returns.
+    A tracer that asks for no detail gets ``gen`` itself."""
+    if not getattr(tracer, "detail", False):
+        return gen
+    return _activated(gen, tracer, Tally())
+
+
+def _activated(gen, tracer, tally):
+    while True:
+        with _activation(tracer, tally):
+            try:
+                item = next(gen)
+            except StopIteration as stop:
+                return stop.value
+        try:
+            yield item
+        except GeneratorExit:
+            with _activation(tracer, tally):
+                gen.close()
+            raise
+
+
+def carried(fn):
+    """``fn`` with the calling thread's tally active, and no tracer, on
+    whichever thread calls it: a prefetch worker's copies then count to
+    the skim that handed it the work, and its spans go unrecorded."""
+    tally = active_tally()
+    if tally is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with _activation(NULL_TRACER, tally):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+@contextlib.contextmanager
+def _activation(tracer, tally):
+    prev = _ACTIVE.tracer, _ACTIVE.tally
+    _ACTIVE.tracer, _ACTIVE.tally = tracer, tally
+    try:
+        yield
+    finally:
+        _ACTIVE.tracer, _ACTIVE.tally = prev
 
 
 # ---------------------------------------------------------------------------
@@ -381,7 +542,12 @@ __all__ = [
     "NULL_TRACER",
     "NullTracer",
     "Span",
+    "Tally",
     "Tracer",
+    "activated",
+    "active",
+    "active_tally",
+    "carried",
     "chrome_events",
     "chrome_trace",
     "dump_chrome_trace",

@@ -357,7 +357,9 @@ class SkimService:
             seq=next(self._seq),
         )
         if self.tracing:
-            job.tracer = Tracer(clock=self.clock, name=f"job-{job.job_id}")
+            job.tracer = Tracer(
+                clock=self.clock, name=f"job-{job.job_id}", detail=False
+            )
             job.root_span = job.tracer.begin(
                 f"job[{job.job_id}]", kind="job",
                 job_id=job.job_id, tenant=tenant,
@@ -564,6 +566,7 @@ class SkimService:
                     btr = Tracer(
                         clock=self.clock,
                         name=f"batch-{len(self._batch_tracers)}",
+                        detail=False,
                     )
                     self._batch_tracers.append(btr)
                 gen = self.backend.start_batch(
@@ -888,7 +891,9 @@ class SkimService:
                 job.resume_skip = d["watermark"] + 1
                 svc._vtime = max(svc._vtime, job.vfinish)
             if svc.tracing:
-                job.tracer = Tracer(clock=svc.clock, name=f"job-{jid}")
+                job.tracer = Tracer(
+                    clock=svc.clock, name=f"job-{jid}", detail=False
+                )
                 job.root_span = job.tracer.begin(
                     f"job[{jid}]", kind="job", job_id=jid, tenant=job.tenant
                 )
