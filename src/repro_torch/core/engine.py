@@ -191,22 +191,25 @@ class _Timer:
     kind in the detailed tracer active on the thread; a tracer on
     ``perf_counter`` (``clock=None``) takes the same two readings, so the
     spans of a kind sum to the field (the ``decompress`` and
-    ``deserialize`` sites)."""
+    ``deserialize`` sites).  What the block puts in ``attrs`` is
+    recorded on the span as it closes."""
 
     def __init__(self, breakdown: Breakdown, key: str, span: bool = False):
         self.b, self.k = breakdown, key
         self.tr = active() if span else NULL_TRACER
+        self.attrs: dict = {}
 
     def __enter__(self):
         self.t0 = time.perf_counter()
         if self.tr.enabled:
             self.sid = self.tr.begin(self.k, kind=self.k)
+        return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter()
         setattr(self.b, self.k, getattr(self.b, self.k) + (t1 - self.t0))
         if self.tr.enabled:
-            self.tr.end(self.sid)
+            self.tr.end(self.sid, **self.attrs)
             if self.tr.clock is None:
                 sp = self.tr.get(self.sid)
                 sp.t0, sp.t1 = self.t0, t1
@@ -267,6 +270,10 @@ def _decode_branches(
     # the whole round decodes at once: one kernel launch on the card
     with _Timer(breakdown, "decompress", span=True):
         decoded_calls = store.decode_calls(calls)
+    # a jagged basket's object slice, (first object, objects), depends
+    # only on its counts branch and its entries: one computation serves
+    # every branch of the collection
+    slices: dict = {}
     with _Timer(breakdown, "deserialize", span=True):
         for name in order:
             blobs = window[name]
@@ -278,22 +285,15 @@ def _decode_branches(
                     lo = max(start - meta.first_entry, 0)
                     hi = min(stop - meta.first_entry, meta.n_entries)
                     parts.append(vals[lo:hi])
-                else:
-                    counts = data[br.counts_branch]
-                    # basket-local event slice using already-decoded counts
-                    b0 = max(start, meta.first_entry)
-                    b1 = min(stop, meta.first_entry + meta.n_entries)
-                    gc = counts[b0 - start : b1 - start].astype(np.int64)
-                    # leading events of this basket that precede `start`
-                    lead = 0
-                    if meta.first_entry < start:
-                        c, lead_baskets = leads[(name, meta.first_entry)]
-                        for k, (m, _) in enumerate(lead_baskets):
-                            lo = max(meta.first_entry - m.first_entry, 0)
-                            hi = min(start - m.first_entry, m.n_entries)
-                            lead += int(decoded_calls[c + k][0][lo:hi]
-                                        .astype(np.int64).sum())
-                    parts.append(vals[lead : lead + gc.sum()])
+                    continue
+                key = (br.counts_branch, meta.first_entry, meta.n_entries)
+                if key not in slices:
+                    slices[key] = _basket_objects(
+                        data[br.counts_branch], meta, start, stop,
+                        leads.get((name, meta.first_entry)), decoded_calls,
+                    )
+                lead, n_obj = slices[key]
+                parts.append(vals[lead : lead + n_obj])
             data[name] = (
                 np.concatenate(parts)
                 if parts
@@ -301,6 +301,26 @@ def _decode_branches(
             )
     tr.end(dsid)
     return data
+
+
+def _basket_objects(
+    counts: np.ndarray, meta, start: int, stop: int, lead, decoded_calls
+) -> tuple[int, int]:
+    """A jagged basket's objects inside ``[start, stop)``: the first one's
+    place in the basket and how many, from the window's decoded counts
+    and, for a basket that starts before ``start``, its leading counts
+    (``lead``: the first of their decode calls and their baskets)."""
+    b0 = max(start, meta.first_entry)
+    b1 = min(stop, meta.first_entry + meta.n_entries)
+    n_obj = counts[b0 - start : b1 - start].astype(np.int64).sum()
+    first = 0
+    if lead is not None:
+        c, lead_baskets = lead
+        for k, (m, _) in enumerate(lead_baskets):
+            lo = max(meta.first_entry - m.first_entry, 0)
+            hi = min(start - m.first_entry, m.n_entries)
+            first += int(decoded_calls[c + k][0][lo:hi].astype(np.int64).sum())
+    return first, n_obj
 
 
 def _parent_kind(tracer, name: str) -> str:
@@ -429,12 +449,13 @@ def _window_phase2(
         tracer=tracer,
     )
     full = {**loaded, **data2}
-    with _Timer(breakdown, "deserialize", span=True):
+    with _Timer(breakdown, "deserialize", span=True) as t:
         cols, jagged = _select_columns(
             {k2: full[k2] for k2 in plan.output_branches if k2 not in dev_cols},
             mask,
             store,
         )
+        t.attrs = _selection_attrs(jagged)
         # payload columns come straight off the fused kernel, already
         # survivor-compacted (bit-identical to arr[mask])
         cols.update(dev_cols)
@@ -485,19 +506,67 @@ def _rows_materialize(data: dict[str, np.ndarray], store, n: int) -> list:
 def _select_columns(
     data: dict[str, np.ndarray], mask: np.ndarray, store
 ) -> tuple[dict[str, np.ndarray], dict[str, str]]:
-    """Apply an event mask to columnar data -> (columns, jagged map)."""
+    """Apply an event mask to columnar data -> (columns, jagged map).
+
+    Each column is a fresh array equal, bit for bit, to ``arr[mask]``
+    (flat) or ``arr[np.repeat(mask, counts)]`` (jagged).  The survivor
+    indices are built once: the kept events' for every flat column, and
+    one set of kept objects per counts branch for every jagged column of
+    its collection; each column is then a gather."""
+    n = len(mask)
+    events = np.flatnonzero(mask)
+    objects: dict[str, tuple[np.ndarray, int]] = {}  # counts branch -> index
     cols: dict[str, np.ndarray] = {}
     jagged: dict[str, str] = {}
     for name, arr in data.items():
         br = store.branches.get(name)
         if br is not None and br.jagged:
-            counts = data[br.counts_branch].astype(np.int64)
-            obj_mask = np.repeat(mask, counts)
-            cols[name] = arr[obj_mask]
-            jagged[name] = br.counts_branch
+            c = br.counts_branch
+            if c not in objects:
+                objects[c] = _kept_objects(data[c], events, n)
+            index, total = objects[c]
+            _check_length(name, arr, total)
+            cols[name] = arr.take(index, axis=0)
+            jagged[name] = c
         else:
-            cols[name] = arr[mask]
+            _check_length(name, arr, n)
+            cols[name] = arr.take(events, axis=0)
     return cols, jagged
+
+
+def _kept_objects(
+    counts: np.ndarray, events: np.ndarray, n: int
+) -> tuple[np.ndarray, int]:
+    """The flat indices of the kept events' objects, in order (the places
+    ``np.repeat(mask, counts)`` marks), and the number of objects."""
+    if len(counts) != n:
+        raise ValueError(
+            f"counts of {len(counts)} events against a mask of {n}"
+        )
+    ends = np.cumsum(counts, dtype=np.int64)
+    kept = counts[events].astype(np.int64)
+    # each kept object's flat index less its place among the kept objects
+    shift = ends[events] - np.cumsum(kept)
+    index = np.repeat(shift, kept) + np.arange(kept.sum())
+    return index, int(ends[-1]) if n else 0
+
+
+def _check_length(name: str, arr: np.ndarray, n: int) -> None:
+    """Raise as boolean indexing would for a column of the wrong length."""
+    if len(arr) != n:
+        raise IndexError(
+            f"column {name!r} holds {len(arr)} values, its index covers {n}"
+        )
+
+
+def _selection_attrs(jagged: dict[str, str]) -> dict[str, int]:
+    """The ``deserialize`` span's record of a selection: the object
+    indices it built (one a counts branch) and the jagged columns it
+    gathered with them."""
+    return {
+        "jagged_indexes": len(set(jagged.values())),
+        "jagged_columns": len(jagged),
+    }
 
 
 def _write_output(
@@ -1061,11 +1130,12 @@ class SkimEngine:
                         plan.output_branches, start, stop, wb, w2s, ledger,
                         known=known,
                     )
-                    with _Timer(wb, "deserialize", span=True):
+                    with _Timer(wb, "deserialize", span=True) as t:
                         cols, jagged = _select_columns(
                             {k2: full[k2] for k2 in plan.output_branches},
                             mask, store,
                         )
+                        t.attrs = _selection_attrs(jagged)
                 else:
                     # ---- phase 2: output-only branches, survivors only ----
                     cols, jagged = _window_phase2(

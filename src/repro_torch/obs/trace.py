@@ -72,7 +72,10 @@ nested: a device decode round's ``pack`` .. ``unpack`` lie inside its
 ``decompress``.  The ``Breakdown`` timers read ``time.perf_counter``; a
 tracer on that clock (``clock=None``) takes the same two readings for
 the ``decompress`` and ``deserialize`` spans, so their sums equal the
-fields exactly.
+fields exactly.  A ``deserialize`` span around a phase-2 selection ends
+with ``jagged_indexes`` (the survivor object indices it built, one a
+counts branch) and ``jagged_columns`` (the jagged columns gathered with
+them).
 
 A detailed skim's ``query`` span also ends with ``clock_ns`` (epoch
 nanoseconds read beside its ``t0``, for placing its spans on a device

@@ -13,7 +13,9 @@ kernels' plain PyTorch versions over the padded layout, and
 import dataclasses
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -153,3 +155,121 @@ def test_fused_window_skim_matches_jax(qname, backend):
     assert got_cols.keys() == want_cols.keys()
     for k in want_cols:
         assert got_cols[k].tobytes() == want_cols[k].tobytes(), k
+
+
+# ---------------------------------------------------------------------------
+# the phase-2 selection: survivor indices built once a counts branch
+# ---------------------------------------------------------------------------
+
+VALUE_TYPES = (np.float32, np.int32, np.uint8, np.bool_)
+
+
+def _values(rng, dtype, n):
+    if dtype is np.bool_:
+        return rng.random(n) < 0.5
+    if dtype is np.float32:
+        return rng.standard_normal(n).astype(np.float32)
+    return rng.integers(0, 100, n).astype(dtype)
+
+
+def _selection_window(n, lams, counts_dtype=np.int32, per_coll=6, mask="ragged",
+                      flat=3, zero_every=0):
+    """Columnar data of ``n`` events: one collection a multiplicity in
+    ``lams``, each with ``per_coll`` columns cycling through
+    ``VALUE_TYPES``, its counts branch among the columns; ``flat`` event
+    columns; every ``zero_every``-th event holds no objects."""
+    rng = np.random.default_rng(17 + n + len(lams))
+    data, branches = {}, {}
+    for ci, lam in enumerate(lams):
+        coll = f"C{ci}"
+        counts = rng.poisson(lam, n)
+        if zero_every:
+            counts[::zero_every] = 0
+        data[f"n{coll}"] = counts.astype(counts_dtype)
+        branches[f"n{coll}"] = SimpleNamespace(jagged=False, counts_branch=None)
+        for j in range(per_coll):
+            name = f"{coll}_v{j}"
+            data[name] = _values(rng, VALUE_TYPES[j % 4], int(counts.sum()))
+            branches[name] = SimpleNamespace(jagged=True, counts_branch=f"n{coll}")
+    for j in range(flat):
+        data[f"F_{j}"] = _values(rng, VALUE_TYPES[j % 4], n)
+        branches[f"F_{j}"] = SimpleNamespace(jagged=False, counts_branch=None)
+    keep = {"ragged": rng.random(n) < 0.3,
+            "none": np.zeros(n, dtype=bool),
+            "all": np.ones(n, dtype=bool),
+            "blocks": (np.arange(n) // 7) % 3 == 1}[mask]
+    return data, keep, SimpleNamespace(branches=branches)
+
+
+SELECTIONS = {
+    "three-collections-many-columns": dict(n=500, lams=(0.4, 0.5, 4.0), per_coll=12),
+    "counts-branch-is-output": dict(n=300, lams=(2.0,), per_coll=2, flat=0),
+    "mask-all-false": dict(n=300, lams=(1.0, 3.0), mask="none"),
+    "mask-all-true": dict(n=300, lams=(1.0, 3.0), mask="all"),
+    "mask-in-blocks": dict(n=300, lams=(1.0, 3.0), mask="blocks"),
+    "events-with-zero-objects": dict(n=300, lams=(0.2, 3.0), zero_every=3),
+    "counts-int32": dict(n=200, lams=(2.0,), counts_dtype=np.int32),
+    "counts-uint8": dict(n=200, lams=(2.0,), counts_dtype=np.uint8),
+    "counts-int64": dict(n=200, lams=(2.0,), counts_dtype=np.int64),
+    "value-types": dict(n=200, lams=(1.5,), per_coll=8, flat=4),
+    "empty-window": dict(n=0, lams=(0.4, 4.0)),
+}
+
+
+@pytest.mark.parametrize("case", list(SELECTIONS))
+def test_select_columns_matches_jax(case):
+    """Values, dtype and the jagged map bit for bit as the JAX package's
+    ``arr[mask]`` / ``arr[np.repeat(mask, counts)]``, each column a
+    fresh array."""
+    from repro.core.engine import _select_columns as j_select
+    from repro_torch.core.engine import _select_columns as t_select
+
+    data, mask, store = _selection_window(**SELECTIONS[case])
+    want_cols, want_jagged = j_select(data, mask, store)
+    got_cols, got_jagged = t_select(data, mask, store)
+    assert got_jagged == want_jagged
+    assert list(got_cols) == list(want_cols)
+    for k, want in want_cols.items():
+        got = got_cols[k]
+        assert got.dtype == want.dtype and got.shape == want.shape, k
+        assert got.tobytes() == want.tobytes(), k
+        assert not np.shares_memory(got, data[k]), k
+
+
+@pytest.mark.parametrize("fault", ["flat-too-long", "jagged-too-short",
+                                   "jagged-too-long", "counts-too-short"])
+def test_select_columns_raises_on_a_length_mismatch(fault):
+    from repro.core.engine import _select_columns as j_select
+    from repro_torch.core.engine import _select_columns as t_select
+
+    data, mask, store = _selection_window(n=100, lams=(2.0,), per_coll=2, flat=1)
+    if fault == "flat-too-long":
+        data["F_0"] = np.append(data["F_0"], data["F_0"][:1])
+    elif fault == "jagged-too-short":
+        data["C0_v1"] = data["C0_v1"][:-1]
+    elif fault == "jagged-too-long":
+        data["C0_v0"] = np.append(data["C0_v0"], data["C0_v0"][:1])
+    else:
+        data["nC0"] = data["nC0"][:-1]
+    with pytest.raises(Exception) as want:
+        j_select(data, mask, store)
+    with pytest.raises(want.type):
+        t_select(data, mask, store)
+
+
+@pytest.mark.parametrize("device_batch", [None, 3])
+def test_windows_across_baskets_match_jax(device_batch):
+    """Windows of 64 events over baskets of 100: most windows cut a jagged
+    basket after its start, so every column of a collection slices it past
+    its leading counts."""
+    js = j_make(3_000, n_hlt=8, n_filler=2, basket_events=100)
+    ts = t_make(3_000, n_hlt=8, n_filler=2, basket_events=100, device="cpu")
+    q = QUERIES["quickstart"]
+    kw = dict(chunk_events=64, device_batch=device_batch)
+    j = JEngine(js, **kw).run(q, "near_data")
+    t = TEngine(ts, device="cpu", **kw).run(q, "near_data")
+    assert_same_result(t, j)
+    assert 0 < t.n_passed < 3_000
+    assert t.extras["cascade_stages"] == j.extras["cascade_stages"]
+    assert ts.decode_cache_stats() == js.decode_cache_stats()
+    assert ts.decode_cache_stats()["hits"] > 0

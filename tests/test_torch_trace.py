@@ -162,6 +162,25 @@ def test_stage_spans_sum_to_the_breakdown_exactly(traced, route):
         assert total == getattr(res.breakdown, kind) > 0
 
 
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_selection_spans_count_the_indexes_and_their_columns(traced, stores, route):
+    """Each phase 2's selection builds one object index a collection
+    written and gathers every jagged column of the output with it."""
+    res, spans = traced[route]
+    store = stores["host" if route == "host" else "device"]
+    jagged = [b for b in res.output.branch_names() if store.branches[b].jagged]
+    collections = {store.branches[b].counts_branch for b in jagged}
+    assert collections == {"nElectron", "nMuon", "nJet"}
+    by_id = {sp.sid: sp for sp in spans}
+    selections = [sp for sp in spans if "jagged_indexes" in sp.attrs]
+    phase2 = [sp for sp in spans if sp.kind == "phase2"]
+    assert len(selections) == len(phase2) > 0
+    for sp in selections:
+        assert sp.kind == "deserialize" and by_id[sp.parent].kind == "phase2"
+        assert sp.attrs == {"jagged_indexes": len(collections),
+                            "jagged_columns": len(jagged)}
+
+
 @pytest.mark.parametrize("route", ["window", "host"])
 def test_an_injected_clock_times_spans_and_no_breakdown_field(stores, route):
     """The ``Breakdown`` fields read ``time.perf_counter`` whatever the
