@@ -348,6 +348,16 @@ def _query_detail(tracer, qsid: int) -> dict | None:
     return _skim_transfers()
 
 
+def _plan_detail(tracer, plan, store) -> dict:
+    """For a detailed tracer, the ``plan`` span's branch counts: the
+    store's branches and those the plan reads (filter and output, the
+    patterns expanded); {} otherwise."""
+    if not tracer.detail:
+        return {}
+    return {"store_branches": len(store.branches),
+            "matched_branches": len(set(plan.filter_branches) | set(plan.output_branches))}
+
+
 _TRANSFER_KEYS = ("h2d_bytes", "h2d_copies", "d2h_bytes", "d2h_copies")
 
 
@@ -840,7 +850,8 @@ class SkimEngine:
         )
         transfers0 = _query_detail(tracer, qsid)
         if plan_t is not None:
-            tracer.add_span("plan", kind="plan", t0=plan_t[0], t1=plan_t[1])
+            tracer.add_span("plan", kind="plan", t0=plan_t[0], t1=plan_t[1],
+                            **_plan_detail(tracer, plan, store))
 
         out_cols: dict[str, list] = {k: [] for k in plan.output_branches}
         jagged_map: dict[str, str] = {}

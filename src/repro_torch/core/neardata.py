@@ -380,7 +380,37 @@ def window_pad_K(data: dict[str, np.ndarray], program: Program, store) -> int:
     return _next_pow2(K)
 
 
+def object_slots(data: dict[str, np.ndarray], program: Program, store,
+                 n_events: int, K: int) -> int:
+    """Slots of a window's (E, K) planes that hold a real value: each of
+    the ``n_events`` events' largest object count (at most ``K``) over the
+    jagged branches the program reads, at least 1 where it reads a flat
+    branch (slot 0).  What the padded layout of :func:`build_padded_inputs`
+    fills, for the cascade's slot counters."""
+    live = np.zeros(n_events, np.int64)
+    seen: set[str] = set()
+    for name in set(program.term_branches) | {
+        w for w in program.group_weights if w is not None
+    }:
+        br = store.branches.get(name)
+        key = br.counts_branch if (br is not None and br.jagged) else ""
+        if name not in data or key in seen:
+            continue  # an absent trigger's zero page holds nothing
+        seen.add(key)
+        if key:
+            np.maximum(live, np.minimum(np.asarray(data[key], np.int64), K), out=live)
+        else:
+            np.maximum(live, 1, out=live)
+    return int(live.sum())
+
+
 _WINDOW_QUANTUM = 512  # event-axis padding multiple (fused kernel tile)
+
+
+def padded_events(n_events: int, pad_to: int | None = None) -> int:
+    """The event axis of a window's planes as :func:`pad_window` pads it:
+    a multiple of the kernel's tile, at least ``pad_to``."""
+    return -(-max(n_events, pad_to or n_events) // _WINDOW_QUANTUM) * _WINDOW_QUANTUM
 
 
 def pad_window(pb: PaddedBatch, pad_to: int | None = None) -> tuple[np.ndarray, ...]:
@@ -390,7 +420,7 @@ def pad_window(pb: PaddedBatch, pad_to: int | None = None) -> tuple[np.ndarray, 
     payload column 0: phantom survivors the caller drops by index."""
     arrays = (pb.terms, pb.valid, pb.weights, pb.payload)
     E = pb.n_events
-    target = -(-max(E, pad_to or E) // _WINDOW_QUANTUM) * _WINDOW_QUANTUM
+    target = padded_events(E, pad_to)
     pad = target - E
     if pad <= 0:
         return arrays
@@ -575,7 +605,9 @@ __all__ = [
     "compact_jnp",
     "program_eval_np",
     "fused_window_skim",
+    "object_slots",
     "pad_window",
+    "padded_events",
     "program_kinds",
     "window_pad_K",
     "sharded_skim",

@@ -611,6 +611,15 @@ def unfetched_bytes(
     return skipped
 
 
+def _slot_attrs(slots: list | None) -> dict:
+    """A ``cascade_stage`` span's slot counters for a detailed tracer:
+    ``plane_slots``, the events × K of the padded planes the stage laid
+    out, and ``object_slots``, the real objects in them; {} without."""
+    if slots is None:
+        return {}
+    return {"plane_slots": int(slots[0]), "object_slots": int(slots[1])}
+
+
 @dataclass
 class WindowOutcome:
     """One window's cascade result: the survivor mask plus ledgers."""
@@ -688,23 +697,31 @@ class CascadeExecutor:
             )
         return self._backend
 
-    def _eval_stage(self, stage: CascadeStage, data: dict, n: int) -> np.ndarray:
+    def _eval_stage(
+        self, stage: CascadeStage, data: dict, n: int, slots: list | None = None
+    ) -> np.ndarray:
         """Evaluate one sub-program over a decoded span (fused path):
         the CUDA kernel on the card, the compiled-program interpreter on
         the CPU — resolved once per run (this is the per-span hot
-        path)."""
-        from repro_torch.core.neardata import fused_window_skim, program_eval_np
+        path).  ``slots`` ([plane slots, object slots]) gains the padded
+        planes' events × K laid out for the span and the objects in them;
+        the host interpreter lays out none."""
+        from repro_torch.core import neardata as nd
 
         if not stage.branches:
             # constant sub-program (trigger OR over absent-era branches)
-            return program_eval_np({}, stage.program, n)
+            return nd.program_eval_np({}, stage.program, n)
         if self._resolve_backend() == "host":
             with active().span("program_eval_np", kind="evaluate"):
-                return program_eval_np(data, stage.program, n)
-        mask, _ = fused_window_skim(
-            data, stage.program, self.store, backend=self._backend,
+                return nd.program_eval_np(data, stage.program, n)
+        K = nd.window_pad_K(data, stage.program, self.store)
+        mask, _ = nd.fused_window_skim(
+            data, stage.program, self.store, K=K, backend=self._backend,
             device=self.device,
         )
+        if slots is not None:
+            slots[0] += nd.padded_events(n) * K
+            slots[1] += nd.object_slots(data, stage.program, self.store, n, K)
         return mask
 
     # -- the per-window cascade ---------------------------------------------
@@ -754,6 +771,7 @@ class CascadeExecutor:
                 f"stage[{si}]", kind="cascade_stage", stage=si,
                 node=stage_kind(stage), tier=stage.tier,
             )
+            slots = [0, 0] if self.tracer.detail else None
             stage_bytes = 0
             if pos == 0 and head_data is not None:
                 spans = [(start, stop)]
@@ -772,7 +790,7 @@ class CascadeExecutor:
                     )
                     n_local, off = b - a, a - start
                 with _Timer(timer_breakdown, "filter"):
-                    smask = self._eval_stage(stage, sdata, n_local)
+                    smask = self._eval_stage(stage, sdata, n_local, slots)
                 mask[off : off + n_local] &= smask
                 if n_local == m:
                     # full-window decode: reusable by phase 2 as-is
@@ -780,7 +798,8 @@ class CascadeExecutor:
             stage_bytes_total += stage_bytes
             alive_out = int(mask.sum())
             self.tracer.end(
-                ssid, alive_in=alive_in, alive_out=alive_out, bytes=stage_bytes
+                ssid, alive_in=alive_in, alive_out=alive_out, bytes=stage_bytes,
+                **_slot_attrs(slots),
             )
             self.state.observe(si, alive_in, alive_out, stage_bytes)
         return WindowOutcome(
@@ -995,6 +1014,12 @@ class CascadeExecutor:
                                  w_s[:, off : off + n]),
                             kinds=kinds,
                         )
+                slots = None
+                if self.tracer.detail:
+                    slots = [len(alive) * pad_E * K_b, sum(
+                        nd.object_slots(sdata, stage.program, store, n, K_b)
+                        for b in alive for _off, n, sdata in staged[b]
+                    )]
 
             t0 = _time.perf_counter()
             packed, summary = ops.cascade_stage_step_staged(
@@ -1018,7 +1043,7 @@ class CascadeExecutor:
             counts_host = counts_new
             self.tracer.end(
                 ssid, alive_in=batch_in, alive_out=batch_out,
-                bytes=sum(stage_bytes),
+                bytes=sum(stage_bytes), **_slot_attrs(slots),
             )
 
         # the one host round trip for event-level masks: batch boundary

@@ -75,7 +75,15 @@ the ``decompress`` and ``deserialize`` spans, so their sums equal the
 fields exactly.  A ``deserialize`` span around a phase-2 selection ends
 with ``jagged_indexes`` (the survivor object indices it built, one a
 counts branch) and ``jagged_columns`` (the jagged columns gathered with
-them).
+them).  A ``cascade_stage`` span ends with ``plane_slots``, the events ×
+K of the padded planes the stage laid out (each span's padded events on
+the per-window route, the staged windows' padded events on the batched
+one; 0 where the host interpreter ran), and ``object_slots``, the slots
+among them that hold a real value (each event's largest object count
+over the collections the stage reads, 1 where it reads a flat branch).
+The ``plan`` span carries ``store_branches`` (the store's) and
+``matched_branches`` (those the plan reads: filter and output branches,
+the patterns expanded).
 
 A detailed skim's ``query`` span also ends with ``clock_ns`` (epoch
 nanoseconds read beside its ``t0``, for placing its spans on a device

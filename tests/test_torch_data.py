@@ -85,6 +85,51 @@ def test_codecs_cross_decode(codec, arr):
             assert np.array_equal(np.asarray(jp[k]), np.asarray(tp[k])), k
 
 
+def _every_basket_shape(n, basket_events, seed=7):
+    """Flat and jagged branches of each stored type: NaN and inf, floats too
+    wide to pack, int deltas that wrap, sparse and all-false bools, and
+    counts whose first basket holds no object."""
+    rng = np.random.default_rng(seed)
+    counts = rng.poisson(1.5, n).astype(np.int32)
+    counts[:basket_events] = 0
+    cols, jagged = {}, {}
+    for prefix, size in (("F", n), ("J", int(counts.sum()))):
+        smooth = np.round(rng.normal(size=size), 1).astype(np.float32)
+        with_nan, with_inf = smooth.copy(), smooth.copy()
+        with_nan[size // 2:size // 2 + 1] = np.nan
+        with_inf[-1:] = -np.inf
+        cols.update({
+            f"{prefix}_smooth": smooth, f"{prefix}_nan": with_nan, f"{prefix}_inf": with_inf,
+            f"{prefix}_wide": rng.uniform(-1e30, 1e30, size).astype(np.float32),
+            f"{prefix}_int": rng.integers(-(1 << 31), (1 << 31) - 1, size, dtype=np.int32),
+            f"{prefix}_small": rng.integers(-1, 8, size, dtype=np.int32),
+            f"{prefix}_u8": rng.integers(0, 4, size, dtype=np.uint8),
+            f"{prefix}_bits": rng.random(size) < 0.02,
+            f"{prefix}_off": np.zeros(size, bool),
+        })
+    cols["nJ"] = counts
+    jagged.update({name: "nJ" for name in cols if name.startswith("J_")})
+    return cols, jagged
+
+
+@pytest.mark.parametrize("codec", ["bitpack", "zlib", "raw"])
+@pytest.mark.parametrize(
+    "n, basket_events", [(0, 64), (5, 4096), (1000, 100), (2 * 4096 + 31, 4096)]
+)
+def test_stores_of_every_basket_shape_byte_identical(codec, n, basket_events):
+    # the same blobs and zone maps, basket by basket, for every stored type
+    cols, jagged = _every_basket_shape(n, basket_events)
+    js = JStore.from_arrays(cols, jagged=jagged, basket_events=basket_events, codec=codec)
+    ts = TStore.from_arrays(cols, jagged=jagged, basket_events=basket_events, codec=codec,
+                            device="cpu")
+    assert ts.branch_names() == js.branch_names()
+    assert ts._blobs == js._blobs
+    assert ts.manifest() == js.manifest()
+    for name in cols:
+        assert ([m.stats_row() for m in ts._baskets[name]]
+                == [m.stats_row() for m in js._baskets[name]]), name
+
+
 @pytest.mark.parametrize("direction", ["jax-to-torch", "torch-to-jax"])
 def test_save_load_across_packages(tmp_path, stores, direction):
     js, ts = stores
