@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import json
 import threading
+from bisect import bisect_left, bisect_right
 from collections import OrderedDict
 from dataclasses import dataclass, field
 
@@ -186,6 +187,15 @@ class FetchStats:
         return out
 
 
+def _check_placements(name: str, metas: list[BasketMeta]) -> None:
+    """Refuse a branch whose baskets' first entries or ends descend: the
+    range lookup bisects over both, and blobs are read in basket order."""
+    for a, b in zip(metas, metas[1:]):
+        if (b.first_entry < a.first_entry
+                or b.first_entry + b.n_entries < a.first_entry + a.n_entries):
+            raise ValueError(f"baskets of {name!r} are not in event order")
+
+
 def coalesced_requests(
     nbytes: int, n_baskets: int, coalesce: bool,
     cache_bytes: int = TTREECACHE_BYTES,
@@ -328,6 +338,8 @@ class EventStore:
         self.n_events = 0
         self._baskets: dict[str, list[BasketMeta]] = {}
         self._blobs: dict[str, list[bytes]] = {}
+        # per-branch placement index of the range lookup (:meth:`_basket_index`)
+        self._index: dict[str, tuple] = {}
         # small decoded-basket LRU so windows that overlap between phase 1
         # and phase 2 (counts branches, shared-scan tenants) don't decode
         # the same basket twice.  Keyed by (branch, blob) — content, not
@@ -439,14 +451,35 @@ class EventStore:
 
     def first_event_index(self, name: str) -> np.ndarray:
         """The paper's per-branch "first event index array"."""
-        return np.array([m.first_entry for m in self._baskets[name]], dtype=np.int64)
+        return np.array(self._basket_index(name)[1], dtype=np.int64)
+
+    def _basket_index(self, name: str) -> tuple:
+        """``(metas, firsts, ends)`` of a branch's baskets: each basket's
+        first entry and ``first_entry + n_entries`` in basket order, both
+        ascending (``load`` refuses a file whose placements do not).
+
+        Built on the first lookup and kept while ``_baskets[name]`` is the
+        same list, so a list set anew (``_add_flat``, ``_add_jagged``,
+        ``load``) is indexed again.  A meta replaced in place must keep its
+        placement, as a legacy row does."""
+        metas = self._baskets[name]
+        index = self._index.get(name)
+        if index is None or index[0] is not metas:
+            index = (metas, [m.first_entry for m in metas],
+                     [m.first_entry + m.n_entries for m in metas])
+            self._index[name] = index
+        return index
 
     def basket_ids_for_range(self, name: str, start: int, stop: int) -> list[int]:
-        ids = []
-        for i, m in enumerate(self._baskets[name]):
-            if m.first_entry < stop and m.first_entry + m.n_entries > start:
-                ids.append(i)
-        return ids
+        """Ids, ascending, of the baskets of ``name`` that overlap
+        ``[start, stop)``: those whose first entry is below ``stop`` and
+        whose end is above ``start``.
+
+        With ascending firsts and ends the first condition holds on a
+        prefix of the baskets and the second on a suffix, so two
+        bisections find the run between them."""
+        _, firsts, ends = self._basket_index(name)
+        return list(range(bisect_right(ends, start), bisect_left(firsts, stop)))
 
     def basket_meta(self, name: str, basket_id: int) -> BasketMeta:
         return self._baskets[name][basket_id]
@@ -940,6 +973,7 @@ class EventStore:
                 )
             for n, metas in header["baskets"].items():
                 store._baskets[n] = [BasketMeta(*m) for m in metas]
+                _check_placements(n, store._baskets[n])
             for n in store.branches:
                 store._blobs[n] = [
                     f.read(m.comp_bytes) for m in store._baskets[n]

@@ -17,6 +17,7 @@ from repro.data.store import EventStore as JStore
 from repro.data.store import FetchStats as JFetchStats
 from repro.data.synth import make_nanoaod_like as j_make
 from repro_torch.data import codecs as tcodecs
+from repro_torch.data.store import BasketMeta
 from repro_torch.data.store import CorruptBasket as TCorrupt
 from repro_torch.data.store import EventStore as TStore
 from repro_torch.data.store import FetchStats as TFetchStats
@@ -205,3 +206,109 @@ def test_decode_tiers_equal(codec, backend):
     if backend == "device" and codec == "zlib":
         assert td["device_baskets"] == 0 and td["fallbacks"] > 0
     assert ts.decode_cache_stats() == js.decode_cache_stats()
+
+
+# basket size -> event count leaving a short last basket (size 1 cannot)
+LOOKUP_SHAPES = {1: 23, 7: 7 * 13 + 3, 100: 1037, 4096: 2 * 4096 + 31}
+
+
+def _lookup_columns(n, seed=11):
+    rng = np.random.default_rng(seed)
+    counts = rng.poisson(1.5, n).astype(np.int32)
+    cols = {"nJ": counts, "F_x": rng.normal(size=n).astype(np.float32),
+            "J_x": rng.normal(size=int(counts.sum())).astype(np.float32)}
+    return cols, {"J_x": "nJ"}
+
+
+def _lookup_grid(n, basket_events):
+    """Event positions around every basket edge, both ends of the file and
+    past them; every (start, stop) pair of them, empty and reversed too."""
+    points = {-5, -1, 0, 1, n - 1, n, n + 1, n + 10, n + basket_events}
+    for edge in range(0, n + basket_events, basket_events):
+        points.update((edge - 1, edge, edge + 1))
+    return [(a, b) for a in sorted(points) for b in sorted(points)]
+
+
+def _scanned_ids(store, name, start, stop):
+    # the lookup as a walk over every basket: what the index must return
+    return [i for i, m in enumerate(store._baskets[name])
+            if m.first_entry < stop and m.first_entry + m.n_entries > start]
+
+
+def _with_empty_baskets(metas):
+    # a zero-entry basket before the first, between every two and after the last
+    out = []
+    for m in metas:
+        out += [dataclasses.replace(m, n_entries=0, n_values=0), m]
+    end = metas[-1].first_entry + metas[-1].n_entries
+    return out + [dataclasses.replace(metas[-1], first_entry=end, n_entries=0, n_values=0)]
+
+
+@pytest.mark.parametrize("store_shape", [
+    "built", "loaded", "meta-replaced", "list-reassigned", "empty-baskets"])
+@pytest.mark.parametrize("basket_events", sorted(LOOKUP_SHAPES))
+def test_basket_lookup_matches_the_scan(tmp_path, basket_events, store_shape):
+    n = LOOKUP_SHAPES[basket_events]
+    cols, jagged = _lookup_columns(n)
+    ts = TStore.from_arrays(cols, jagged=jagged, basket_events=basket_events, device="cpu")
+    grid = _lookup_grid(n, basket_events)
+    names = ts.branch_names()
+    for name in names:  # index every branch before the store changes
+        ts.basket_ids_for_range(name, 0, n)
+    if store_shape == "loaded":
+        ts.save(str(tmp_path / "lookup.skim"))
+        ts = TStore.load(str(tmp_path / "lookup.skim"), device="cpu")
+    elif store_shape == "meta-replaced":
+        for name in names:  # same placement, no digest: a legacy row
+            ts._baskets[name][-1] = BasketMeta(*ts._baskets[name][-1].stats_row()[:8])
+    elif store_shape == "list-reassigned":
+        other = TStore.from_arrays(cols, jagged=jagged, basket_events=basket_events + 3,
+                                   device="cpu")
+        for name in names:
+            ts._baskets[name] = other._baskets[name]
+    elif store_shape == "empty-baskets":
+        for name in names:
+            ts._baskets[name] = _with_empty_baskets(ts._baskets[name])
+    for name in names:
+        for start, stop in grid:
+            assert ts.basket_ids_for_range(name, start, stop) == _scanned_ids(
+                ts, name, start, stop), (name, start, stop)
+        firsts = ts.first_event_index(name)
+        assert firsts.tolist() == [m.first_entry for m in ts._baskets[name]]
+        firsts[:] = -1  # a fresh array: the index does not see the write
+        assert ts.first_event_index(name).tolist() == [
+            m.first_entry for m in ts._baskets[name]]
+    if store_shape == "meta-replaced":
+        assert all(ts.basket_meta(name, ts.n_baskets(name) - 1).digest is None
+                   for name in names)
+
+
+@pytest.mark.parametrize("disorder", ["reversed", "nested"])
+@pytest.mark.parametrize("basket_events", sorted(LOOKUP_SHAPES))
+def test_load_refuses_baskets_out_of_event_order(tmp_path, basket_events, disorder):
+    # the lookup bisects over the placements, so a file must keep them ascending
+    n = LOOKUP_SHAPES[basket_events]
+    cols, jagged = _lookup_columns(n)
+    ts = TStore.from_arrays(cols, jagged=jagged, basket_events=basket_events, device="cpu")
+    if disorder == "reversed":  # firsts and ends descend
+        ts._baskets["F_x"] = ts._baskets["F_x"][::-1]
+        ts._blobs["F_x"] = ts._blobs["F_x"][::-1]
+    else:  # firsts ascend, but the first basket ends past the second
+        first = ts._baskets["F_x"][0]
+        ts._baskets["F_x"][0] = dataclasses.replace(first, n_entries=first.n_entries + n)
+    path = str(tmp_path / "disordered.skim")
+    ts.save(path)
+    with pytest.raises(ValueError, match="F_x"):
+        TStore.load(path, device="cpu")
+
+
+@pytest.mark.parametrize("basket_events", sorted(LOOKUP_SHAPES))
+def test_basket_lookup_matches_jax(basket_events):
+    n = LOOKUP_SHAPES[basket_events]
+    cols, jagged = _lookup_columns(n)
+    js = JStore.from_arrays(cols, jagged=jagged, basket_events=basket_events)
+    ts = TStore.from_arrays(cols, jagged=jagged, basket_events=basket_events, device="cpu")
+    for name in ts.branch_names():
+        for start, stop in _lookup_grid(n, basket_events):
+            assert ts.basket_ids_for_range(name, start, stop) == js.basket_ids_for_range(
+                name, start, stop), (name, start, stop)
