@@ -8,11 +8,8 @@
 its kernels and wrappers (phase 3c).  Phases, in order; the first failure stops the run with a non-zero exit:
 
 1. Device: the card's name and power limit (``nvidia-smi``), the torch
-   and CUDA versions, then the build of every kernel from ``src/`` and,
-   beside it, of the earlier designs of ``skim_fused``, ``cascade_stage``,
-   ``predicate_eval`` and ``stream_compact`` the script keeps as timing
-   baselines (:data:`PARENT_CU`), and the attention
-   library's SASS (``cuobjdump``): its 16-bit routes must hold ``HGMMA``
+   and CUDA versions, then the build of every kernel from ``src/``, and
+   the attention library's SASS (``cuobjdump``): its 16-bit routes must hold ``HGMMA``
    (wgmma) and its float32 route tf32 ``HMMA`` (mma.sync); ptxas's
    registers and spills of the attention, skim and predicate kernels, and,
    with ``--parent``, of the parent tree's skim and predicate kernels,
@@ -56,12 +53,8 @@ its kernels and wrappers (phase 3c).  Phases, in order; the first failure stops 
    rounds and skim calls; the batch of the first 16 windows), with the
    host-to-host time of a whole decode round, of a window's skim and of a
    cascade stage step (the staged step the path calls, and the public
-   form on the dense numpy batch); both skim kernels beside the parent's
-   float32-only kernel and at int32 and uint8 rows; ``cascade_stage`` and
-   ``predicate_eval`` beside their earlier designs on the same inputs, the
-   stage's earlier step
-   (three pageable uploads), and ``predicate_eval`` also at
-   bench_kernels' shapes.
+   form on the dense numpy batch); both skim kernels also at int32 and
+   uint8 rows, and ``predicate_eval`` also at bench_kernels' shapes.
 3. The main path: ``run_skim`` with every default on two 1,000,000-event
    stores — NanoAOD-like (98 branches) for the quickstart query and the
    Z->ee mass/ΔR/expression query, and the conditions-era store of
@@ -85,8 +78,8 @@ its kernels and wrappers (phase 3c).  Phases, in order; the first failure stops 
    2048, 256) in float32, bf16 and float16;
    then their times, beside one PyTorch call each where there is one
    (and the kernels ``torch.profiler`` saw that call run);
-   ``stream_compact`` also beside its earlier design, at bench_kernels'
-   shapes, and step by step through its wrapper.
+   ``stream_compact`` also at bench_kernels' shapes, and step by step
+   through its wrapper.
    Then phase 3d, the serving plane, on the NanoAOD-like store, each step
    with the launch counts set to 0 before it and read after: the shared
    scan (``SharedScanEngine``) of the tenants quickstart, Z->ee and
@@ -2009,857 +2002,6 @@ def check_predicate_eval(rng, device, names=None) -> tuple[float, int]:
     return max_err, edge
 
 
-# ---------------------------------------------------------------------------
-# the earlier designs of the kernels, kept as the baselines the redesigned
-# ones are timed against in the same run, each with a plain C interface:
-#  * parent_stage_launch: the cascade stage with one thread an event reading
-#    its own K-slot rows of dense (B, T, E, K) inputs from device memory
-#    (csrc/predicate_eval.cu before the staged-window redesign);
-#  * parent_mask_launch: the (B, E) mask the same way, one thread an event
-#    (predicate_eval_launch before it took the stage kernel's evaluator);
-#  * parent_compact_launch: stream_compact in two kernels, a ballot pass
-#    and a copy pass in which every block sums every tile's count and one
-#    thread copies its own row (csrc/stream_compact.cu before the
-#    single-pass redesign; its compact.cuh inlined here)
-#  * parent_attn_launch (PARENT_ATTN_CU, appended): flash_attention's two
-#    wide kernels (D > 128) as PR 23 designed them, one CTA a 128-column
-#    slice of O recomputing the whole score tile, Q streamed with K
-#    (csrc/flash_attention.cu before the 256-column wide tiles)
-# ---------------------------------------------------------------------------
-
-PARENT_CU = r"""
-#include "compact.cuh"
-#include "predicate.cuh"
-namespace {
-constexpr int kTile = 512;
-constexpr int kWarps = kTile / 32;
-__global__ void __launch_bounds__(kTile)
-parent_skim_kernel(Program p, Inputs batch, int T,
-                   const uint32_t* __restrict__ payload, int D,
-                   uint32_t* __restrict__ out, int* __restrict__ totals,
-                   unsigned long long* __restrict__ status,
-                   unsigned* __restrict__ tickets, unsigned epoch, int n_tiles) {
-  __shared__ int warp_counts[kWarps];
-  __shared__ int s_tile, s_excl;
-  const long long b = blockIdx.y;
-  const long long E = batch.E;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) s_tile = take_ticket(tickets + b, n_tiles);
-  __syncthreads();
-  const int tile = s_tile;
-  const long long e = (long long)tile * kTile + threadIdx.x;
-  if (e < E) {
-    uint32_t* row = out + (b * E + e) * D;
-    for (int d = 0; d < D; ++d) row[d] = 0u;
-  }
-  const bool keep = e < E && eval_event(p, e, window_inputs(batch, b, T, p.G));
-  const uint32_t ballot = __ballot_sync(0xffffffffu, keep);
-  if (lane == 0) warp_counts[warp] = __popc(ballot);
-  __syncthreads();
-  int before = 0, total = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const int c = warp_counts[w];
-    before += w < warp ? c : 0;
-    total += c;
-  }
-  if (warp == 0) {
-    const int excl = look_back(status + b * n_tiles, tile, total, epoch);
-    if (lane == 0) s_excl = excl;
-  }
-  __syncthreads();
-  const int excl = s_excl;
-  if (keep) {
-    const long long rank = excl + before + __popc(ballot & ((1u << lane) - 1u));
-    const uint32_t* src = payload + (b * E + e) * D;
-    uint32_t* dst = out + (b * E + rank) * D;
-    for (int d = 0; d < D; ++d) dst[d] = src[d];
-  }
-  if (tile == n_tiles - 1 && threadIdx.x == 0) totals[b] = excl + total;
-}
-__global__ void cascade_stage_kernel(Program p, Inputs batch, int T,
-                                     uint32_t* __restrict__ packed,
-                                     const int* __restrict__ seg_ids, int nb,
-                                     int* __restrict__ out) {
-  __shared__ int warp_counts[kWarps];
-  const long long b = blockIdx.y;
-  const long long e = (long long)blockIdx.x * kTile + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool in_range = e < batch.E;
-  uint32_t* word = packed + b * (batch.E >> 5) + (e >> 5);
-  bool alive = in_range && ((*word >> lane) & 1u);
-  if (alive) alive = eval_event(p, e, window_inputs(batch, b, T, p.G));
-  const uint32_t ballot = __ballot_sync(0xffffffffu, alive);
-  int* row = out + b * (nb + 1);
-  if (lane == 0) {
-    warp_counts[warp] = __popc(ballot);
-    if (in_range) *word = ballot;
-  }
-  if (alive) {
-    const int s = seg_ids[b * batch.E + e];
-    if (s >= 0 && s < nb && row[s] == 0) atomicOr(row + s, 1);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int w = 0; w < kWarps; ++w) total += warp_counts[w];
-    if (total) atomicAdd(row + nb, total);
-  }
-}
-__global__ void predicate_eval_kernel(Program p, Inputs batch, int T,
-                                      int* __restrict__ out) {
-  const long long b = blockIdx.y;
-  const long long e = (long long)blockIdx.x * kTile + threadIdx.x;
-  if (e >= batch.E) return;
-  out[b * batch.E + e] =
-      eval_event(p, e, window_inputs(batch, b, T, p.G)) ? 1 : 0;
-}
-template <typename M>
-__global__ void compact_mask_kernel(const M* __restrict__ mask, long long E,
-                                    uint32_t* words, int* tile_counts) {
-  __shared__ int warp_counts[kWarps];
-  const long long e = (long long)blockIdx.x * kTile + threadIdx.x;
-  const bool keep = e < E && mask[e] != M(0);
-  const uint32_t ballot = __ballot_sync(0xffffffffu, keep);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    warp_counts[warp] = __popc(ballot);
-    if (e < E) words[e >> 5] = ballot;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int w = 0; w < kWarps; ++w) total += warp_counts[w];
-    tile_counts[blockIdx.x] = total;
-  }
-}
-__device__ __forceinline__ int block_sum(int v, int* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  int total = 0;
-  for (int w = 0; w < kWarps; ++w) total += scratch[w];
-  return total;
-}
-template <typename U>
-__global__ void compact_rows_kernel(const U* __restrict__ payload,
-                                    const uint32_t* __restrict__ words,
-                                    const int* __restrict__ tile_counts,
-                                    int n_tiles, long long E, int D,
-                                    U* __restrict__ out, int* total_out) {
-  __shared__ int scratch[kWarps];
-  __shared__ int warp_rank[kWarps];
-  const int tile = blockIdx.x;
-  int before = 0, all = 0;
-  for (int t = threadIdx.x; t < n_tiles; t += kTile) {
-    const int c = tile_counts[t];
-    all += c;
-    if (t < tile) before += c;
-  }
-  before = block_sum(before, scratch);
-  all = block_sum(all, scratch);
-  const long long e = (long long)tile * kTile + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const uint32_t word = e < E ? words[e >> 5] : 0u;
-  if (lane == 0) warp_rank[warp] = __popc(word);
-  __syncthreads();
-  int rank = __popc(word & ((1u << lane) - 1u));
-  for (int w = 0; w < warp; ++w) rank += warp_rank[w];
-  if (e < E && ((word >> lane) & 1u)) {
-    const long long dst = (long long)(before + rank) * D;
-    for (int d = 0; d < D; ++d) out[dst + d] = payload[e * D + d];
-  }
-  if (e < E && e >= all) {
-    for (int d = 0; d < D; ++d) out[e * D + d] = U(0);
-  }
-  if (tile == 0 && threadIdx.x == 0) *total_out = all;
-}
-template <typename U>
-cudaError_t launch_rows(const void* payload, const uint32_t* words,
-                        const int* tile_counts, int n_tiles, long long E, int D,
-                        void* out, int* total, cudaStream_t s) {
-  compact_rows_kernel<U><<<n_tiles, kTile, 0, s>>>(
-      static_cast<const U*>(payload), words, tile_counts, n_tiles, E, D,
-      static_cast<U*>(out), total);
-  return cudaGetLastError();
-}
-}  // namespace
-extern "C" int parent_skim_launch(
-    const float* terms, const float* valid, const float* weights,
-    const float* payload, int B, int T, int G, long long E, int K, int D,
-    const int* groups, const int* term_ids, const int* ops, const int* kinds,
-    const double* thrs, const double* cmp_thrs, const int* rpn_op, const int* rpn_term,
-    const double* rpn_const, unsigned long long* status, unsigned* tickets,
-    unsigned epoch, float* out, int* totals, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (epoch == 0 || epoch >= (1u << 30)) return (int)cudaErrorInvalidValue;
-  const int n_tiles = (int)((E + kTile - 1) / kTile);
-  Program p{groups, term_ids, ops, kinds + T, kinds, thrs, cmp_thrs, rpn_op,
-            rpn_term, rpn_const, G};
-  Inputs batch{terms, valid, weights, E, K};
-  parent_skim_kernel<<<dim3((unsigned)n_tiles, (unsigned)B), kTile, 0, s>>>(
-      p, batch, T, reinterpret_cast<const uint32_t*>(payload), D,
-      reinterpret_cast<uint32_t*>(out), totals, status, tickets, epoch, n_tiles);
-  return (int)cudaGetLastError();
-}
-extern "C" int parent_stage_launch(
-    const float* terms, const float* valid, const float* weights, int B,
-    int T, int G, long long E, int K, const int* groups, const int* term_ids,
-    const int* ops, const int* kinds, const double* thrs, const double* cmp_thrs,
-    const int* rpn_op, const int* rpn_term, const double* rpn_const,
-    uint32_t* packed, const int* seg_ids, int nb, int* out, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      cudaMemsetAsync(out, 0, sizeof(int) * (size_t)B * (size_t)(nb + 1), s);
-  if (err != cudaSuccess) return (int)err;
-  Program p{groups, term_ids, ops, kinds + T, kinds, thrs, cmp_thrs, rpn_op,
-            rpn_term, rpn_const, G};
-  Inputs batch{terms, valid, weights, E, K};
-  dim3 grid((unsigned)((E + kTile - 1) / kTile), (unsigned)B);
-  cascade_stage_kernel<<<grid, kTile, 0, s>>>(p, batch, T, packed, seg_ids, nb, out);
-  return (int)cudaGetLastError();
-}
-extern "C" int parent_mask_launch(
-    const float* terms, const float* valid, const float* weights, int B,
-    int T, int G, long long E, int K, const int* groups, const int* term_ids,
-    const int* ops, const int* kinds, const double* thrs, const double* cmp_thrs,
-    const int* rpn_op, const int* rpn_term, const double* rpn_const, int* out,
-    void* stream) {
-  Program p{groups, term_ids, ops, kinds + T, kinds, thrs, cmp_thrs, rpn_op,
-            rpn_term, rpn_const, G};
-  Inputs batch{terms, valid, weights, E, K};
-  const dim3 grid((unsigned)((E + kTile - 1) / kTile), (unsigned)B);
-  predicate_eval_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, batch, T, out);
-  return (int)cudaGetLastError();
-}
-extern "C" int parent_compact_launch(const void* payload, const void* mask,
-                                     int mask_bytes, long long E, int D,
-                                     int elem_bytes, uint32_t* words,
-                                     int* tile_counts, void* out, int* total,
-                                     void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (int)((E + kTile - 1) / kTile);
-  if (mask_bytes == 1) {
-    compact_mask_kernel<uint8_t><<<n_tiles, kTile, 0, s>>>(
-        static_cast<const uint8_t*>(mask), E, words, tile_counts);
-  } else {
-    compact_mask_kernel<int32_t><<<n_tiles, kTile, 0, s>>>(
-        static_cast<const int32_t*>(mask), E, words, tile_counts);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  switch (elem_bytes) {
-    case 1: return (int)launch_rows<uint8_t>(payload, words, tile_counts, n_tiles, E, D, out, total, s);
-    case 2: return (int)launch_rows<uint16_t>(payload, words, tile_counts, n_tiles, E, D, out, total, s);
-    case 4: return (int)launch_rows<uint32_t>(payload, words, tile_counts, n_tiles, E, D, out, total, s);
-    default: return (int)launch_rows<uint64_t>(payload, words, tile_counts, n_tiles, E, D, out, total, s);
-  }
-}
-"""
-
-
-PARENT_ATTN_CU = r"""
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <type_traits>
-namespace parent_attn {
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kNegInf = -1e30f;  // the reference's NEG_INF: the running max's start
-constexpr unsigned kFull = 0xffffffffu;
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
-}
-template <int NC>
-__device__ __forceinline__ void softmax_tile(float (&s)[4 * NC], float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], float c, int key0, int row0,
-                                             int S, bool causal, bool mask) {
-  if (mask) {
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + 8 * i + (e & 1);
-        if (key >= S || (causal && key > row0 + 8 * (e >> 1))) s[4 * i + e] = -INFINITY;
-      }
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float mx = m[h];
-#pragma unroll
-    for (int i = 0; i < NC; ++i) mx = fmaxf(mx, fmaxf(s[4 * i + 2 * h], s[4 * i + 2 * h + 1]));
-    mx = quad_max(mx);
-    alpha[h] = ex2((m[h] - mx) * c);
-    m[h] = mx;
-    const float mc = mx * c;
-    float sum = 0.0f;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float p = ex2(fmaf(s[4 * i + 2 * h + j], c, -mc));
-        s[4 * i + 2 * h + j] = p;
-        sum += p;
-      }
-    }
-    l[h] = fmaf(l[h], alpha[h], sum);
-  }
-}
-template <int N>
-__device__ __forceinline__ void rescale(float (&acc)[N], const float (&alpha)[2]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] *= alpha[(i >> 1) & 1];
-}
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-constexpr int kBr = 128;               // query rows per CTA (2 consumer warpgroups x 64)
-constexpr int kBc = 128;               // keys per K/V tile
-constexpr int kStages = 2;             // K/V ring depth
-constexpr int kBoxBytes = 128 * 128;   // one TMA box: 128 rows x 64 bf16, swizzled
-constexpr int kHalfThreads = 384;      // warpgroups 0, 1 consume; 2 loads
-constexpr int kConsumers = 256;        // arrivals that free a K or V stage
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (std::is_same_v<T, __half>) {
-    const __half2 p = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&p);
-  } else {
-    const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&p);
-  }
-}
-#define WG_REGS32 \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-#define WG_REGS64 WG_REGS32 \
-  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-#define WG_OUT32(d) \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
-  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
-  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
-  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-#define WG_OUT64(d) WG_OUT32(d), \
-  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
-  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
-  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
-  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-#define WGMMA_SS_N128(AB)                                                          \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                         \
-               "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" WG_REGS64 \
-               "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                   \
-               : WG_OUT64(d) : "l"(da), "l"(db), "r"(scale_d))
-#define WGMMA_RS_N128(AB)                                                          \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                         \
-               "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" WG_REGS64 \
-               "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                      \
-               : WG_OUT64(d) : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
-template <typename T>
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int scale_d) {
-  if constexpr (std::is_same_v<T, __half>) {
-    WGMMA_SS_N128("f16");
-  } else {
-    WGMMA_SS_N128("bf16");
-  }
-}
-template <typename T>
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  if constexpr (std::is_same_v<T, __half>) {
-    WGMMA_RS_N128("f16");
-  } else {
-    WGMMA_RS_N128("bf16");
-  }
-}
-template <typename T, int kSteps>
-__device__ __forceinline__ void qk_steps(float (&s)[64], uint32_t qa, uint32_t kb,
-                                         bool accumulate) {
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    wgmma_ss_n128<T>(s, sdesc(qa + off, 16, 1024), sdesc(kb + off, 16, 1024),
-                     accumulate || kk > 0);
-  }
-}
-template <typename T>
-__device__ __forceinline__ void qk_chunk(float (&s)[64], uint32_t qa, uint32_t kb, int cols,
-                                         bool accumulate) {
-  switch (cols / 16) {
-    case 1: qk_steps<T, 1>(s, qa, kb, accumulate); break;
-    case 2: qk_steps<T, 2>(s, qa, kb, accumulate); break;
-    case 3: qk_steps<T, 3>(s, qa, kb, accumulate); break;
-    case 4: qk_steps<T, 4>(s, qa, kb, accumulate); break;
-    case 5: qk_steps<T, 5>(s, qa, kb, accumulate); break;
-    case 6: qk_steps<T, 6>(s, qa, kb, accumulate); break;
-    case 7: qk_steps<T, 7>(s, qa, kb, accumulate); break;
-    default: qk_steps<T, 8>(s, qa, kb, accumulate); break;
-  }
-}
-template <typename T, int kDB>
-__device__ __forceinline__ void pv_steps(float (&acc)[kDB * 32], const uint32_t (&p)[32],
-                                         uint32_t sv) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-    const uint64_t db = sdesc(sv + kk * 2048, kBoxBytes, 1024);
-    wgmma_rs_n128<T>(acc, a, db);
-  }
-}
-template <typename T, int kDB>
-__device__ __forceinline__ void tile_softmax_pv(float (&s)[64], float (&acc)[kDB * 32],
-                                                float (&m)[2], float (&l)[2], float c,
-                                                int key0, int row0, int S, int causal,
-                                                bool mask, uint32_t v_full, uint32_t ph,
-                                                uint32_t v_empty, uint32_t sv) {
-  float alpha[2];
-  softmax_tile<16>(s, m, l, alpha, c, key0, row0, S, causal != 0, mask);
-  rescale(acc, alpha);
-  uint32_t p[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) p[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
-  mbar_wait(v_full, ph);
-  fence_regs(acc);
-  fence_regs(p);
-  wgmma_fence();
-  pv_steps<T, kDB>(acc, p, sv);
-  wgmma_commit();
-  wgmma_wait();
-  fence_regs(acc);
-  fence_regs(p);
-  mbar_arrive(v_empty);
-}
-template <typename T, int kDB>
-__device__ __forceinline__ void store_rows(T* __restrict__ o, const float (&acc)[kDB * 32],
-                                           const float (&l)[2], int row0, int S, int D,
-                                           int col0, int lane) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float denom = fmaxf(quad_sum(l[h]), 1e-30f);
-    const int row = row0 + 8 * h;
-    if (row >= S) continue;
-    T* out = o + static_cast<size_t>(row) * D + col0;
-#pragma unroll
-    for (int i = 0; i < kDB * 8; ++i) {
-      const int col = 8 * i + 2 * (lane % 4);
-      if (col0 + col < D) {
-        *reinterpret_cast<uint32_t*>(out + col) =
-            pack2<T>(acc[4 * i + 2 * h] / denom, acc[4 * i + 2 * h + 1] / denom);
-      }
-    }
-  }
-}
-template <typename T>
-__global__ void __launch_bounds__(kHalfThreads, 1)
-attn_half_wide_kernel(const __grid_constant__ CUtensorMap tq,
-                      const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv, T* __restrict__ o, int S, int D,
-                      float c, int causal) {
-  constexpr int kTile = 2 * kBoxBytes;  // 128 rows x 128 columns
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t sqk = (raw + 1023) & ~1023u;       // stage st: Q at sqk + 2 st kTile, K after
-  const uint32_t sv = sqk + 2 * kStages * kTile;     // stage st at sv + st * kTile
-  const uint32_t bars = sv + kStages * kTile;        // 4 * kStages barriers of 8 bytes
-  auto qk_full = [&](int st) { return bars + 8 * st; };
-  auto v_full = [&](int st) { return bars + 8 * (kStages + st); };
-  auto qk_empty = [&](int st) { return bars + 8 * (2 * kStages + st); };
-  auto v_empty = [&](int st) { return bars + 8 * (3 * kStages + st); };
-  const int bh = blockIdx.x;
-  const int qt = causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : static_cast<int>(blockIdx.y);
-  const int col0 = 128 * static_cast<int>(blockIdx.z);  // this CTA's slice of O and V
-  const int q0 = qt * kBr;
-  const int n_k = (S + kBc - 1) / kBc;
-  const int n_tiles = causal ? min(n_k, (q0 + kBr + kBc - 1) / kBc) : n_k;
-  const int nc = (D + 127) / 128;
-  const int wg = threadIdx.x / 128;
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) {
-      mbar_init(qk_full(st), 1);
-      mbar_init(v_full(st), 1);
-      mbar_init(qk_empty(st), kConsumers);
-      mbar_init(v_empty(st), kConsumers);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (wg == 2) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (threadIdx.x == 256) {
-      int i = 0;
-      for (int t = 0; t < n_tiles; ++t) {
-        for (int cc = 0; cc < nc; ++cc, ++i) {
-          const int st = i % kStages;
-          const uint32_t ph = (i / kStages) & 1;
-          const int boxes = min(128, D - 128 * cc) > 64 ? 2 : 1;  // the chunk's columns below D
-          const uint32_t at = sqk + 2 * st * kTile;
-          mbar_wait(qk_empty(st), ph ^ 1);
-          mbar_expect_tx(qk_full(st), 2 * boxes * kBoxBytes);
-          for (int b = 0; b < boxes; ++b) {
-            tma_load(at + b * kBoxBytes, &tq, qk_full(st), 128 * cc + 64 * b, q0, bh);
-            tma_load(at + kTile + b * kBoxBytes, &tk, qk_full(st), 128 * cc + 64 * b, t * kBc,
-                     bh);
-          }
-        }
-        const int st = t % kStages;
-        const uint32_t ph = (t / kStages) & 1;
-        const int v_boxes = D - col0 > 64 ? 2 : 1;
-        mbar_wait(v_empty(st), ph ^ 1);
-        mbar_expect_tx(v_full(st), v_boxes * kBoxBytes);
-        for (int b = 0; b < v_boxes; ++b)
-          tma_load(sv + st * kTile + b * kBoxBytes, &tv, v_full(st), col0 + 64 * b, t * kBc, bh);
-      }
-    }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    const int row0 = q0 + 64 * wg + 16 * warp + lane / 4;
-    float acc[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-    int i = 0;
-    for (int t = 0; t < n_tiles; ++t) {
-      const int k0 = t * kBc;
-      float s[64];
-      for (int cc = 0; cc < nc; ++cc, ++i) {
-        const int st = i % kStages;
-        const uint32_t at = sqk + 2 * st * kTile;
-        mbar_wait(qk_full(st), (i / kStages) & 1);
-        wgmma_fence();
-        qk_chunk<T>(s, at + wg * 64 * 128, at + kTile, min(128, D - 128 * cc), cc > 0);
-        wgmma_commit();
-        wgmma_wait();
-        fence_regs(s);
-        mbar_arrive(qk_empty(st));
-      }
-      const int st = t % kStages;
-      const bool mask = k0 + kBc > S || (causal && k0 + kBc - 1 > q0 + 64 * wg);
-      tile_softmax_pv<T, 2>(s, acc, m, l, c, k0 + 2 * (lane % 4), row0, S, causal, mask,
-                            v_full(st), (t / kStages) & 1, v_empty(st), sv + st * kTile);
-    }
-    store_rows<T, 2>(o + static_cast<size_t>(bh) * S * D, acc, l, row0, S, D, col0, lane);
-  }
-}
-constexpr int kF32Rows = 64;   // query rows per CTA: 4 warps x 16
-constexpr int kF32Keys = 32;   // keys per K/V tile
-constexpr int kF32Threads = 128;
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma3(float* d, const uint32_t (&ab)[4], const uint32_t (&as)[4],
-                                     uint32_t bb0, uint32_t bb1, uint32_t bs0, uint32_t bs1) {
-  mma_tf32(d, as, bb0, bb1);
-  mma_tf32(d, ab, bs0, bs1);
-  mma_tf32(d, ab, bb0, bb1);
-}
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-__device__ __forceinline__ void cp_wait_all_but_one() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-__global__ void __launch_bounds__(kF32Threads, 1)
-attn_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int S, int D, float c,
-                     int causal) {
-  constexpr int kD = 128;          // columns of a chunk and of the slice
-  constexpr int kStride = kD + 4;  // floats per staged row: 32 distinct banks per fragment
-  constexpr int kChunks = kD / 4;  // 16-byte chunks per row
-  constexpr int kStage = (kF32Rows + kF32Keys) * kStride;  // floats of a Q + K stage
-  extern __shared__ float4 smem_f4[];
-  float* qk = reinterpret_cast<float*>(smem_f4);  // 2 stages: Q (kF32Rows, kStride), then K
-  float* vs = qk + 2 * kStage;                    // 2 stages of (kF32Keys, kStride)
-  const int bh = blockIdx.x;
-  const int qt = causal ? static_cast<int>(gridDim.y - 1 - blockIdx.y) : static_cast<int>(blockIdx.y);
-  const int q0 = qt * kF32Rows;
-  const int col0 = kD * static_cast<int>(blockIdx.z);
-  const int nc = (D + kD - 1) / kD;
-  const size_t head = static_cast<size_t>(bh) * S * D;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tg = lane % 4;
-  auto load_item = [&](int i) {
-    const int t = i / nc, cc = i % nc, k0 = t * kF32Keys;
-    float* qs = qk + (i % 2) * kStage;
-    float* ks = qs + kF32Rows * kStride;
-    for (int j = tid; j < kF32Rows * kChunks; j += kF32Threads) {
-      const int r = j / kChunks, col = (j % kChunks) * 4;
-      const bool ok = q0 + r < S && kD * cc + col < D;
-      cp16(qs + r * kStride + col,
-           ok ? q + head + static_cast<size_t>(q0 + r) * D + kD * cc + col : q, ok);
-    }
-    for (int j = tid; j < kF32Keys * kChunks; j += kF32Threads) {
-      const int r = j / kChunks, col = (j % kChunks) * 4;
-      const bool ok = k0 + r < S && kD * cc + col < D;
-      cp16(ks + r * kStride + col,
-           ok ? k + head + static_cast<size_t>(k0 + r) * D + kD * cc + col : k, ok);
-      if (cc == 0) {
-        const bool v_ok = k0 + r < S && col0 + col < D;
-        cp16(vs + ((t % 2) * kF32Keys + r) * kStride + col,
-             v_ok ? v + head + static_cast<size_t>(k0 + r) * D + col0 + col : v, v_ok);
-      }
-    }
-  };
-  const int n_k = (S + kF32Keys - 1) / kF32Keys;
-  const int n_tiles = causal ? min(n_k, (q0 + kF32Rows + kF32Keys - 1) / kF32Keys) : n_k;
-  const int n_items = n_tiles * nc;
-  load_item(0);
-  cp_commit();
-  const int wrow = 16 * warp;     // the warp's first row in the CTA
-  const int row0 = q0 + wrow + g;  // this thread's first row
-  float acc[kD / 2];
-#pragma unroll
-  for (int i = 0; i < kD / 2; ++i) acc[i] = 0.0f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-  float s[16];
-  for (int i = 0; i < n_items; ++i) {
-    if (i + 1 < n_items) load_item(i + 1);
-    cp_commit();
-    cp_wait_all_but_one();  // item i has landed
-    __syncthreads();
-    const int t = i / nc, cc = i % nc, k0 = t * kF32Keys;
-    if (!causal || k0 <= q0 + wrow + 15) {
-      const float* qs = qk + (i % 2) * kStage;
-      const float* kt = qs + kF32Rows * kStride;
-      if (cc == 0) {
-#pragma unroll
-        for (int j = 0; j < 16; ++j) s[j] = 0.0f;
-      }
-      const int steps = min(kD, D - kD * cc) / 8;
-#pragma unroll
-      for (int kk = 0; kk < kD / 8; ++kk) {
-        if (kk < steps) {
-          const float* qa = qs + (wrow + g) * kStride + 8 * kk + tg;
-          uint32_t ab[4], as[4];
-          split(qa[0], ab[0], as[0]);
-          split(qa[8 * kStride], ab[1], as[1]);
-          split(qa[4], ab[2], as[2]);
-          split(qa[8 * kStride + 4], ab[3], as[3]);
-#pragma unroll
-          for (int j = 0; j < kF32Keys / 8; ++j) {
-            const float* kb = kt + (8 * j + g) * kStride + 8 * kk + tg;
-            uint32_t bb0, bs0, bb1, bs1;
-            split(kb[0], bb0, bs0);
-            split(kb[4], bb1, bs1);
-            mma3(&s[4 * j], ab, as, bb0, bb1, bs0, bs1);
-          }
-        }
-      }
-      if (cc == nc - 1) {
-        const float* vt = vs + (t % 2) * kF32Keys * kStride;
-        float alpha[2];
-        const bool mask = k0 + kF32Keys > S || (causal && k0 + kF32Keys - 1 > q0 + wrow);
-        softmax_tile<kF32Keys / 8>(s, m, l, alpha, c, k0 + 2 * tg, row0, S, causal != 0, mask);
-        rescale(acc, alpha);
-#pragma unroll
-        for (int j = 0; j < kF32Keys / 8; ++j) {
-          uint32_t pb[4], ps[4];
-          split(s[4 * j], pb[0], ps[0]);
-          split(s[4 * j + 2], pb[1], ps[1]);
-          split(s[4 * j + 1], pb[2], ps[2]);
-          split(s[4 * j + 3], pb[3], ps[3]);
-          const float* vb = vt + (8 * j + 2 * tg) * kStride + g;
-#pragma unroll
-          for (int n = 0; n < kD / 8; ++n) {
-            uint32_t bb0, bs0, bb1, bs1;
-            split(vb[8 * n], bb0, bs0);
-            split(vb[kStride + 8 * n], bb1, bs1);
-            mma3(&acc[4 * n], pb, ps, bb0, bb1, bs0, bs1);
-          }
-        }
-      }
-    }
-    __syncthreads();  // the stages are read before the next prefetch overwrites them
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float denom = fmaxf(quad_sum(l[h]), 1e-30f);
-    const int row = row0 + 8 * h;
-    if (row >= S) continue;
-    float* out = o + head + static_cast<size_t>(row) * D + col0;
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
-      const int col = 8 * n + 2 * tg;
-      if (col0 + col < D) {
-        *reinterpret_cast<float2*>(out + col) =
-            make_float2(acc[4 * n + 2 * h] / denom, acc[4 * n + 2 * h + 1] / denom);
-      }
-    }
-  }
-}
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-bool head_map(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType type, const void* x,
-              int BH, int S, int D) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(S) * D * 2};
-  const cuuint32_t box[3] = {64, 128, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, type, 3, const_cast<void*>(x), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-template <typename Kernel>
-int opt_in(Kernel kernel, int smem, bool& done) {
-  if (done) return 0;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) done = true;
-  return static_cast<int>(err);
-}
-template <typename T>
-int launch_half_wide(const void* q, const void* k, const void* v, void* o, int BH, int S,
-                     int D, float c, int causal, cudaStream_t s) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const CUtensorMapDataType type = std::is_same_v<T, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  CUtensorMap tq, tk, tv;
-  if (!head_map(encode, &tq, type, q, BH, S, D) || !head_map(encode, &tk, type, k, BH, S, D) ||
-      !head_map(encode, &tv, type, v, BH, S, D)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  static bool opted = false;
-  const auto kernel = attn_half_wide_kernel<T>;
-  const int smem = 3 * kStages * 2 * kBoxBytes + 1024 + 8 * 4 * kStages;
-  if (const int err = opt_in(kernel, smem, opted)) return err;
-  const dim3 grid(static_cast<unsigned>(BH), static_cast<unsigned>((S + kBr - 1) / kBr),
-                  static_cast<unsigned>((D + 127) / 128));
-  kernel<<<grid, kHalfThreads, smem, s>>>(tq, tk, tv, static_cast<T*>(o), S, D, c, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-int launch_f32_wide(const void* q, const void* k, const void* v, void* o, int BH, int S, int D,
-                    float c, int causal, cudaStream_t s) {
-  const int smem = static_cast<int>(sizeof(float)) * (2 * kF32Rows + 4 * kF32Keys) * 132;
-  static bool opted = false;
-  if (const int err = opt_in(attn_f32_wide_kernel, smem, opted)) return err;
-  const dim3 grid(static_cast<unsigned>(BH), static_cast<unsigned>((S + kF32Rows - 1) / kF32Rows),
-                  static_cast<unsigned>((D + 127) / 128));
-  attn_f32_wide_kernel<<<grid, kF32Threads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, D, c, causal);
-  return static_cast<int>(cudaGetLastError());
-}
-}  // namespace parent_attn
-extern "C" int parent_attn_launch(const void* q, const void* k, const void* v, void* o, int BH,
-                                  int S, int D, float scale, int causal, int dtype,
-                                  void* stream) {
-  if (D <= 128 || D % 16 != 0 || !(scale > 0.0f) || BH <= 0 || S <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float c = scale * parent_attn::kLog2e;
-  switch (dtype) {
-    case 0: return parent_attn::launch_f32_wide(q, k, v, o, BH, S, D, c, causal, s);
-    case 1: return parent_attn::launch_half_wide<__nv_bfloat16>(q, k, v, o, BH, S, D, c, causal, s);
-    case 2: return parent_attn::launch_half_wide<__half>(q, k, v, o, BH, S, D, c, causal, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-"""
-PARENT_CU += PARENT_ATTN_CU
-
 # Rows 1, 3, 4 and 6 beside the parent tree's sources: its skim_fused.cu and
 # predicate_eval.cu (every plane read as float32, ANY by its compiled op)
 # and the wrappers that call them, from a copy of the parent commit's src/
@@ -2872,8 +2014,7 @@ def float32_layout(terms, weights, kinds):
     """``terms`` (..., T, E, K) and ``weights`` (..., G, E, K) with every
     plane ``kinds`` marks as an integer's int32 bits (the T terms', then
     the G weights') holding its float32 value instead: the JAX package's
-    layout, which the public forms, the earlier designs and the parent's
-    kernels read.  Tensors or numpy arrays, given back in their type."""
+    layout, which the public forms and the parent tree's kernels read.  Tensors or numpy arrays, given back in their type."""
     import numpy as np
     import torch
 
@@ -3039,141 +2180,6 @@ def time_parent_ab(skim_cases, stage_cases, batch_cases, parent_ab) -> dict:
     keys = ("ms", "parent_ms", "spread_ms", "parent_spread_ms")
     return {row: {k: sum(g[i] for g in got) / len(got) for i, k in enumerate(keys)}
             | {"cases": len(got)} for row, got in pairs.items() if got}
-
-
-def start_parent_build():
-    """Start ``nvcc`` on :data:`PARENT_CU` (beside the package's builds,
-    which run at the same time); returns (process, library path)."""
-    import hashlib
-
-    from repro_torch.kernels import _build
-
-    digest = hashlib.sha256(PARENT_CU.encode() + b"".join(
-        (_build._CSRC / h).read_bytes() for h in ("compact.cuh", "predicate.cuh")
-    )).hexdigest()[:16]
-    lib = _build.build_dir() / f"parent-{digest}.so"
-    if lib.exists():
-        return None, lib
-    _build.build_dir().mkdir(parents=True, exist_ok=True)
-    src = lib.with_suffix(".cu")
-    src.write_text(PARENT_CU)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build._CSRC), "-o",
-           str(lib), str(src)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True), lib
-
-
-def finish_parent_build(proc, lib):
-    """Wait for :func:`start_parent_build`; returns the five baselines,
-    each called as the wrapper it stood behind was, wrapper work and all:
-    ``.skim(terms, valid, weights, payload, program) -> buf`` (a (B, T, E,
-    K) batch and a float32 payload, moved as 32-bit words: the kernel
-    before payloads of every width), ``.stage(terms, valid, weights,
-    packed, seg_ids, program, nb) -> out``
-    (``packed`` updated in place), ``.mask(terms, valid, weights, program)
-    -> (B, E) int32`` and ``.compact(payload, mask) -> (packed, count)``
-    (four allocations a call, as its wrapper made; its argument checks,
-    the same as today's, left out) and ``.attn(q, k, v, causal) -> out``
-    (PR 23's wide attention kernels, D > 128, staged as the wrapper
-    stages)."""
-    import ctypes
-    from types import SimpleNamespace
-
-    import torch
-
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import predicate_eval as pe
-    from repro_torch.kernels.skim_fused import (
-        PROGRAM_ARGS,
-        Workspace,
-        header_words,
-        program_args,
-    )
-
-    if proc is not None:
-        out, err = proc.communicate()
-        check(proc.returncode == 0, f"nvcc failed on the parent's kernels:\n{out}{err}")
-    lib = ctypes.CDLL(str(lib))
-    pv, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    dense = [pv, pv, pv, i, i, i, ll, i, *([pv] * PROGRAM_ARGS)]
-    lib.parent_skim_launch.argtypes = [pv, pv, pv, pv, i, i, i, ll, i, i,
-                                       *([pv] * (PROGRAM_ARGS + 2)),
-                                       ctypes.c_uint, pv, pv, pv]
-    lib.parent_stage_launch.argtypes = [*dense, pv, pv, i, pv, pv]
-    lib.parent_mask_launch.argtypes = [*dense, pv, pv]
-    lib.parent_compact_launch.argtypes = [pv, pv, i, ll, i, i, pv, pv, pv, pv, pv]
-    lib.parent_attn_launch.argtypes = [pv, pv, pv, pv, i, i, i, ctypes.c_float, i, i, pv]
-    for fn in (lib.parent_skim_launch, lib.parent_stage_launch, lib.parent_mask_launch,
-               lib.parent_compact_launch, lib.parent_attn_launch):
-        fn.restype = ctypes.c_int
-    p = _build.ptr
-
-    def skim(t, v, w, payload, program):  # the parent's skim_fused.launch
-        device = t.device
-        B, T, E, K = t.shape
-        D = payload.shape[-1]
-        hdr = header_words(B)
-        buf = torch.empty(hdr + B * E * D, dtype=torch.int32, device=device)
-        stream = _build.stream_id(device)
-        status, tickets, epoch = Workspace.reserve(device, stream, B * -(-E // 512), B)
-        rc = _build.call_on(
-            device, lib.parent_skim_launch, p(t), p(v), p(w), p(payload), B, T,
-            program.n_groups, E, K, D, *program_args(program, device), p(status),
-            p(tickets), epoch, ctypes.c_void_p(buf.data_ptr() + 4 * hdr), p(buf),
-            ctypes.c_void_p(stream))
-        _build.check_launch("parent skim_fused", rc)
-        return buf
-
-    def stream_of(device):  # as the earlier wrappers looked the stream up
-        return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-    def stage(t, v, w, packed, seg, program, nb):
-        B, T, E, K = t.shape
-        out = torch.empty((B, nb + 1), dtype=torch.int32, device=t.device)
-        rc = lib.parent_stage_launch(
-            p(t), p(v), p(w), B, T, program.n_groups, E, K,
-            *program_args(program, t.device), p(packed), p(seg), nb, p(out),
-            stream_of(t.device))
-        _build.check_launch("parent cascade_stage", rc)
-        return out
-
-    def mask(t, v, w, program):
-        B, T, E, K = pe._check_inputs("predicate_eval", t, v, w, program)
-        out = torch.empty((B, E), dtype=torch.int32, device=t.device)
-        with torch.cuda.device(t.device):
-            rc = lib.parent_mask_launch(
-                p(t), p(v), p(w), B, T, program.n_groups, E, K,
-                *program_args(program, t.device), p(out), stream_of(t.device))
-        _build.check_launch("parent predicate_eval", rc)
-        return out
-
-    def compact(payload, keep):
-        device = payload.device
-        E, D = payload.shape
-        out = torch.empty_like(payload)
-        total = torch.empty(1, dtype=torch.int32, device=device)
-        words = torch.empty(-(-E // 32), dtype=torch.int32, device=device)
-        tile_counts = torch.empty(-(-E // 512), dtype=torch.int32, device=device)
-        with torch.cuda.device(device):
-            rc = lib.parent_compact_launch(
-                p(payload), p(keep), keep.element_size(), E, D, payload.element_size(),
-                p(words), p(tile_counts), p(out), p(total), stream_of(device))
-        _build.check_launch("parent stream_compact", rc)
-        return out, total[0]
-
-    def attn(q, k, v, causal=True):  # flash_attention's wrapper, D > 128 only
-        B, H, S, D = q.shape
-        qs, ks, vs, scale = fa.stage(q, k, v)
-        out = torch.empty_like(qs)
-        rc = _build.call_on(
-            q.device, lib.parent_attn_launch, p(qs), p(ks), p(vs), p(out), B * H, S,
-            qs.shape[-1], scale, int(bool(causal)), fa.DTYPES[q.dtype],
-            ctypes.c_void_p(_build.stream_id(q.device)))
-        _build.check_launch("parent flash_attention", rc)
-        return out if out.shape[-1] == D else out[..., :D].contiguous()
-
-    return SimpleNamespace(skim=skim, stage=stage, mask=mask, compact=compact, attn=attn)
 
 
 def count_uploads(step_name: str = "cascade_stage_step_staged"):
@@ -3927,16 +2933,15 @@ def bounds(summary: dict) -> dict:
     return {k: summary[k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "by_case",
                       "int32_ms", "uint8_ms",
-                      "per_basket_ms", "round_ms", "window_ms", "dense_ms", "parent_ms",
-                      "step_ms", "parent_step_ms", "public_step_ms", "staged_bytes",
-                      "dense_bytes", "parent_stream_ms", "shapes", "wrapper_us")
+                      "per_basket_ms", "round_ms", "window_ms", "dense_ms", "step_ms",
+                      "public_step_ms", "staged_bytes", "dense_bytes", "shapes",
+                      "wrapper_us")
             if k in summary}
 
 
-def time_predicate(program, t, v, w, parent, kinds=None) -> dict:
+def time_predicate(program, t, v, w, kinds=None) -> dict:
     """``predicate_eval`` on one window (T, E, K) with the planes' ``kinds``
-    beside its earlier design (``parent.mask``, on the float32 layout) and
-    its plain version.  The bound reads the K slots of the planes the
+    beside its plain version.  The bound reads the K slots of the planes the
     program reads (``predicate_eval.planes_read``) once and writes the (E,)
     mask once."""
     from repro_torch.kernels import predicate_eval as pe
@@ -3946,22 +2951,17 @@ def time_predicate(program, t, v, w, parent, kinds=None) -> dict:
     G = v.shape[0]
     n_read = bin(pe.planes_read(program) & ((1 << (T + 2 * G)) - 1)).count("1")
     t_bytes, t_ops = bound_times(4 * (n_read * E * K + E), E * K * (T + 4 * G))
-    t32, w32 = float32_layout(t, w, kinds)
-    tb, vb, wb = t32[None], v[None], w32[None]
     row = {
         "E": E, "K": K,
         "ms": device_ms(lambda: pe.predicate_eval(t, v, w, program, kinds)),
         "stream_ms": stream_ms(lambda: pe.predicate_eval(t, v, w, program, kinds)),
-        "parent_ms": device_ms(lambda: parent.mask(tb, vb, wb, program)),
-        "parent_stream_ms": stream_ms(lambda: parent.mask(tb, vb, wb, program)),
         "plain_ms": stream_ms(lambda: ref.predicate_mask(program, t, v, w, kinds),
                               calls=5),
         "t_bytes": t_bytes, "t_ops": t_ops,
     }
     log(f"  predicate_eval T={T} G={G} E={E} K={K}, {n_read} planes read: kernel "
-        f"{row['ms']:.5f} ms on the device (earlier design {row['parent_ms']:.5f}), "
-        f"{row['stream_ms']:.5f} ms per call from the host (earlier design "
-        f"{row['parent_stream_ms']:.5f}); plain {row['plain_ms']:.5f} ms; bound "
+        f"{row['ms']:.5f} ms on the device, {row['stream_ms']:.5f} ms per call from "
+        f"the host; plain {row['plain_ms']:.5f} ms; bound "
         f"{max(t_bytes, t_ops):.7f} ms")
     return row
 
@@ -3975,7 +2975,9 @@ def compact_wrapper_steps(payload, mask, calls: int = 2000) -> dict:
     workspace's time subtracted), the launch counter; the whole wrapper;
     and two steps the earlier wrapper took on every call: the current
     stream as a Stream object, and entering the device context (this one
-    enters it only where another card is current)."""
+    enters it only where another card is current).  The launch and the
+    counter are the wrapper's own (``_build.function``,
+    ``_build.count_launch``)."""
     import ctypes
 
     import torch
@@ -3990,8 +2992,8 @@ def compact_wrapper_steps(payload, mask, calls: int = 2000) -> dict:
     stream = torch.cuda.current_stream(device).cuda_stream
     out = torch.empty_like(payload)
     total = torch.empty((), dtype=torch.int32, device=device)
-    fn, p, lock = sc._fn(), _build.ptr, threading.Lock()
-    n = [0]
+    fn = _build.function("stream_compact", "stream_compact_launch", sc._ARGTYPES)
+    p = _build.ptr
 
     def checks():
         return (mask.dtype in sc.MASK_DTYPES and payload.dim() == 2 and mask.dim() == 1
@@ -4011,10 +3013,6 @@ def compact_wrapper_steps(payload, mask, calls: int = 2000) -> dict:
         with torch.cuda.device(device):
             pass
 
-    def count():
-        with lock:
-            n[0] += 1
-
     def each(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4033,7 +3031,7 @@ def compact_wrapper_steps(payload, mask, calls: int = 2000) -> dict:
         "workspace": each(reserve),
         "pointers": each(lambda: (p(payload), p(mask), p(out), p(total))),
         "launch_and_workspace": each(launch),
-        "count": each(count),
+        "count": each(lambda: _build.count_launch("stream_compact")),
         "whole_wrapper": each(lambda: sc.stream_compact(payload, mask)),
         "device_context": each(context),
     }
@@ -4044,24 +3042,19 @@ def compact_wrapper_steps(payload, mask, calls: int = 2000) -> dict:
 
 
 def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
-                 compact_cases=(), attn_cases=(), pred_cases=(), parent=None) -> dict:
+                 compact_cases=(), attn_cases=(), pred_cases=()) -> dict:
     """Each kernel at the shapes its path gives it: its device time (CUDA
     graph replay), its time per call as the stream sees it from the host,
     the plain version's time per call, the bound (decoded values counted
     at each branch's own width) and, where one PyTorch call computes the
     same function, that call's time per call from the host
-    (``library_ms``).  ``skim_fused`` and ``skim_fused_batch`` are timed
-    beside the parent's float32-only kernel and at int32 and uint8 rows of
-    the same shape; ``cascade_stage``, ``predicate_eval`` and
-    ``stream_compact`` beside their earlier designs (``parent``, from
-    :func:`finish_parent_build`) on the same inputs.
-    ``predicate_eval`` also at ``pred_cases`` (program, terms, valid,
+    (``library_ms``).  ``skim_fused`` and ``skim_fused_batch`` are also
+    timed at int32 and uint8 rows of the same shape.  ``predicate_eval`` also at ``pred_cases`` (program, terms, valid,
     weights: bench_kernels' shapes) and ``stream_compact`` at every case
     (label, payload, mask), the mean over those labelled "path" as its
     row; each shape is listed under ``shapes``.  ``flash_attention``'s row
-    is the mean over its cases, each also under ``by_case``; a case past D
-    = 128 is timed beside PR 23's wide kernels (``parent.attn``) in turns,
-    parent, new, new, parent.  Only the kernels given cases are timed."""
+    is the mean over its cases, each also under ``by_case``.  Only the
+    kernels given cases are timed."""
     import torch
 
     from repro_torch.kernels import basket_decode as bd
@@ -4085,11 +3078,8 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         # the same rows' bits as int32, and bytes of them as uint8
         p_i32 = p.view(torch.int32)
         p_u8 = (p_i32 & 0xFF).to(torch.uint8)
-        t32, w32 = float32_layout(t, w, kinds)
         row = {
             "ms": device_ms(lambda: sf.skim_fused(t, v, w, p, program, kinds)),
-            "parent_ms": device_ms(lambda: parent.skim(t32[None], v[None], w32[None],
-                                                       p[None], program)),
             "int32_ms": device_ms(lambda: sf.skim_fused(t, v, w, p_i32, program, kinds)),
             "uint8_ms": device_ms(lambda: sf.skim_fused(t, v, w, p_u8, program, kinds)),
             "stream_ms": stream_ms(lambda: sf.skim_fused(t, v, w, p, program, kinds)),
@@ -4102,14 +3092,14 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         }
         rows.append(row)
         log(f"  skim_fused T={T} G={G} E={E} K={K} D={D}: kernel {row['ms']:.5f} ms "
-            f"on the device (the parent's float32-only kernel {row['parent_ms']:.5f}; "
-            f"int32 rows {row['int32_ms']:.5f}, uint8 {row['uint8_ms']:.5f}), "
+            f"on the device (int32 rows {row['int32_ms']:.5f}, uint8 "
+            f"{row['uint8_ms']:.5f}), "
             f"{row['stream_ms']:.5f} ms per call from the host; "
             f"numpy to packed rows (ops.fused_skim) {row['window_ms']:.5f} "
             f"ms; plain {row['plain_ms']:.5f} ms; bound {max(t_bytes, t_ops):.7f} ms")
     out["skim_fused"] = _summary(rows)
     if rows:
-        for key in ("window_ms", "parent_ms", "int32_ms", "uint8_ms"):
+        for key in ("window_ms", "int32_ms", "uint8_ms"):
             out["skim_fused"][key] = sum(r[key] for r in rows) / len(rows)
     rows = []
     for label, parts, dtypes, layout, staged, dev_out in decode_cases:
@@ -4155,7 +3145,6 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         B, T, E, K = t.shape
         G = v.shape[1]
         planes, stage_rows, kinds = st["planes"], st["rows"], st["kinds"]
-        t32, w32 = float32_layout(t, w, kinds)  # what the earlier designs read
         S = len(st["row_list"])
         # the least the stage must move at this run's data: for each event
         # live in the carried mask of a staged window, its K slots of every
@@ -4179,19 +3168,13 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
             restore()
             return pe.cascade_stage(t, v, w, pk, seg, program, nb, kinds)
 
-        def parent_kernel():  # the earlier design, dense inputs
-            restore()
-            return parent.stage(t32, v, w32, pk, seg, program, nb)
-
-        # the stage step from the host, as the path calls it: this tree's
-        # (one page-locked upload of the staged buffer, the launch, the
-        # summary back) against the parent's (three pageable uploads of the
-        # dense batch, its launch, the summary back)
+        # the stage step from the host, as the path calls it: one
+        # page-locked upload of the staged buffer, the launch, the summary
+        # back
         inputs = kops.CascadeInputs(st["shape"], st["n_groups"], st["row_list"],
                                     t.device)
         inputs.host.copy_(st["host"])
-        # the dense batch in the float32 layout the earlier step and the
-        # public form read
+        # the dense batch in the float32 layout the public form reads
         dense_t, dense_v, dense_w = dense_batch(inputs)
         dense_t, dense_w = float32_layout(dense_t, dense_w, kinds)
         dense_np = (dense_t, dense_v, dense_w)
@@ -4200,11 +3183,6 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
             restore()
             kops.stage_summary_host(kops.cascade_stage_step_staged(
                 inputs, pk, seg, program, nb, device=t.device, kinds=kinds)[1])
-
-        def parent_step():
-            restore()
-            up = [torch.as_tensor(x).to(t.device) for x in dense_np]
-            kops.stage_summary_host(parent.stage(*up, pk, seg, program, nb))
 
         def public_step():  # the JAX package's form: the dense numpy batch,
             restore()  # staged whole into one page-locked upload
@@ -4217,13 +3195,10 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         row = {
             "ms": device_ms(kernel) - copy_ms,
             "dense_ms": device_ms(dense) - copy_ms,
-            "parent_ms": device_ms(parent_kernel) - copy_ms,
             "stream_ms": stream_ms(kernel) - copy_stream,
-            "parent_stream_ms": stream_ms(parent_kernel) - copy_stream,
             "plain_ms": stream_ms(lambda: (restore(), pe.cascade_stage_windows_plain(
                 planes, stage_rows, pk, seg, program, nb, kinds))) - copy_stream,
             "step_ms": host_ms(step, calls=20),
-            "parent_step_ms": host_ms(parent_step, calls=20),
             "public_step_ms": host_ms(public_step, calls=20),
             "staged_bytes": inputs.nbytes,
             "dense_bytes": 4 * B * (T + 2 * G) * E * K,
@@ -4232,36 +3207,29 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         rows.append(row)
         log(f"  cascade_stage B={B} staged {S} T={T} G={G} E={E} K={K} nb={nb}, "
             f"{live} live events: kernel {row['ms']:.5f} ms on the device (every "
-            f"window staged {row['dense_ms']:.5f}; the parent's kernel "
-            f"{row['parent_ms']:.5f}), {row['stream_ms']:.5f} ms per call from the "
-            f"host (parent {row['parent_stream_ms']:.5f}); the step from the host "
-            f"{row['step_ms']:.5f} ms, {row['staged_bytes']} bytes in one pinned "
-            f"upload (parent {row['parent_step_ms']:.5f} ms, "
-            f"{row['dense_bytes']} bytes in three pageable uploads; the public "
-            f"form ops.cascade_stage_step on the dense numpy batch "
-            f"{row['public_step_ms']:.5f} ms); plain "
+            f"window staged {row['dense_ms']:.5f}), {row['stream_ms']:.5f} ms per call "
+            f"from the host; the step from the host {row['step_ms']:.5f} ms, "
+            f"{row['staged_bytes']} bytes in one pinned upload (the public form "
+            f"ops.cascade_stage_step on the dense numpy batch, {row['dense_bytes']} "
+            f"bytes: {row['public_step_ms']:.5f} ms); plain "
             f"{row['plain_ms']:.5f} ms; bound {max(t_bytes, t_ops):.7f} ms")
         # predicate_eval: window 0 of the same batch, the mask alone
-        single.append(time_predicate(program, t[0], v[0], w[0], parent, kinds))
+        single.append(time_predicate(program, t[0], v[0], w[0], kinds))
     out["predicate_eval_batch"] = _summary(rows)
     if rows:
-        for key in ("dense_ms", "parent_ms", "parent_stream_ms", "step_ms",
-                    "parent_step_ms", "public_step_ms", "staged_bytes", "dense_bytes"):
+        for key in ("dense_ms", "step_ms", "public_step_ms", "staged_bytes",
+                    "dense_bytes"):
             out["predicate_eval_batch"][key] = sum(r[key] for r in rows) / len(rows)
     out["predicate_eval"] = _summary(single)
     if single:
-        for key in ("parent_ms", "parent_stream_ms"):
-            out["predicate_eval"][key] = sum(r[key] for r in single) / len(single)
         out["predicate_eval"]["shapes"] = [  # bench_kernels' program
-            {k: r[k] for k in ("E", "K", "ms", "stream_ms", "parent_ms", "parent_stream_ms",
-                               "plain_ms")}
+            {k: r[k] for k in ("E", "K", "ms", "stream_ms", "plain_ms")}
             | {"bound_ms": max(r["t_bytes"], r["t_ops"])}
-            for r in (time_predicate(*case, parent) for case in pred_cases)]
+            for r in (time_predicate(*case) for case in pred_cases)]
     rows = []
     for program, t, v, w, p, kinds in batch_cases:
         B, T, E, K = t.shape
         G, D = v.shape[1], p.shape[2]
-        t32, w32 = float32_layout(t, w, kinds)
         # B windows of skim_fused's bytes and operations
         nbytes = 4 * B * (T * E * K + 2 * G * E * K + 2 * E * D + 1)
         t_bytes, t_ops = bound_times(nbytes, B * E * K * (T + 4 * G))
@@ -4269,7 +3237,6 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         p_u8 = (p_i32 & 0xFF).to(torch.uint8)
         row = {
             "ms": device_ms(lambda: sf.skim_fused_batch(t, v, w, p, program, kinds)),
-            "parent_ms": device_ms(lambda: parent.skim(t32, v, w32, p, program)),
             "int32_ms": device_ms(lambda: sf.skim_fused_batch(t, v, w, p_i32, program,
                                                               kinds)),
             "uint8_ms": device_ms(lambda: sf.skim_fused_batch(t, v, w, p_u8, program,
@@ -4281,14 +3248,13 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         }
         rows.append(row)
         log(f"  skim_fused_batch B={B} T={T} G={G} E={E} K={K} D={D}: kernel "
-            f"{row['ms']:.5f} ms on the device (the parent's float32-only kernel "
-            f"{row['parent_ms']:.5f}; int32 rows {row['int32_ms']:.5f}, uint8 "
-            f"{row['uint8_ms']:.5f}), {row['stream_ms']:.5f} ms per call "
+            f"{row['ms']:.5f} ms on the device (int32 rows {row['int32_ms']:.5f}, "
+            f"uint8 {row['uint8_ms']:.5f}), {row['stream_ms']:.5f} ms per call "
             f"from the host; plain {row['plain_ms']:.5f} ms; bound "
             f"{max(t_bytes, t_ops):.7f} ms")
     out["skim_fused_batch"] = _summary(rows)
     if rows:
-        for key in ("parent_ms", "int32_ms", "uint8_ms"):
+        for key in ("int32_ms", "uint8_ms"):
             out["skim_fused_batch"][key] = sum(r[key] for r in rows) / len(rows)
     rows = []
     for label, payload, mask in compact_cases:
@@ -4304,8 +3270,6 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
             "label": label, "E": E, "D": D, "kept": survivors,
             "ms": device_ms(lambda: sc.stream_compact(payload, mask)),
             "stream_ms": stream_ms(lambda: sc.stream_compact(payload, mask)),
-            "parent_ms": device_ms(lambda: parent.compact(payload, mask)),
-            "parent_stream_ms": stream_ms(lambda: parent.compact(payload, mask)),
             "plain_ms": stream_ms(lambda: ref.stream_compact_ref(payload, mask)),
             # the same survivors in the same order, without the zero tail
             "library_ms": stream_ms(lambda: payload[mask]),
@@ -4313,19 +3277,17 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
         }
         rows.append(row)
         log(f"  stream_compact {label} E={E} D={D} {payload.dtype}, {survivors} kept: "
-            f"kernel {row['ms']:.5f} ms on the device (earlier design "
-            f"{row['parent_ms']:.5f}), {row['stream_ms']:.5f} ms per call from the "
-            f"host (earlier design {row['parent_stream_ms']:.5f}); plain "
+            f"kernel {row['ms']:.5f} ms on the device, {row['stream_ms']:.5f} ms per "
+            f"call from the host; plain "
             f"{row['plain_ms']:.5f} ms; payload[mask] {row['library_ms']:.5f} ms (no "
             f"zero tail); bound {max(t_bytes, t_ops):.7f} ms")
     if rows:
         path = [r for r in rows if r["label"] == "path"]
         out["stream_compact"] = _summary(path)
-        out["stream_compact"]["parent_ms"] = sum(r["parent_ms"] for r in path) / len(path)
         out["stream_compact"]["wrapper_us"] = compact_wrapper_steps(*compact_cases[0][1:])
         out["stream_compact"]["shapes"] = [
-            {k: r[k] for k in ("label", "E", "D", "kept", "ms", "stream_ms", "parent_ms",
-                               "parent_stream_ms", "plain_ms", "library_ms")}
+            {k: r[k] for k in ("label", "E", "D", "kept", "ms", "stream_ms", "plain_ms",
+                               "library_ms")}
             | {"bound_ms": max(r["t_bytes"], r["t_ops"])} for r in rows]
     rows = []
     for q, k, v in attn_cases:
@@ -4348,31 +3310,15 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
             "case": f"{tuple(q.shape)} {str(q.dtype).removeprefix('torch.')}",
             "library_kernels": profiled_kernels(sdpa),
             "t_bytes": t_bytes, "t_ops": t_ops,
-        }
-        if parent is not None and D > 128:
-            # the wide kernels beside PR 23's, in turns: parent, new, new, parent
-            def parent_kernel():
-                return parent.attn(q, k, v, causal=True)
-
-            attention_close(parent_kernel(), ref.flash_attention_ref(q, k, v, causal=True),
-                            str(q.dtype).removeprefix("torch."), f"parent {row['case']}")
-            turns = [device_ms(fn) for fn in (parent_kernel, kernel, kernel, parent_kernel)]
-            row["ms"] = (turns[1] + turns[2]) / 2
-            row["parent_ms"] = (turns[0] + turns[3]) / 2
-            row["turns_ms"] = turns
-        else:  # D <= 128: the narrow kernels, which have no earlier design here
-            row["ms"] = device_ms(kernel)
-        row |= {
+            "ms": device_ms(kernel),
             "stream_ms": stream_ms(kernel),
             "plain_ms": stream_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True)),
             "library_ms": stream_ms(sdpa),
             "library_device_ms": device_ms(sdpa),
         }
         rows.append(row)
-        earlier = (f" (PR 23's wide kernel {row['parent_ms']:.5f}; in turns parent, new, "
-                   f"new, parent {row['turns_ms']})" if "parent_ms" in row else "")
         log(f"  flash_attention {row['case']} causal: kernel "
-            f"{row['ms']:.5f} ms on the device{earlier}, {row['stream_ms']:.5f} ms per call "
+            f"{row['ms']:.5f} ms on the device, {row['stream_ms']:.5f} ms per call "
             f"from the host; plain {row['plain_ms']:.5f} ms; scaled_dot_product_attention "
             f"{row['library_ms']:.5f} ms per call from the host, "
             f"{row['library_device_ms']:.5f} ms on the device, kernels "
@@ -4381,8 +3327,7 @@ def time_kernels(skim_cases=(), decode_cases=(), stage_cases=(), batch_cases=(),
     out["flash_attention"] = _summary(rows)
     if rows:
         out["flash_attention"]["by_case"] = {
-            r["case"]: {"ms": r["ms"], "parent_ms": r.get("parent_ms"),
-                        "plain_ms": r["plain_ms"],
+            r["case"]: {"ms": r["ms"], "plain_ms": r["plain_ms"],
                         "library_ms": r["library_ms"],
                         "library_device_ms": r["library_device_ms"],
                         "library_kernels": r["library_kernels"],
@@ -5870,16 +4815,14 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
 
     t0 = time.perf_counter()
-    parent_build = start_parent_build()
     parent_ab_build = None if parent_src is None else start_parent_ab_build(parent_src)
     ptxas = start_ptxas_report()
     build_s = _build.build_all()
     ops.load_kernels()
-    parent = finish_parent_build(*parent_build)
     parent_ab = (None if parent_src is None
                  else finish_parent_ab_build(parent_ab_build, parent_src))
     log(f"  kernels built in {build_s:.1f} s into {_build.build_dir()}; with the "
-        f"earlier designs (the timing baselines) {time.perf_counter() - t0:.1f} s")
+        f"parent tree's (--parent) {time.perf_counter() - t0:.1f} s")
     finish_ptxas_report(ptxas)
     check_tensor_core_sass()
 
@@ -5929,7 +4872,6 @@ def main() -> int:
         path_decode_cases(store, [(label, q) for label, q, *_ in cells[:2]], device),
         [c for cases in stage_cases.values() for c in cases],
         pred_cases=[bench_predicate(rng, E, device) for E in PREDICATE_BENCH_E],
-        parent=parent,
     )
 
     log("== 3. main path: run_skim with every default, on the card ==")
@@ -5974,7 +4916,6 @@ def main() -> int:
         compact_cases=[compact["case"]] + [
             (f"bench E={E}", *bench_compact(rng, E, device)) for E in PREDICATE_BENCH_E],
         attn_cases=attention["cases"],
-        parent=parent,
     ))
     parent_times = None
     if parent_ab is None:

@@ -1,4 +1,4 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build, load, launch and count the hand-written CUDA kernels.
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` into its own shared
 library with a plain C interface and loaded with ``ctypes``: no PyTorch
@@ -7,6 +7,10 @@ root, named by a hash of the source, of every shared header
 (``csrc/*.cuh``) and of the flags, so an edited source or header rebuilds
 and an unchanged one loads from disk.  All missing libraries build at once, one ``nvcc`` per
 source, started together.
+
+Below the wrappers sit the two counters every kernel call and every copy
+between the host and a card reach (:func:`launch_counts`,
+:func:`transfer_stats`), so nothing in this tier counts on its own.
 
 Nothing here runs at import time: the CPU tests import every module, and
 a machine without a card may have no ``nvcc`` at all.
@@ -22,6 +26,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.obs.trace import active as _active_tracer
+from repro_torch.obs.trace import active_tally as _active_tally
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {
@@ -114,6 +124,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def function(name: str, symbol: str, argtypes):
+    """Launch entry ``symbol`` of kernel ``name``'s library (built and
+    loaded on first use), its argument types set on its first call here;
+    every entry returns a CUDA error code (int)."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
 def ptr(tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(tensor.data_ptr())
 
@@ -122,8 +142,6 @@ def stream_id(device) -> int:
     """The raw handle of ``device``'s current stream: the value of
     ``torch.cuda.current_stream(device).cuda_stream`` without building the
     Stream object, which costs microseconds a call."""
-    import torch
-
     index = device.index if device.index is not None else torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
 
@@ -136,8 +154,6 @@ def call_on(device, fn, *args) -> int:
     """``fn(*args)`` with ``device`` the current card: the device context
     is entered only where another card is current (entering it costs
     microseconds a call)."""
-    import torch
-
     if device.index is None or device.index == torch.cuda.current_device():
         return fn(*args)
     with torch.cuda.device(device):
@@ -147,3 +163,84 @@ def call_on(device, fn, *args) -> int:
 def check_launch(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+# ---------------------------------------------------------------------------
+# launch and copy counters
+#
+# Launches are counted by the wrapper entry that made them; copies between
+# the host and a card when they are issued (page-locked staging copies,
+# pageable uploads and reads alike), for the whole process and for the skim
+# running on the issuing thread (``obs.trace.active_tally``).  One lock:
+# pipelined skims count from several threads.  Port-only; the JAX
+# package's transfers are XLA's.
+# ---------------------------------------------------------------------------
+
+_LAUNCHES = dict.fromkeys(
+    ("skim_fused", "skim_fused_batch", "basket_decode", "cascade_stage",
+     "predicate_eval_batch", "predicate_eval", "stream_compact", "flash_attention"), 0)
+_TRANSFERS = {"h2d_copies": 0, "h2d_bytes": 0, "d2h_copies": 0, "d2h_bytes": 0}
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """One launch through wrapper entry ``name`` (a key of :func:`launch_counts`)."""
+    with _COUNT_LOCK:
+        _LAUNCHES[name] += 1
+
+
+def launch_counts() -> dict:
+    """Launches of each hand-written kernel since the last reset, by the
+    wrapper entry that made them."""
+    with _COUNT_LOCK:
+        return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    with _COUNT_LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
+
+
+def note_copy(way: str, nbytes: int) -> None:
+    """One copy of ``nbytes`` issued ``way`` ("h2d" or "d2h")."""
+    copies, nbytes_key, nbytes = f"{way}_copies", f"{way}_bytes", int(nbytes)
+    with _COUNT_LOCK:
+        _TRANSFERS[copies] += 1
+        _TRANSFERS[nbytes_key] += nbytes
+    tally = _active_tally()
+    if tally is not None:
+        tally.add(**{copies: 1, nbytes_key: nbytes})
+
+
+def transfer_stats() -> dict:
+    """Host-to-device and device-to-host copies and bytes since the last
+    reset, from every thread of the process."""
+    with _COUNT_LOCK:
+        return dict(_TRANSFERS)
+
+
+def reset_transfer_stats() -> None:
+    with _COUNT_LOCK:
+        for key in _TRANSFERS:
+            _TRANSFERS[key] = 0
+
+
+def to_device(x, device) -> torch.Tensor:
+    """A host array (numpy or tensor) on ``device``; the copy is counted
+    when it goes to a card."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(x)
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        note_copy("h2d", t.nbytes)
+    return t.to(device)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host as numpy, in one copy when it lives
+    on a card (counted, and waited on under a ``device_wait`` span)."""
+    with _active_tracer().span("to_host", kind="device_wait"):
+        host = t.cpu()
+    if t.is_cuda:
+        note_copy("d2h", t.nbytes)
+    return host.numpy()

@@ -25,7 +25,6 @@ float kind decoded to another float type, is converted after the launch.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import numpy as np
 import torch
@@ -41,19 +40,8 @@ KIND_INT, KIND_FLOAT, KIND_BOOL = 0, 1, 2
 DESC_FIELDS = 8
 STORE_BOOL = 1 << 8  # a 1-byte output holding value != 0
 STORE_PADDED = 1 << 9  # the plane block is padded to 16 bytes (bulk copy)
-
-launches = 0  # kernel launches; never reset here
-_LAUNCHES_LOCK = threading.Lock()  # pipelined skims call from several threads
-
-
-def _lib():
-    lib = _build.load("basket_decode")
-    fn = lib.basket_decode_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return lib
+_P = ctypes.c_void_p
+_ARGTYPES = (_P, _P, _P, _P, ctypes.c_int, _P)
 
 
 def store_width(kind: int, out_dtype) -> tuple[int, bool] | None:
@@ -123,25 +111,18 @@ def decode_round(descs, firsts, planes, out):
     descriptors are the caller's (``kernels/ops.py`` builds them from
     checked kinds and widths); their tensors are checked here.
     """
-    global launches
     _check_round(descs, firsts, planes, out)
     if not descs.is_cuda:
         out.copy_(_ref.basket_decode_round_ref(descs, firsts, planes, out.numel()))
         return out
     N = descs.shape[0]
     if N:
-        p = _build.ptr
-        device = descs.device
-        if device.index is None or device.index == torch.cuda.current_device():
-            rc = _lib().basket_decode_launch(p(descs), p(firsts), p(planes), p(out),
-                                             N, _build.stream_of(device))
-        else:
-            with torch.cuda.device(device):
-                rc = _lib().basket_decode_launch(p(descs), p(firsts), p(planes),
-                                                 p(out), N, _build.stream_of(device))
+        p, device = _build.ptr, descs.device
+        rc = _build.call_on(
+            device, _build.function("basket_decode", "basket_decode_launch", _ARGTYPES),
+            p(descs), p(firsts), p(planes), p(out), N, _build.stream_of(device))
         _build.check_launch("basket_decode", rc)
-        with _LAUNCHES_LOCK:
-            launches += 1
+        _build.count_launch("basket_decode")
     return out
 
 

@@ -18,7 +18,6 @@ plain version, :func:`repro_torch.kernels.ref.flash_attention_ref`.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 import torch.nn.functional as F
@@ -33,18 +32,8 @@ MAX_HEADS = 2**31 - 1  # B*H: the grid's x dimension
 MAX_Q_TILES = 65535  # the grid's y dimension, in tiles of 64 (float32) or 128 rows;
 # its z dimension, in slices of WIDE_COLS columns of D
 WIDE_COLS = 256  # the columns of O a CTA of the wide kernels (D > 128) owns
-
-launches = 0  # kernel launches through flash_attention(); never reset here
-_LAUNCHES_LOCK = threading.Lock()
-
-
-def _fn():
-    fn = _build.load("flash_attention").flash_attention_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, i, p]
-        fn.restype = ctypes.c_int
-    return fn
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P)
 
 
 def stage(q, k, v, sm_scale: float | None = None):
@@ -72,7 +61,6 @@ def stage(q, k, v, sm_scale: float | None = None):
 
 def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None):
     """(B, H, S, D) attention, any S and D."""
-    global launches
     if not q.is_cuda:
         return _ref.flash_attention_ref(q, k, v, causal, sm_scale)
     if q.dim() != 4:
@@ -92,18 +80,15 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None)
         raise ValueError(f"flash_attention: {B * H} heads of {S} rows exceed the grid")
     if q.numel() == 0:
         return torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        qs, ks, vs, scale = stage(q, k, v, sm_scale)
-        out = torch.empty_like(qs)
-        p = _build.ptr
-        rc = _fn()(
-            p(qs), p(ks), p(vs), p(out), B * H, S, qs.shape[-1], scale,
-            int(bool(causal)), DTYPES[q.dtype],
-            _build.stream_of(q.device),
-        )
+    qs, ks, vs, scale = stage(q, k, v, sm_scale)
+    out = torch.empty_like(qs)
+    p = _build.ptr
+    rc = _build.call_on(
+        q.device, _build.function("flash_attention", "flash_attention_launch", _ARGTYPES),
+        p(qs), p(ks), p(vs), p(out), B * H, S, qs.shape[-1], scale, int(bool(causal)),
+        DTYPES[q.dtype], _build.stream_of(q.device))
     _build.check_launch("flash_attention", rc)
-    with _LAUNCHES_LOCK:
-        launches += 1
+    _build.count_launch("flash_attention")
     return out if out.shape[-1] == D else out[..., :D].contiguous()
 
 

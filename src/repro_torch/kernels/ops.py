@@ -5,9 +5,10 @@ inputs, dispatches to a kernel wrapper (the CUDA kernel for a CUDA
 tensor, the plain PyTorch version for a CPU tensor) and notes the
 dispatch in the same ledger as the JAX package's ``kernels/ops.py``.
 
-Host<->device copies are counted where they are issued
-(:func:`transfer_stats`), and the host side of each call is recorded
-into the tracer active on the calling thread
+Host<->device copies and kernel launches are counted below the wrappers,
+in ``_build`` (:func:`transfer_stats`, :func:`launch_counts`, re-exported
+here), and the host side of each call is recorded into the tracer
+active on the calling thread
 (:func:`repro_torch.obs.trace.active`: ``pack``, ``launch``,
 ``device_wait`` and ``unpack`` spans), a no-op unless a detailed skim
 is running there.
@@ -22,15 +23,23 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import _build
 from repro_torch.kernels import basket_decode as _bd
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import predicate_eval as _pe
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import skim_fused as _sf
 from repro_torch.kernels import stream_compact as _sc
+from repro_torch.kernels._build import (  # re-export
+    launch_counts,
+    reset_launch_counts,
+    reset_transfer_stats,
+    to_device,
+    to_host,
+    transfer_stats,
+)
 from repro_torch.kernels.program import Program, compile_query  # re-export
 from repro_torch.obs.trace import active as _active_tracer
-from repro_torch.obs.trace import active_tally as _active_tally
 
 # ---------------------------------------------------------------------------
 # dispatch / compile accounting
@@ -64,84 +73,6 @@ def _note_dispatch(sig, warm: bool = False) -> None:
         _DISPATCH_STATS["warmups"] += 1
     else:
         _DISPATCH_STATS["dispatches"] += 1
-
-
-def launch_counts() -> dict:
-    """Launches of each hand-written kernel since the last reset."""
-    return {**_sf.launches, "basket_decode": _bd.launches, **_pe.launches,
-            "stream_compact": _sc.launches, "flash_attention": _fa.launches}
-
-
-def reset_launch_counts() -> None:
-    _bd.launches = 0
-    _sc.launches = 0
-    _fa.launches = 0
-    for counts in (_sf.launches, _pe.launches):
-        for name in counts:
-            counts[name] = 0
-
-
-# ---------------------------------------------------------------------------
-# host<->device transfers
-#
-# Every copy between the host and a card that this package issues is
-# counted here when it is issued: page-locked staging copies, pageable
-# ``.to(device)`` uploads and ``.cpu()`` reads alike, for the whole
-# process and for the skim running on the issuing thread
-# (``obs.trace.active_tally``).  Port-only; the JAX package's transfers
-# are XLA's.
-# ---------------------------------------------------------------------------
-
-_TRANSFERS = {"h2d_copies": 0, "h2d_bytes": 0, "d2h_copies": 0, "d2h_bytes": 0}
-_TRANSFERS_LOCK = threading.Lock()
-
-
-def transfer_stats() -> dict:
-    """Host-to-device and device-to-host copies and bytes since the last
-    reset, from every thread of the process."""
-    with _TRANSFERS_LOCK:
-        return dict(_TRANSFERS)
-
-
-def reset_transfer_stats() -> None:
-    with _TRANSFERS_LOCK:
-        for key in _TRANSFERS:
-            _TRANSFERS[key] = 0
-
-
-def _note_copy(way: str, nbytes: int) -> None:
-    """One copy of ``nbytes`` issued ``way`` ("h2d" or "d2h")."""
-    copies, nbytes_key, nbytes = f"{way}_copies", f"{way}_bytes", int(nbytes)
-    with _TRANSFERS_LOCK:
-        _TRANSFERS[copies] += 1
-        _TRANSFERS[nbytes_key] += nbytes
-    tally = _active_tally()
-    if tally is not None:
-        tally.add(**{copies: 1, nbytes_key: nbytes})
-
-
-def _nbytes(t: torch.Tensor) -> int:
-    return t.numel() * t.element_size()
-
-
-def to_device(x, device) -> torch.Tensor:
-    """A host array (numpy or tensor) on ``device``; the copy is counted
-    when it goes to a card."""
-    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(x)
-    device = torch.device(device)
-    if device.type == "cuda" and t.device.type == "cpu":
-        _note_copy("h2d", _nbytes(t))
-    return t.to(device)
-
-
-def to_host(t: torch.Tensor) -> np.ndarray:
-    """A tensor's values on the host as numpy, in one copy when it lives
-    on a card (counted, and waited on under a ``device_wait`` span)."""
-    with _active_tracer().span("to_host", kind="device_wait"):
-        host = t.cpu()
-    if t.is_cuda:
-        _note_copy("d2h", _nbytes(t))
-    return host.numpy()
 
 
 # the numpy types JAX narrows when it reads an array with 64-bit types off
@@ -198,8 +129,6 @@ def _tensors(device, *xs, dtype=None) -> list[torch.Tensor]:
 
 def load_kernels() -> None:
     """Build (on first use) and load every kernel library."""
-    from repro_torch.kernels import _build
-
     for name in _build.SOURCES:
         _build.load(name)
 
@@ -266,11 +195,12 @@ def _lane_words(W: int) -> int:
 
 
 class _Staging(threading.local):
-    """One thread's grow-only transfer buffers, by (device, name), and its
-    event on each device.  A buffer is reused only by its own thread, and
-    only after that thread's last call waited on its event: each user
-    below waits before it returns.  (The prefetcher decodes on its own
-    thread while the consumer decodes and filters on its.)"""
+    """One thread's grow-only transfer buffers, by (device, name), its
+    counted moves between them and its event on each device.  A buffer is
+    reused only by its own thread, and only after that thread's last call
+    waited on its event: each user below waits before it returns.  (The
+    prefetcher decodes on its own thread while the consumer decodes and
+    filters on its.)"""
 
     def __init__(self):
         self.buffers: dict = {}
@@ -286,6 +216,22 @@ class _Staging(threading.local):
                    else torch.empty(size, dtype=dtype, device=device))
             self.buffers[(device, name)] = buf
         return buf[:n]
+
+    def upload(self, device, name: str, host: torch.Tensor) -> torch.Tensor:
+        """``host`` (page-locked buffer ``name``) copied, ``non_blocking``
+        and counted, into this thread's card buffer ``"<name>, card"``."""
+        dev = self.buffer(device, f"{name}, card", host.numel(), host.dtype)
+        dev.copy_(host, non_blocking=True)
+        _build.note_copy("h2d", host.nbytes)
+        return dev
+
+    def readback(self, device, name: str, dev: torch.Tensor) -> torch.Tensor:
+        """``dev`` copied, ``non_blocking`` and counted, into this thread's
+        page-locked buffer ``name``; read it after :meth:`wait`."""
+        host = self.buffer(device, name, dev.numel(), dev.dtype, pinned=True)
+        host.copy_(dev, non_blocking=True)
+        _build.note_copy("d2h", dev.nbytes)
+        return host
 
     def wait(self, device) -> None:
         """Record this thread's event on the current stream; wait for it,
@@ -398,15 +344,10 @@ def basket_decode_round(parts, dtypes, device=None) -> dict:
         fill_round(host_in.numpy(), layout)
     if on_card:
         with tr.span("round", kind="launch"):
-            dev_in = _STAGING.buffer(device, "round in, card", n_in, torch.int32)
-            dev_in.copy_(host_in, non_blocking=True)
-            _note_copy("h2d", 4 * n_in)
+            dev_in = _STAGING.upload(device, "round in", host_in)
             dev_out = _STAGING.buffer(device, "round out, card", o_bytes, torch.uint8)
             _bd.decode_round(*round_views(dev_in, layout), dev_out)
-            host_out = _STAGING.buffer(device, "round out", o_bytes, torch.uint8,
-                                       pinned=True)
-            host_out.copy_(dev_out, non_blocking=True)
-            _note_copy("d2h", o_bytes)
+            host_out = _STAGING.readback(device, "round out", dev_out)
         _STAGING.wait(device)
     else:
         with tr.span("round", kind="launch"):
@@ -696,10 +637,7 @@ def cascade_stage_step_staged(inputs: CascadeInputs, packed, seg_ids,
             return stage(*inputs.views(inputs.host), packed, seg_ids, program, nb,
                          kinds=kinds)
     with tr.span("stage", kind="launch"):
-        dev = _STAGING.buffer(device, "cascade in, card", inputs.host.numel(),
-                              torch.int32)
-        dev.copy_(inputs.host, non_blocking=True)
-        _note_copy("h2d", inputs.nbytes)
+        dev = _STAGING.upload(device, "cascade in", inputs.host)
         result = stage(*inputs.views(dev), packed, seg_ids, program, nb, kinds=kinds)
     _STAGING.wait(device)  # the staging buffer is free for this thread again
     return result
@@ -793,16 +731,12 @@ def _skim_staged(terms, valid, weights, payload, program: Program,
         staged.view(np.uint8)[4 * p_off: 4 * p_off + payload.nbytes] = (
             payload.reshape(-1).view(np.uint8))
     with tr.span("skim", kind="launch"):
-        dev_in = _STAGING.buffer(device, "skim in, card", n_in, torch.int32)
-        dev_in.copy_(host_in, non_blocking=True)
-        _note_copy("h2d", 4 * n_in)
+        dev_in = _STAGING.upload(device, "skim in", host_in)
         t, v, w = (dev_in[o: o + n].view(torch.float32).view(shape)[None]
                    for o, n, shape in views)
         pl = _sf.view_rows(dev_in[p_off:], 1, E, D, torch_dtype(payload.dtype))
         buf = _sf.launch("skim_fused", t, v, w, pl, program, kinds)
-        host = _STAGING.buffer(device, "skim out", buf.numel(), torch.int32, pinned=True)
-        host.copy_(buf, non_blocking=True)
-        _note_copy("d2h", 4 * buf.numel())
+        host = _STAGING.readback(device, "skim out", buf)
     _STAGING.wait(device)
     with tr.span("skim", kind="unpack"):
         raw = host.numpy()

@@ -1,6 +1,7 @@
 """The batched predicate kernel and the cascade stage (``csrc/predicate_eval.cu``).
 
-Four wrappers over one CUDA source, three launch counters:
+Four wrappers over one CUDA source, counted under three names
+(``_build.launch_counts``):
 
 * :func:`cascade_stage_windows` — the batched cascade's stage step over
   the windows the stage runs: the program over each staged window, ANDed
@@ -32,7 +33,6 @@ plane as float32.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -49,31 +49,11 @@ from repro_torch.kernels.skim_fused import PROGRAM_ARGS, program_args
 
 MAX_WINDOWS = 65535  # the grid's y dimension (one window per row)
 
-# kernel launches through each wrapper; never reset here
-launches = {"cascade_stage": 0, "predicate_eval_batch": 0, "predicate_eval": 0}
-_LAUNCHES_LOCK = threading.Lock()  # pipelined skims call from several threads
-
-
-def _fn(name: str, argtypes: list):
-    fn = getattr(_build.load("predicate_eval"), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _mask_fn():
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    return _fn("predicate_eval_launch",
-               [p, p, p, ll, ll, i, i, i, ll, i, i, i, i, i, ctypes.c_ulonglong,
-                *([p] * PROGRAM_ARGS), p, p])
-
-
-def _stage_fn():
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    return _fn("cascade_stage_launch",
-               [p, p, p, ll, ll, p, i, i, i, ll, i, i, i, i, i, ctypes.c_ulonglong,
-                *([p] * PROGRAM_ARGS), p, p, i, p, i, p])
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_MASK_ARGTYPES = (_P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _I, _I, _I, _I, _I,
+                  ctypes.c_ulonglong, *([_P] * PROGRAM_ARGS), _P, _P)
+_STAGE_ARGTYPES = (_P, _P, _P, _LL, _LL, _P, _I, _I, _I, _LL, _I, _I, _I, _I, _I,
+                   ctypes.c_ulonglong, *([_P] * PROGRAM_ARGS), _P, _P, _I, _P, _I, _P)
 
 
 # The stage kernel's tile: a block brings (T + 2G) planes of `tile`
@@ -150,11 +130,6 @@ def launch_plan(planes, strides, E: int, K: int, program: Program, lanes: int):
     return stage_plan(program.n_terms + 2 * program.n_groups, K, lanes, aligned)
 
 
-def _count(name: str) -> None:
-    with _LAUNCHES_LOCK:
-        launches[name] += 1
-
-
 def mask_plan(planes, strides, E: int, K: int, program: Program):
     """(tile, mode, shared bytes, lanes) of the mask launch over a dense
     batch: :func:`mask_lanes` lanes an event, and the stage's plan
@@ -209,7 +184,8 @@ def _mask(terms, valid, weights, program: Program, window: bool,
     tile, mode, smem, lanes = mask_plan(planes, strides, E, K, program)
     p = _build.ptr
     rc = _build.call_on(
-        device, _mask_fn(), *(p(x) for x in planes), *strides, B, T, G, E, K,
+        device, _build.function("predicate_eval", "predicate_eval_launch", _MASK_ARGTYPES),
+        *(p(x) for x in planes), *strides, B, T, G, E, K,
         tile, mode, smem, lanes, planes_read(program),
         *program_args(program, device, kinds), p(out), _build.stream_of(device))
     _build.check_launch("predicate_eval", rc)
@@ -223,7 +199,7 @@ def predicate_eval_batch(terms, valid, weights, program: Program,
     if not terms.is_cuda:
         return _ref.predicate_eval_batch_ref(terms, valid, weights, program, kinds)
     out = _mask(terms, valid, weights, program, window=False, kinds=kinds)
-    _count("predicate_eval_batch")
+    _build.count_launch("predicate_eval_batch")
     return out
 
 
@@ -233,7 +209,7 @@ def predicate_eval(terms, valid, weights, program: Program, kinds=None) -> torch
     if not terms.is_cuda:
         return _ref.predicate_mask(program, terms, valid, weights, kinds).to(torch.int32)
     out = _mask(terms, valid, weights, program, window=True, kinds=kinds)
-    _count("predicate_eval")
+    _build.count_launch("predicate_eval")
     return out
 
 
@@ -270,7 +246,8 @@ def _launch_stage(planes, strides, rows, S: int, T: int, E: int, K: int,
     tile, mode, smem = launch_plan(planes, strides, E, K, program, lanes)
     p = _build.ptr
     rc = _build.call_on(
-        device, _stage_fn(), *(p(x) for x in planes), *strides,
+        device, _build.function("predicate_eval", "cascade_stage_launch", _STAGE_ARGTYPES),
+        *(p(x) for x in planes), *strides,
         None if rows is None else p(rows), S, T, program.n_groups, E, K,
         tile, mode, smem, lanes, planes_read(program),
         *program_args(program, device, kinds), p(packed),
@@ -278,7 +255,7 @@ def _launch_stage(planes, strides, rows, S: int, T: int, E: int, K: int,
     _build.check_launch("cascade_stage", rc)
     # the launch zeroes `out` first, then runs the kernel if S and E
     if S and E:
-        _count("cascade_stage")
+        _build.count_launch("cascade_stage")
     return packed, out
 
 
@@ -380,7 +357,6 @@ __all__ = [
     "mask_lanes",
     "mask_plan",
     "planes_read",
-    "launches",
     "predicate_eval",
     "predicate_eval_batch",
     "stage_plan",

@@ -6,9 +6,10 @@ order.  By convention payload column 0 is the local event index, so the
 packed output alone gives the host the survivor mask (see
 ``repro_torch.core.neardata.fused_window_skim``).
 
-Two wrappers over one launch, each with its own launch counter:
-:func:`skim_fused` (one window, the engine's per-window path) and
-:func:`skim_fused_batch` (a batch of windows, each packed on its own);
+Two wrappers over one launch, each counted under its own name
+(``_build.launch_counts``): :func:`skim_fused` (one window, the engine's
+per-window path) and :func:`skim_fused_batch` (a batch of windows, each
+packed on its own);
 the first is the B = 1 launch of the second.  A launch is one kernel
 (single-pass compaction by decoupled look-back, the zero tail written by
 the kernel itself), and writes the counts and the packed rows into one
@@ -43,12 +44,11 @@ MAX_STACK = 16  # RPN stack depth the kernel holds (csrc kMaxStack)
 MAX_WINDOWS = 65535  # the grid's y dimension (one window per row)
 ROW_WIDTHS = (1, 2, 4, 8)  # payload element bytes the kernel moves as raw bits
 
-# kernel launches through each wrapper; never reset here
-launches = {"skim_fused": 0, "skim_fused_batch": 0}
-KERNELS_PER_CALL = 1  # skim_fused_launch runs one kernel
-_LAUNCHES_LOCK = threading.Lock()  # pipelined skims call from several threads
 EPOCH_LIMIT = 1 << 30  # epochs live in 30 bits of a status word
 PROGRAM_ARGS = 9  # descriptor pointers a launch takes (program_args)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I, _I, _I,
+             *([_P] * PROGRAM_ARGS), _P, _P, ctypes.c_uint, _P, _P, _P)
 
 # (id(program), kinds, device) -> (descriptor arrays, pointer arguments).
 # An entry leaves when its program is collected, so the map holds only
@@ -151,10 +151,8 @@ def _descriptor_entry(program: Program, device: torch.device, kinds=None):
     key = (id(program), kinds, device)
     entry = _DESCRIPTORS.get(key)
     if entry is None:
-        from repro_torch.kernels import ops
-
         *arrays, offsets = flatten_program(program, kinds)
-        ints, doubles = (ops.to_device(a, device) for a in arrays)
+        ints, doubles = (_build.to_device(a, device) for a in arrays)
 
         def at(base, name):
             return ctypes.c_void_p(base.data_ptr() + base.element_size() * offsets[name])
@@ -206,17 +204,6 @@ class Workspace:
                 ws.status.zero_()
                 ws.epoch = 1
             return ws.status, ws.tickets, ws.epoch
-
-
-def _lib():
-    lib = _build.load("skim_fused")
-    fn = lib.skim_fused_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_longlong, i, i, i,
-                       *([p] * PROGRAM_ARGS), p, p, ctypes.c_uint, p, p, p]
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def _check(who, name, x, shape, device):
@@ -281,12 +268,12 @@ def launch(who, terms, valid, weights, payload, program: Program, kinds=None):
         device, stream, B * -(-E // EVENT_TILE), B)
     p = _build.ptr
     rc = _build.call_on(
-        device, _lib().skim_fused_launch, p(terms), p(valid), p(weights), p(payload),
+        device, _build.function("skim_fused", "skim_fused_launch", _ARGTYPES),
+        p(terms), p(valid), p(weights), p(payload),
         B, T, G, E, K, D, width, *args, p(status), p(tickets), epoch,
         ctypes.c_void_p(buf.data_ptr() + 4 * hdr), p(buf), ctypes.c_void_p(stream))
     _build.check_launch(who, rc)
-    with _LAUNCHES_LOCK:
-        launches[who] += KERNELS_PER_CALL
+    _build.count_launch(who)
     return buf
 
 
@@ -343,7 +330,6 @@ def skim_fused_batch(terms, valid, weights, payload, program: Program, kinds=Non
 
 __all__ = [
     "EVENT_TILE",
-    "KERNELS_PER_CALL",
     "MAX_WINDOWS",
     "PROGRAM_ARGS",
     "ROW_WIDTHS",
@@ -351,7 +337,6 @@ __all__ = [
     "flatten_program",
     "header_words",
     "launch",
-    "launches",
     "program_args",
     "program_descriptor",
     "skim_fused",

@@ -16,7 +16,6 @@ plain version, :func:`repro_torch.kernels.ref.stream_compact_ref`.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -26,26 +25,14 @@ from repro_torch.kernels.skim_fused import Workspace
 
 EVENT_TILE = 2048  # events per block (csrc/stream_compact.cu kTile)
 MASK_DTYPES = (torch.bool, torch.int32)
-
-launches = 0  # kernel launches through stream_compact(); never reset here
-KERNELS_PER_CALL = 1  # single pass: one kernel a call
-_LAUNCHES_LOCK = threading.Lock()
-
-
-def _fn():
-    fn = _build.load("stream_compact").stream_compact_launch
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, ctypes.c_longlong, i, i, p, p, ctypes.c_uint, p, p, p]
-        fn.restype = ctypes.c_int
-    return fn
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_P, _P, _I, ctypes.c_longlong, _I, _I, _P, _P, ctypes.c_uint, _P, _P, _P)
 
 
 def stream_compact(payload: torch.Tensor, mask: torch.Tensor):
     """(E, D) payload of any dtype of 1, 2, 4 or 8 bytes, (E,) bool or
     int32 mask -> (packed (E, D) with the rows where ``mask != 0`` first,
     in order, then zeros; count () int32).  Any E and D."""
-    global launches
     if mask.dtype not in MASK_DTYPES:
         raise ValueError(f"stream_compact: mask must be bool or int32, not {mask.dtype}")
     if payload.dim() != 2 or mask.dim() != 1 or mask.shape[0] != payload.shape[0]:
@@ -71,13 +58,13 @@ def stream_compact(payload: torch.Tensor, mask: torch.Tensor):
     stream = _build.stream_id(device)
     status, ticket, epoch = Workspace.reserve(device, stream, -(-E // EVENT_TILE), 1)
     p = _build.ptr
-    rc = _build.call_on(device, _fn(), p(payload), p(mask), mask.element_size(), E, D,
-                        width, p(status), p(ticket), epoch, p(out), p(total),
-                        ctypes.c_void_p(stream))
+    rc = _build.call_on(
+        device, _build.function("stream_compact", "stream_compact_launch", _ARGTYPES),
+        p(payload), p(mask), mask.element_size(), E, D, width, p(status), p(ticket),
+        epoch, p(out), p(total), ctypes.c_void_p(stream))
     _build.check_launch("stream_compact", rc)
-    with _LAUNCHES_LOCK:
-        launches += KERNELS_PER_CALL
+    _build.count_launch("stream_compact")
     return out, total
 
 
-__all__ = ["EVENT_TILE", "KERNELS_PER_CALL", "MASK_DTYPES", "stream_compact"]
+__all__ = ["EVENT_TILE", "MASK_DTYPES", "stream_compact"]

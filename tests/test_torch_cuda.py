@@ -10,6 +10,7 @@ exact: the kernels are built without fast math and without FMA
 contraction, so they round as the plain versions' separate ops do.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -29,6 +30,7 @@ import chip_smoke  # noqa: E402  (the card checks and the queries)
 from repro_torch.core import run_skim  # noqa: E402
 from repro_torch.core.neardata import compact_jnp, skim_mask  # noqa: E402
 from repro_torch.data.synth import make_nanoaod_like  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import basket_decode as bd  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -81,6 +83,128 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
         "cascade_stage": 0, "predicate_eval_batch": 0, "predicate_eval": 0,
         "stream_compact": 0, "flash_attention": 0,
     }
+
+
+LAUNCH_NAMES = ("skim_fused", "skim_fused_batch", "basket_decode", "cascade_stage",
+                "predicate_eval_batch", "predicate_eval", "stream_compact",
+                "flash_attention")
+
+
+@pytest.mark.parametrize("case", ["threads", "reset", "keys"])
+def test_the_launch_counter(case):
+    """One counter under one lock: threads counting at once under one name
+    give the exact total; a reset zeroes every name; the names are the
+    eight wrapper entries, and no other is counted."""
+    ops.reset_launch_counts()
+    if case == "threads":
+        # more threads than cores, switching often: a lost update shows
+        n_threads, each = 2 * len(os.sched_getaffinity(0)) + 1, 5_000
+        start = threading.Barrier(n_threads)
+
+        def count():
+            start.wait(timeout=30)
+            for _ in range(each):
+                _build.count_launch("cascade_stage")
+
+        threads = [threading.Thread(target=count, name=f"count-{i}")
+                   for i in range(n_threads)]
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=60)
+        finally:
+            sys.setswitchinterval(interval)
+        assert not any(th.is_alive() for th in threads)
+        assert ops.launch_counts() == dict.fromkeys(LAUNCH_NAMES, 0) | {
+            "cascade_stage": n_threads * each}
+    elif case == "reset":
+        for i, name in enumerate(LAUNCH_NAMES):
+            for _ in range(i + 1):
+                _build.count_launch(name)
+        assert list(ops.launch_counts().values()) == list(range(1, 9))
+        ops.reset_launch_counts()
+        assert ops.launch_counts() == dict.fromkeys(LAUNCH_NAMES, 0)
+    else:
+        assert tuple(ops.launch_counts()) == LAUNCH_NAMES
+        with pytest.raises(KeyError):
+            _build.count_launch("skim")
+        assert tuple(ops.launch_counts()) == LAUNCH_NAMES
+
+
+def test_no_kernel_module_imports_ops():
+    """The kernel tier's arrows point down: ``ops`` over the wrappers over
+    ``_build``.  No module under ``kernels/`` but the package's
+    ``__init__`` imports ``ops``, at its top or inside a function."""
+    kdir = ROOT / "src" / "repro_torch" / "kernels"
+    found = []
+    for path in sorted(kdir.glob("*.py")):
+        if path.name == "__init__.py":
+            continue
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = node.module or ""
+                if node.level:
+                    base = "repro_torch.kernels" + (f".{base}" if base else "")
+                names = [base, *(f"{base}.{a.name}" for a in node.names)]
+            else:
+                continue
+            if "repro_torch.kernels.ops" in names:
+                found.append(f"{path.name}:{node.lineno}")
+    assert len(list(kdir.glob("*.py"))) > 5 and not found
+
+
+@pytest.mark.cuda
+def test_cuda_staged_round_trips_are_counted_once_each_way(cuda_device):
+    """A decode round, a staged stage step and a numpy ``ops.fused_skim``
+    each add one host-to-device copy of their staged bytes, one
+    device-to-host copy of their output (none for the stage step, whose
+    summary ``stage_summary_host`` reads) and one launch of their kernel."""
+    from repro_torch.data.codecs import bitpack_raw_parts
+
+    def delta(fn):
+        torch.cuda.synchronize()
+        before = ops.transfer_stats()
+        ops.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        after = ops.transfer_stats()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        return {k: after[k] - before[k] for k in after}, launches
+
+    blobs, dtypes, _ = chip_smoke.round_blobs(np.random.default_rng(9))
+    parts = {n: [bitpack_raw_parts(b) for b in bs] for n, bs in blobs.items()}
+    layout = ops.plan_round([(p, ops.torch_dtype(dtypes[n])) for n, ps in parts.items()
+                             for p in ps if p["n"] and p["kind"] != 3])
+    assert delta(lambda: ops.basket_decode_round(parts, dtypes, cuda_device)) == (
+        {"h2d_copies": 1, "h2d_bytes": 4 * layout["n_in"],
+         "d2h_copies": 1, "d2h_bytes": layout["out_bytes"]}, {"basket_decode": 1})
+
+    prog = dict(chip_smoke.sweep_programs())["ht"]
+    staged, packed, seg, nb = chip_smoke.staged_batch(
+        np.random.default_rng(3), prog, 16, 4096, 64, 4096, (0, 4, 8, 12))
+    inputs = ops.CascadeInputs(staged.shape, prog.n_groups, staged.rows, cuda_device)
+    inputs.host.copy_(staged.host)
+    carried = torch.from_numpy(packed).to(cuda_device)
+    seg_t = torch.from_numpy(seg).to(cuda_device)
+    ops.warm_cascade_stage(prog, inputs.shape, nb, device=cuda_device)
+    assert delta(lambda: ops.cascade_stage_step_staged(
+        inputs, carried, seg_t, prog, nb, device=cuda_device)) == (
+        {"h2d_copies": 1, "h2d_bytes": inputs.nbytes, "d2h_copies": 0, "d2h_bytes": 0},
+        {"cascade_stage": 1})
+
+    host = chip_smoke.sweep_inputs(np.random.default_rng(4), prog, 4096, 8, 3)
+    ops.fused_skim(*host, prog, device=cuda_device)  # the program's descriptors go up
+    planes = sum(np.asarray(a, np.float32).size for a in host[:3])
+    rows = -(-host[3].nbytes // 4)
+    assert delta(lambda: ops.fused_skim(*host, prog, device=cuda_device)) == (
+        {"h2d_copies": 1, "h2d_bytes": 4 * (((planes + 3) & ~3) + rows),
+         "d2h_copies": 1, "d2h_bytes": 4 * (sf.header_words(1) + rows)},
+        {"skim_fused": 1})
 
 
 @pytest.mark.cuda
@@ -303,9 +427,9 @@ def test_cuda_new_entry_points_launch_their_kernels(cuda_device):
     q = rng.normal(size=(1, 2, 64, 16)).astype(np.float32)
     out = ops.flash_attention(q, q, q)
     assert got.is_cuda and packed.is_cuda and out.is_cuda
-    assert sf.KERNELS_PER_CALL == 1  # single-pass compaction: one kernel a call
+    # single-pass compaction: one kernel a call
     assert ops.launch_counts()["skim_fused_batch"] == 1
-    assert ops.launch_counts()["stream_compact"] == sc.KERNELS_PER_CALL
+    assert ops.launch_counts()["stream_compact"] == 1
     assert ops.launch_counts()["flash_attention"] == 1
 
 
@@ -413,7 +537,6 @@ def test_cuda_stream_compact_is_one_launch_per_call(cuda_device):
     for _ in range(5):
         got, count = sc.stream_compact(payload, mask)
     torch.cuda.synchronize()
-    assert sc.KERNELS_PER_CALL == 1
     assert ops.launch_counts()["stream_compact"] == 5
     assert int(count) == int(n) and chip_smoke.bit_err(got, want) == 0.0
 

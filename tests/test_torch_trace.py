@@ -32,7 +32,7 @@ from repro.data.synth import make_nanoaod_like as j_make  # noqa: E402
 from repro_torch.core import SkimEngine  # noqa: E402
 from repro_torch.core.engine import drain  # noqa: E402
 from repro_torch.data.synth import make_nanoaod_like  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 
 N = 12_000
@@ -293,7 +293,7 @@ def _noting(monkeypatch, name: str, way: str):
     fn = getattr(ops, name)
 
     def noted(*args, **kwargs):
-        ops._note_copy(way, 4)
+        _build.note_copy(way, 4)
         return fn(*args, **kwargs)
 
     monkeypatch.setattr(ops, name, noted)
@@ -308,9 +308,9 @@ def test_concurrent_skims_count_only_their_own_copies():
 
     def skim(n):
         for _ in range(200):
-            ops._note_copy("h2d", n)
+            _build.note_copy("h2d", n)
             yield
-        worker = threading.Thread(target=trace.carried(lambda: ops._note_copy("d2h", n)))
+        worker = threading.Thread(target=trace.carried(lambda: _build.note_copy("d2h", n)))
         worker.start()
         worker.join()
         return trace.active_tally().counts()
